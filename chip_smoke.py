@@ -1,0 +1,648 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py     # the whole check, one card
+
+Phases, each fatal on failure (the script exits non-zero and prints no
+result):
+
+1. Card: its name and power limit (nvidia-smi).
+2. Build: the native coordination core (g++) and every Hopper kernel
+   (one nvcc per csrc/*.cu, all at once), with their build times.
+3. Kernel checks: every kernel of the main path against its plain PyTorch
+   version on the card, in bf16, at the flagship shapes, element by
+   element within the stated tolerances (TOL_*); each check must also
+   reject a planted fault (a tile left out of a loop, a term dropped), so
+   a tolerance loose enough to pass a broken kernel fails the run.  Then
+   CUDA-event times of the kernel, the plain version, one
+   library call where PyTorch has one, and the bound (the least time the
+   card could take: bytes over 3.35 TB/s or bf16 operations over
+   989 TFLOP/s, the H100 SXM peaks at 700 W).
+4. Main path: a lighthouse, then two replica groups as two processes on the
+   one card, each training the flagship transformer (12 layers, d_model
+   768, 6 x 128 heads, vocab 32000, seq 1024, batch 16) under the
+   fault-tolerant loop (Manager -> GradientAverager over TCPCollective ->
+   should_commit -> AdamW).  Group 0 starts alone; group 1 starts after
+   group 0 has committed SOLO_STEPS steps, heals from it over HTTPTransport,
+   and both run merged to the same final step; group 0 then times plain
+   full_steps (compute alone).  Asserted: every step commits,
+   every loss is finite, group 1 healed, both groups end with the same
+   params_sha256, and every kernel launched exactly as often as the steps
+   require (flash kernels 12 a step, cross-entropy kernels 1 a step).
+5. The kernels line, ``{"kernels": [...]}``, then the last line,
+   ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense, 700 W
+PEAK_BYTES_PER_S = 3.35e12
+MERGED_STEPS = 3          # steps both groups run with 2 participants
+SOLO_STEPS = 4            # steps group 0 commits before group 1 starts
+RAW_STEPS = 3             # group 0's plain full_step timings after the run
+GROUP_TIMEOUT_S = 600.0
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 3: kernel checks ---------------------------------------------------
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(t_ops, t_mem),
+        "bound_by": "operations" if t_ops >= t_mem else "bytes",
+        "flops": flops,
+        "bytes": nbytes,
+    }
+
+
+# Element-wise tolerances, |got - ref| <= rtol |ref| + row x rms(ref's row)
+# + atol, a row being the last axis (one output row of D or V values).
+# Flash: bf16 outputs (2^-9 relative) and bf16 P / dS in the products,
+# whose rounding scales with the magnitude of the row's terms, not with the
+# element; the row term covers that, and a 1e-4 floor the f32 summation
+# order where a row is all but zero (the first causal dq row).  A typical
+# element in the causal bulk is ~0.05, so the floor is 0.2% of it.
+# Cross-entropy dlogits at scale 1: bf16 outputs, logits from the same bf16
+# inputs with f32 accumulation; a typical off-target entry is ~2e-5, so the
+# floor is 1e-6.
+TOL_FLASH = {"rtol": 1e-2, "row": 2e-2, "atol": 1e-4}
+TOL_LSE = {"rtol": 0.0, "row": 0.0, "atol": 1e-4}
+TOL_DLOGITS = {"rtol": 2e-2, "row": 0.0, "atol": 1e-6}
+
+
+def tol_text(tol: dict) -> str:
+    return f"{tol['rtol']:g}|ref| + {tol['row']:g} rms(ref row) + {tol['atol']:g}"
+
+
+def err_ratio(got, ref, tol: dict):
+    """(max |got - ref|, rms(ref), max of |got - ref| over the allowed error,
+    share of elements over it); the check passes while the ratio is <= 1."""
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    allowed = tol["rtol"] * ref.abs() + tol["atol"]
+    if tol["row"]:
+        allowed += tol["row"] * ref.square().mean(-1, keepdim=True).sqrt()
+    over = err / allowed
+    return (float(err.max()), float(ref.square().mean().sqrt()), float(over.max()),
+            float((over > 1).float().mean()))
+
+
+def check(name: str, got, ref, tol: dict) -> dict:
+    e, rms, ratio, _ = err_ratio(got, ref, tol)
+    print(f"  {name}: max_abs_err {e:.3e}, rms(ref) {rms:.3e}, worst err/allowed "
+          f"{ratio:.3f} (tolerance {tol_text(tol)})", flush=True)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: error {ratio:.3f}x the tolerance {tol_text(tol)}")
+    return {"max_abs_err": e, "ref_rms": rms, "err_over_tol": ratio, "tol": tol_text(tol)}
+
+
+def reject(name: str, fault, ref, tol: dict) -> float:
+    """A planted fault must fail the same check; returns its worst ratio."""
+    _, _, ratio, share = err_ratio(fault, ref, tol)
+    print(f"  planted fault {name}: worst err/allowed {ratio:.3f}, "
+          f"{share:.4f} of elements over (rejected: {ratio > 1.0})", flush=True)
+    if not ratio > 1.0:
+        raise AssertionError(f"the check accepts the planted fault {name}")
+    return ratio
+
+
+def kernel_checks() -> dict:
+    """Holds each kernel against its plain version, shows that each check
+    rejects a planted fault, and returns per-kernel records (error,
+    tolerance, times, bound) keyed by kernel name."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.ops import KERNELS
+    from torchft_tpu_torch.ops import attention as A
+    from torchft_tpu_torch.ops import cross_entropy as C
+
+    cfg, batch, seq = flagship_config()
+    H, D = cfg.n_heads, cfg.d_head
+    BH = batch * H
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scale = D ** -0.5
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    rec = {n: {} for n in KERNELS}
+
+    def note(name, **kw):
+        rec[name].update(kw)
+
+    def keep(name, r, case):
+        """Keeps the case with the largest error relative to its tolerance."""
+        if r["err_over_tol"] >= rec[name].get("err_over_tol", -1.0):
+            note(name, **r, checked=case)
+
+    # Flash forward: causal at the flagship shape, and one non-causal case.
+    q, k, v = randn(BH, seq, D), randn(BH, seq, D), randn(BH, seq, D)
+    for causal in (True, False):
+        o, lse = A.flash_fwd(q, k, v, scale, causal)
+        o_ref, lse_ref = A._fa_reference(q.float(), k.float(), v.float(), scale, causal)
+        keep("flash_fwd", check(f"flash_fwd causal={causal} O", o, o_ref, TOL_FLASH),
+             f"O, flagship shape, causal={causal}")
+        check(f"flash_fwd causal={causal} lse", lse, lse_ref, TOL_LSE)
+        if causal:
+            o_bad = A._fa_reference(q.float(), k.float(), v.float(), 1.05 * scale, causal)[0]
+            note("flash_fwd", planted={"O with the softmax scale 5% high": reject(
+                "O with the softmax scale 5% high", o_bad, o_ref, TOL_FLASH)})
+
+    def planted_bwd(q, k, v, o, lse, do, dq, dv, rq, rv) -> dict:
+        """What a causal backward that skipped one tile of a loop would give:
+        dq without kv tile 1 (keys 64-127) in the rows past it, and dv
+        without the last q tile in the keys of the second half."""
+        s = q.shape[1]
+        qf, kf, vf, df = q.float(), k.float(), v.float(), do.float()
+        delta = (df * o.float()).sum(-1, keepdim=True)
+        t1 = slice(64, 128)
+        p = torch.exp(torch.einsum("bqd,bkd->bqk", qf, kf[:, t1]) * scale - lse[..., None])
+        ds = p * (torch.einsum("bqd,bkd->bqk", df, vf[:, t1]) - delta) * scale
+        dq_part = torch.einsum("bqk,bkd->bqd", ds, kf[:, t1])
+        dq_part[:, :128] = 0
+        last = slice(s - 64, s)
+        sl = torch.einsum("bqd,bkd->bqk", qf[:, last], kf) * scale
+        rows = torch.arange(s - 64, s, device=q.device)[:, None]
+        cols = torch.arange(s, device=q.device)[None, :]
+        pl = torch.where(rows >= cols, torch.exp(sl - lse[:, last, None]), 0.0)
+        dv_part = torch.einsum("bqk,bqd->bkd", pl, df[:, last])
+        dv_part[:, : s // 2] = 0
+        return {
+            "dq without kv tile 1": reject("dq without kv tile 1", dq.float() - dq_part, rq,
+                                           TOL_FLASH),
+            "dv without the last q tile": reject("dv without the last q tile",
+                                                 dv.float() - dv_part, rv, TOL_FLASH),
+        }
+
+    # Flash backward: flagship S=1024 (causal and not) and S=4096 causal,
+    # where the TPU package takes its two-pass form.
+    for bh, s, causal in ((BH, seq, True), (BH, seq, False), (8, 4096, True)):
+        qq, kk, vv, do = randn(bh, s, D), randn(bh, s, D), randn(bh, s, D), randn(bh, s, D)
+        o, lse = A.flash_fwd(qq, kk, vv, scale, causal)
+        dq, dk, dv = A.flash_bwd(qq, kk, vv, o, lse, do, scale, causal)
+        rq, rk, rv = A._fa_bwd_reference(
+            qq.float(), kk.float(), vv.float(), o.float(), lse, do.float(), scale, causal
+        )
+        case = f"S={s} BH={bh} causal={causal}"
+        for nm, got, ref, kern in (("dq", dq, rq, "flash_bwd_dq"), ("dk", dk, rk, "flash_bwd_dkdv"),
+                                   ("dv", dv, rv, "flash_bwd_dkdv")):
+            keep(kern, check(f"flash_bwd {case} {nm}", got, ref, TOL_FLASH), f"{nm}, {case}")
+        if (bh, s, causal) == (BH, seq, True):
+            faults = planted_bwd(qq, kk, vv, o, lse, do, dq, dv, rq, rv)
+            note("flash_bwd_dq", planted={"dq without kv tile 1": faults["dq without kv tile 1"]})
+            note("flash_bwd_dkdv",
+                 planted={"dv without the last q tile": faults["dv without the last q tile"]})
+        del qq, kk, vv, do, o, lse, dq, dk, dv, rq, rk, rv
+        torch.cuda.empty_cache()
+
+    # Cross-entropy at N=16384, E=768, V=32000.
+    N, E, V = batch * seq, cfg.d_model, cfg.vocab_size
+    x, w = randn(N, E), randn(E, V, std=E ** -0.5)
+    t = torch.randint(0, V, (N,), generator=gen, device=dev)
+    lse = C.ce_lse(x, w)
+    lse_ref = C._ce_lse_reference(x, w)
+    note("ce_lse", **check("ce_lse", lse, lse_ref, TOL_LSE), checked="lse")
+    note("ce_lse", planted={"lse without the last vocab tile": reject(
+        "lse without the last vocab tile", C._ce_lse_reference(x, w[:, :-64]), lse_ref,
+        TOL_LSE)})
+    one = torch.ones(1, device=dev)
+    dl = C.ce_dlogits(x, w, t, lse_ref, one)
+    dl_ref = C._ce_dlogits_reference(x.float(), w.float(), t, lse_ref, 1.0)
+    note("ce_dlogits", **check("ce_dlogits (scale 1)", dl, dl_ref, TOL_DLOGITS),
+         checked="dlogits at scale 1")
+    onehot = torch.zeros_like(dl)
+    onehot[torch.arange(N, device=dev), t] = -1.0
+    tile_zeroed = dl.clone()
+    tile_zeroed[:, 64:128] = 0.0
+    note("ce_dlogits", planted={
+        "-onehot only": reject("-onehot only", onehot, dl_ref, TOL_DLOGITS),
+        "vocab tile 1 zeroed": reject("vocab tile 1 zeroed", tile_zeroed, dl_ref, TOL_DLOGITS),
+    })
+    del dl, dl_ref, lse_ref, onehot, tile_zeroed
+    torch.cuda.empty_cache()
+
+    # -- times ------------------------------------------------------------
+    print("timing (CUDA events, after warm-up):", flush=True)
+    causal = True
+    pairs = seq * (seq + 1) // 2
+    o, lse = A.flash_fwd(q, k, v, scale, causal)
+    do = randn(BH, seq, D)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    hs = BH * seq * D * 2  # bytes of one [BH, S, D] bf16 tensor
+    rows = BH * seq * 4    # bytes of one [BH, S] f32 tensor
+    q4, k4, v4, do4 = (x_.view(batch, H, seq, D) for x_ in (q, k, v, do))
+
+    note("flash_fwd",
+         ms=cuda_ms(lambda: A.flash_fwd(q, k, v, scale, causal), 20),
+         plain_ms=cuda_ms(lambda: A._fa_reference(q, k, v, scale, causal), 5),
+         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20),
+         library_call="scaled_dot_product_attention forward",
+         **bound(2 * 2 * pairs * D * BH, 4 * hs + rows))
+    dkdv = KERNELS["flash_bwd_dkdv"]
+    dqk = KERNELS["flash_bwd_dq"]
+    plain_bwd = cuda_ms(lambda: A._fa_bwd_reference(q, k, v, o, lse, do, scale, causal), 3)
+    q4r, k4r, v4r = (x_.detach().clone().requires_grad_() for x_ in (q4, k4, v4))
+    out4 = F.scaled_dot_product_attention(q4r, k4r, v4r, is_causal=True)
+    sdpa_bwd = cuda_ms(
+        lambda: torch.autograd.grad(out4, (q4r, k4r, v4r), do4, retain_graph=True), 10
+    )
+    note("flash_bwd_dkdv",
+         ms=cuda_ms(lambda: dkdv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 BH, seq, D, scale, 1), 20),
+         plain_ms=plain_bwd, library_ms=sdpa_bwd,
+         library_call="scaled_dot_product_attention backward (dq, dk, dv together)",
+         plain_call="_fa_bwd_reference (dq, dk, dv together)",
+         **bound(4 * 2 * pairs * D * BH, 4 * hs + 2 * rows + 2 * hs))
+    note("flash_bwd_dq",
+         ms=cuda_ms(lambda: dqk(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                                BH, seq, D, scale, 1), 20),
+         plain_ms=plain_bwd, library_ms=sdpa_bwd,
+         library_call="scaled_dot_product_attention backward (dq, dk, dv together)",
+         plain_call="_fa_bwd_reference (dq, dk, dv together)",
+         **bound(3 * 2 * pairs * D * BH, 4 * hs + 2 * rows + hs))
+    del q4r, k4r, v4r, out4
+    lse_ce = C.ce_lse(x, w)
+    g = torch.full((1,), 1.0 / N, device=dev)
+    note("ce_lse",
+         ms=cuda_ms(lambda: C.ce_lse(x, w), 5),
+         plain_ms=cuda_ms(lambda: C._ce_lse_reference(x, w), 3),
+         library_ms=None,
+         **bound(2 * N * E * V, N * E * 2 + E * V * 2 + N * 4))
+    note("ce_dlogits",
+         ms=cuda_ms(lambda: C.ce_dlogits(x, w, t, lse_ce, g), 5),
+         plain_ms=cuda_ms(lambda: C._ce_dlogits_reference(x, w, t, lse_ce, g), 3),
+         library_ms=None,
+         **bound(2 * N * E * V, N * E * 2 + E * V * 2 + 2 * N * 4 + 4 + N * V * 2))
+    for name, r in rec.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        print(f"  {name}: kernel_ms {r['ms']:.3f}  plain_ms {r['plain_ms']:.3f}  "
+              f"library_ms {lib}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rec
+
+
+# -- phase 4: one replica group (run as its own process) ---------------------
+
+
+def run_group(args: argparse.Namespace) -> None:
+    import logging
+    from datetime import timedelta
+
+    import torch
+
+    from torchft_tpu_torch.checkpointing import HTTPTransport
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"[g{args.group}] %(message)s")
+    group, run_dir = args.group, args.run_dir
+    cfg, batch, seq = flagship_config()
+    dev = resolve_device("cuda")
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1000 + group))
+    # Every AdamW hyperparameter explicit (the JAX side's optax defaults differ).
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+
+    def state_dict():
+        return {"model": model.state_dict(), "optim": opt.state_dict()}
+
+    def load_state_dict(sd):
+        model.load_state_dict(sd["model"])
+        opt.load_state_dict(sd["optim"])
+
+    def wait_for(path: str) -> None:
+        deadline = time.monotonic() + GROUP_TIMEOUT_S
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"group {group}: {path} never appeared")
+            time.sleep(0.05)
+
+    timeout = timedelta(seconds=180)
+    collective = TCPCollective(timeout=180.0, host="127.0.0.1")
+    manager = Manager(
+        collective=collective,
+        load_state_dict=load_state_dict,
+        state_dict=state_dict,
+        min_replica_size=1,
+        rank=0,
+        world_size=1,
+        replica_id=f"smoke_g{group}",
+        lighthouse_addr=args.lighthouse,
+        store_addr="127.0.0.1",
+        manager_bind="127.0.0.1:0",
+        checkpoint_transport=HTTPTransport(timeout=180.0, host="127.0.0.1"),
+        timeout=timeout,
+        quorum_timeout=timeout,
+    )
+    trainer = TrainStep(model, opt, loss_fn, manager)
+    data = torch.Generator(device=dev).manual_seed(7 + group)
+    if group == 1:
+        open(os.path.join(run_dir, "g1_up"), "w").close()
+
+    reset_launch_counts()
+    steps, merged, healed = [], 0, 0
+    while merged < MERGED_STEPS:
+        if len(steps) > 100:
+            raise RuntimeError("group never merged with its peer")
+        before = manager.current_step()
+        manager.start_quorum()
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=data, device=dev)
+        b = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+        t0 = time.perf_counter()
+        loss, committed = trainer.ft_step(b)
+        loss_v = float(loss)  # waits for the step's kernels
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        participants = manager.num_participants()
+        jumped = manager.current_step() - before > 1
+        healed += int(jumped)
+        rec = {"group": group, "step": manager.current_step(), "loss": loss_v,
+               "committed": committed, "participants": participants,
+               "ring": collective.size(), "healed": jumped, "step_s": dt}
+        steps.append(rec)
+        print("STEP " + json.dumps(rec), flush=True)
+        if not committed:
+            raise RuntimeError(f"group {group}: step {before} did not commit")
+        if not math.isfinite(loss_v):
+            raise RuntimeError(f"group {group}: loss {loss_v} is not finite")
+        if participants == 2:
+            merged += 1
+        if group == 0 and manager.current_step() == SOLO_STEPS:
+            open(os.path.join(run_dir, "g0_ready"), "w").close()
+            wait_for(os.path.join(run_dir, "g1_up"))
+
+    counts = launch_counts()
+    h = hashlib.sha256()
+    for name, p in model.state_dict().items():
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    merged_s = [r["step_s"] for r in steps if r["participants"] == 2]
+    # Group 0's solo steps (ring of one: no gradient traffic), the first
+    # one (warm-up) left out.
+    solo_s = [r["step_s"] for r in steps[1:] if r["ring"] == 1]
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = batch * seq
+    result = {
+        "group": group,
+        "steps_run": len(steps),
+        "final_step": manager.current_step(),
+        "healed": healed,
+        "launches": counts,
+        "losses": [r["loss"] for r in steps],
+        "params_sha256": h.hexdigest(),
+        "heal_step_ms": [1e3 * r["step_s"] for r in steps if r["ring"] == 2
+                         and r["participants"] == 1],
+        "merged_step_ms": 1e3 * sum(merged_s) / len(merged_s),
+        "tokens_per_s": tokens * len(merged_s) / sum(merged_s),
+        "solo_step_ms": 1e3 * sum(solo_s) / len(solo_s) if solo_s else None,
+        # 6 N per token for the dense layers plus the causal attention term
+        # 6 L S d (the JAX bench's model-FLOP count).
+        "model_flops_per_step": (6 * n_params + 6 * cfg.n_layers * seq * cfg.d_model) * tokens,
+    }
+    manager.shutdown()
+    if group == 0:
+        # The compute alone: TrainStep.full_step (forward, backward, AdamW;
+        # no quorum, no cross-group average), timed after the FT run.
+        raw = []
+        for _ in range(RAW_STEPS):
+            t0 = time.perf_counter()
+            float(trainer.full_step(b))
+            torch.cuda.synchronize()
+            raw.append(time.perf_counter() - t0)
+        result["raw_step_ms"] = 1e3 * sum(raw) / len(raw)
+    print("RESULT " + json.dumps(result), flush=True)
+
+
+# -- phase 4: the parent process -----------------------------------------------
+
+
+def main_path(card: str) -> dict:
+    from torchft_tpu_torch._native import LighthouseServer
+
+    lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
+                                  min_replicas=1, join_timeout_ms=100)
+    run_dir = tempfile.mkdtemp(prefix="tpuft_smoke_")
+    procs, readers, results, errors = {}, {}, {}, []
+
+    def start(group: int) -> None:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--group", str(group),
+             "--lighthouse", lighthouse.address(), "--run-dir", run_dir],
+            stdout=subprocess.PIPE, text=True, cwd=HERE,
+        )
+        procs[group] = proc
+
+        def read() -> None:
+            assert proc.stdout is not None
+            for line in proc.stdout:
+                line = line.rstrip("\n")
+                print(f"  [g{group}] {line}", flush=True)
+                if line.startswith("RESULT "):
+                    results[group] = json.loads(line[len("RESULT "):])
+
+        readers[group] = threading.Thread(target=read, daemon=True)
+        readers[group].start()
+
+    def poll_failures() -> None:
+        for g, p in procs.items():
+            rc = p.poll()
+            if rc not in (None, 0):
+                errors.append(f"group {g} exited with {rc}")
+        if errors:
+            raise RuntimeError("; ".join(errors))
+
+    try:
+        t_start = time.monotonic()
+        start(0)
+        while not os.path.exists(os.path.join(run_dir, "g0_ready")):
+            poll_failures()
+            if time.monotonic() - t_start > GROUP_TIMEOUT_S:
+                raise TimeoutError("group 0 never committed its solo steps")
+            time.sleep(0.1)
+        start(1)
+        for g, p in procs.items():
+            rc = p.wait(timeout=GROUP_TIMEOUT_S)
+            readers[g].join(timeout=30)
+            if rc != 0:
+                raise RuntimeError(f"group {g} exited with {rc}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        lighthouse.shutdown()
+        for f in ("g0_ready", "g1_up"):
+            try:
+                os.unlink(os.path.join(run_dir, f))
+            except FileNotFoundError:
+                pass
+        os.rmdir(run_dir)
+
+    r0, r1 = results[0], results[1]
+    if r0["final_step"] != r1["final_step"]:
+        raise AssertionError(f"final steps differ: {r0['final_step']} vs {r1['final_step']}")
+    if r1["healed"] != 1 or r0["healed"] != 0:
+        raise AssertionError(f"expected group 1 to heal once: {r0['healed']}, {r1['healed']}")
+    if r0["params_sha256"] != r1["params_sha256"]:
+        raise AssertionError("the groups' final parameters differ")
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg, batch, seq = flagship_config()
+    per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
+    for r in (r0, r1):
+        for name, k in per_step.items():
+            want = k * r["steps_run"]
+            if r["launches"].get(name) != want:
+                raise AssertionError(
+                    f"group {r['group']}: {name} launched {r['launches'].get(name)} times, "
+                    f"expected {want} ({k} x {r['steps_run']} steps)"
+                )
+    for r in (r0, r1):
+        print(f"group {r['group']}: {r['steps_run']} steps to step {r['final_step']}, "
+              f"merged step {r['merged_step_ms']:.1f} ms, {r['tokens_per_s']:.0f} tokens/s, "
+              f"heal step {r['heal_step_ms']} ms ({card}); params_sha256 {r['params_sha256']}",
+              flush=True)
+    flops = r0["model_flops_per_step"]
+    tokens = batch * seq
+    for name, ms in (("raw full_step", r0["raw_step_ms"]), ("solo ft_step", r0["solo_step_ms"]),
+                     ("merged ft_step", r0["merged_step_ms"])):
+        print(f"group 0 {name}: {ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s, "
+              f"{flops / ms / 1e9:.1f} model TFLOP/s = "
+              f"{flops / ms * 1e3 / PEAK_BF16_FLOPS:.4f} of the bf16 peak ({card})", flush=True)
+    return {name: r0["launches"][name] + r1["launches"][name] for name in per_step}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--group", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--lighthouse", help=argparse.SUPPRESS)
+    parser.add_argument("--run-dir", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from torchft_tpu_torch import _build
+    from torchft_tpu_torch.ops import KERNELS
+
+    if args.group is not None:
+        run_group(args)
+        return 0
+
+    # 1. Card.
+    card = nvidia_smi_line()
+    print(f"card: {card} ({torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.device_count()} visible)", flush=True)
+
+    # 2. Build: the native core and the kernels at the same time.
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native = pool.submit(_build.native_lib_path)
+        _build.build_kernels()
+        native.result()
+    print(f"build: {time.monotonic() - t0:.1f} s wall; " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items())), flush=True)
+    for name, log in sorted(_build.build_logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
+
+    # 3. Kernel checks.
+    print("kernel checks (bf16, flagship shapes):", flush=True)
+    rec = kernel_checks()
+
+    # 4. Main path.
+    print("main path: lighthouse + 2 replica groups, flagship config", flush=True)
+    launches = main_path(card)
+    missing = [n for n in KERNELS if launches.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+
+    # 5. The kernels line, then the last line.
+    kernels = []
+    for name, kern in KERNELS.items():
+        r = rec[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"torchft_tpu_torch/csrc/{kern.source}.cu",
+            "replaces": kern.replaces,
+            "launches": launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ref_rms": r["ref_rms"],
+            "err_over_tol": r["err_over_tol"],
+            "tol": r["tol"],
+            "planted_faults_err_over_tol": r["planted"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("library_call", "plain_call", "checked") if k in r},
+        })
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,87 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+imports without CUDA, and its card entry points raise instead of silently
+running on the CPU."""
+
+from __future__ import annotations
+
+import ast
+import importlib
+import os
+import pkgutil
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "torchft_tpu"}
+
+
+def _port_files():
+    pkg = os.path.join(REPO, "torchft_tpu_torch")
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_roots(path: str):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split(".")[0]
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package() -> None:
+    files = list(_port_files())
+    assert len(files) > 10
+    bad = {
+        os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
+        for p in files
+    }
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_every_port_module_imports_without_cuda() -> None:
+    import torchft_tpu_torch
+
+    names = [
+        m.name
+        for m in pkgutil.walk_packages(torchft_tpu_torch.__path__, "torchft_tpu_torch.")
+    ]
+    assert "torchft_tpu_torch.ops.attention" in names
+    for name in names:
+        importlib.import_module(name)
+
+
+def test_card_entry_point_raises_without_a_card(monkeypatch) -> None:
+    from torchft_tpu_torch.models import Transformer, TransformerConfig, resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2, n_kv_heads=2, d_ff=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+    Transformer(cfg, device="cpu")
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take() -> None:
+    """The shape and dtype checks run before any launch."""
+    from torchft_tpu_torch.ops import attention, cross_entropy
+
+    with pytest.raises(ValueError, match="D in"):
+        attention._check_shapes("flash_fwd", torch.zeros(2, 16, 64))
+    with pytest.raises(ValueError, match="shape"):
+        attention._check_shapes("flash_fwd", torch.zeros(2, 16, 128), torch.zeros(2, 8, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        cross_entropy._check("ce_lse", torch.zeros(4, 16, dtype=torch.bfloat16),
+                             torch.zeros(16, 8, dtype=torch.bfloat16))

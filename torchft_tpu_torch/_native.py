@@ -1,0 +1,386 @@
+"""ctypes bindings to the native coordination core (``libtpuft.so``).
+
+The C ABI (``native/src/capi.cc``) and the wire (``proto/tpuft.proto``) are
+framework-neutral and shared with the JAX package; this module is the
+port's own binding layer over them, so a torch replica group and a JAX
+replica group speak to the same lighthouse and to each other's managers.
+Requests and responses cross the ABI as proto3 bytes built by
+:mod:`torchft_tpu_torch._wire`.  ctypes releases the interpreter lock for
+every native call.
+
+The library is built (``_build.native_lib_path``) and loaded at first use,
+not at import.  This slice binds what the fault-tolerant training loop
+needs: the lighthouse and manager servers, the manager client (quorum,
+checkpoint metadata, commit vote) and the rendezvous store.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from torchft_tpu_torch import _wire
+from torchft_tpu_torch._build import native_lib_path
+
+# Wire status codes (native/src/wire.h).
+_OK = 0
+_CANCELLED = 1
+_DEADLINE_EXCEEDED = 4
+
+# Method ids (native/src/wire.h).  Copied from the JAX package's binding
+# layer; tests/test_torch_native.py pins that the two agree, so mixed
+# JAX/torch quorums stay possible.
+LIGHTHOUSE_QUORUM = 1
+LIGHTHOUSE_HEARTBEAT = 2
+LIGHTHOUSE_STATUS = 3
+LIGHTHOUSE_EVICT = 4
+LIGHTHOUSE_DRAIN = 5
+LIGHTHOUSE_REPLICATE = 6
+LIGHTHOUSE_LEADER_INFO = 7
+LIGHTHOUSE_REGION_DIGEST = 8
+LIGHTHOUSE_REGIONS = 9
+MANAGER_QUORUM = 10
+MANAGER_CHECKPOINT_METADATA = 11
+MANAGER_SHOULD_COMMIT = 12
+MANAGER_KILL = 13
+STORE_SET = 20
+STORE_GET = 21
+STORE_ADD = 22
+STORE_DELETE = 23
+
+_lib_handle: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, cp, u64 = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64
+    errp = ctypes.POINTER(ctypes.c_char_p)
+    lib.tf_free.argtypes = [vp]
+    lib.tf_free.restype = None
+    lib.tf_lighthouse_new.restype = vp
+    lib.tf_lighthouse_new.argtypes = [cp, cp, u64, u64, u64, u64, errp]
+    lib.tf_lighthouse_address.restype = vp
+    lib.tf_lighthouse_address.argtypes = [vp]
+    lib.tf_lighthouse_shutdown.argtypes = [vp]
+    lib.tf_lighthouse_shutdown.restype = None
+    lib.tf_lighthouse_free.argtypes = [vp]
+    lib.tf_lighthouse_free.restype = None
+    lib.tf_manager_new.restype = vp
+    lib.tf_manager_new.argtypes = [cp, cp, cp, cp, u64, u64, u64, errp]
+    lib.tf_manager_address.restype = vp
+    lib.tf_manager_address.argtypes = [vp]
+    lib.tf_manager_shutdown.argtypes = [vp]
+    lib.tf_manager_shutdown.restype = None
+    lib.tf_manager_free.argtypes = [vp]
+    lib.tf_manager_free.restype = None
+    lib.tf_store_new.restype = vp
+    lib.tf_store_new.argtypes = [cp, errp]
+    lib.tf_store_address.restype = vp
+    lib.tf_store_address.argtypes = [vp]
+    lib.tf_store_shutdown.argtypes = [vp]
+    lib.tf_store_shutdown.restype = None
+    lib.tf_store_free.argtypes = [vp]
+    lib.tf_store_free.restype = None
+    lib.tf_client_new.restype = vp
+    lib.tf_client_new.argtypes = [cp, u64, errp]
+    lib.tf_client_call.restype = ctypes.c_int
+    lib.tf_client_call.argtypes = [
+        vp, ctypes.c_uint16, cp, ctypes.c_size_t, u64,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.POINTER(ctypes.c_size_t), errp,
+    ]
+    lib.tf_client_free.argtypes = [vp]
+    lib.tf_client_free.restype = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The loaded native core, built on first use."""
+    global _lib_handle
+    with _lib_lock:
+        if _lib_handle is None:
+            lib = ctypes.CDLL(native_lib_path())
+            _declare(lib)
+            _lib_handle = lib
+        return _lib_handle
+
+
+def _take_string(ptr: int) -> str:
+    if not ptr:
+        return ""
+    value = ctypes.string_at(ptr).decode()
+    _lib().tf_free(ptr)
+    return value
+
+
+def _take_error(err: "ctypes.c_char_p") -> str:
+    if not err.value:
+        return "unknown native error"
+    msg = err.value.decode()
+    _lib().tf_free(ctypes.cast(err, ctypes.c_void_p))
+    return msg
+
+
+def _raise_for_status(status: int, msg: str) -> None:
+    """CANCELLED / DEADLINE_EXCEEDED -> TimeoutError, anything else ->
+    RuntimeError; the wire status rides on the exception."""
+    exc: Exception
+    if status in (_CANCELLED, _DEADLINE_EXCEEDED):
+        exc = TimeoutError(msg)
+    else:
+        exc = RuntimeError(msg)
+    exc.wire_status = status  # type: ignore[attr-defined]
+    raise exc
+
+
+class _Client:
+    """RPC client over one native connection (connects with retry)."""
+
+    def __init__(self, addr: str, connect_timeout_ms: int = 10000) -> None:
+        err = ctypes.c_char_p()
+        self._ptr = _lib().tf_client_new(addr.encode(), connect_timeout_ms, ctypes.byref(err))
+        if not self._ptr:
+            raise TimeoutError(_take_error(err))
+
+    def call(self, method: int, request: bytes, timeout_ms: int) -> bytes:
+        lib = _lib()
+        resp = ctypes.POINTER(ctypes.c_uint8)()
+        resp_len = ctypes.c_size_t()
+        err = ctypes.c_char_p()
+        status = lib.tf_client_call(
+            self._ptr, method, request, len(request), max(0, int(timeout_ms)),
+            ctypes.byref(resp), ctypes.byref(resp_len), ctypes.byref(err),
+        )
+        if status != _OK:
+            _raise_for_status(status, _take_error(err))
+        data = ctypes.string_at(resp, resp_len.value)
+        lib.tf_free(ctypes.cast(resp, ctypes.c_void_p))
+        return data
+
+    def close(self) -> None:
+        if self._ptr:
+            _lib().tf_client_free(self._ptr)
+            self._ptr = None
+
+
+@dataclass
+class QuorumResult:
+    """Per-rank recovery plan returned by :meth:`ManagerClient._quorum`."""
+
+    quorum_id: int = 0
+    replica_rank: int = 0
+    replica_world_size: int = 1
+    recover_src_manager_address: str = ""
+    recover_src_replica_rank: Optional[int] = None
+    recover_dst_replica_ranks: List[int] = field(default_factory=list)
+    recover_dst_replica_ranks_all: List[int] = field(default_factory=list)
+    recover_src_replica_ranks: List[int] = field(default_factory=list)
+    recover_src_manager_addresses: List[str] = field(default_factory=list)
+    participant_replica_ranks: List[int] = field(default_factory=list)
+    participant_manager_addresses: List[str] = field(default_factory=list)
+    store_address: str = ""
+    max_step: int = 0
+    max_replica_rank: Optional[int] = None
+    max_world_size: int = 1
+    heal: bool = False
+
+
+class LighthouseServer:
+    """In-process native lighthouse."""
+
+    def __init__(
+        self,
+        bind: str = "[::]:0",
+        min_replicas: int = 1,
+        join_timeout_ms: int = 100,
+        quorum_tick_ms: int = 100,
+        heartbeat_timeout_ms: int = 5000,
+        http_bind: str = "[::]:0",
+    ) -> None:
+        err = ctypes.c_char_p()
+        self._ptr = _lib().tf_lighthouse_new(
+            bind.encode(), http_bind.encode(), min_replicas, join_timeout_ms,
+            quorum_tick_ms, heartbeat_timeout_ms, ctypes.byref(err),
+        )
+        if not self._ptr:
+            raise RuntimeError(_take_error(err))
+
+    def address(self) -> str:
+        return _take_string(_lib().tf_lighthouse_address(self._ptr))
+
+    def shutdown(self) -> None:
+        if self._ptr:
+            lib = _lib()
+            lib.tf_lighthouse_shutdown(self._ptr)
+            lib.tf_lighthouse_free(self._ptr)
+            self._ptr = None
+
+
+class ManagerServer:
+    """In-process native manager server, run by a group's local rank 0."""
+
+    def __init__(
+        self,
+        replica_id: str,
+        lighthouse_addr: str,
+        bind: str = "[::]:0",
+        store_addr: str = "",
+        world_size: int = 1,
+        heartbeat_interval_ms: int = 100,
+        connect_timeout_ms: int = 10000,
+    ) -> None:
+        err = ctypes.c_char_p()
+        self._ptr = _lib().tf_manager_new(
+            replica_id.encode(), lighthouse_addr.encode(), bind.encode(),
+            store_addr.encode(), world_size, heartbeat_interval_ms,
+            connect_timeout_ms, ctypes.byref(err),
+        )
+        if not self._ptr:
+            raise RuntimeError(_take_error(err))
+
+    def address(self) -> str:
+        return _take_string(_lib().tf_manager_address(self._ptr))
+
+    def shutdown(self) -> None:
+        if self._ptr:
+            lib = _lib()
+            lib.tf_manager_shutdown(self._ptr)
+            lib.tf_manager_free(self._ptr)
+            self._ptr = None
+
+
+class ManagerClient:
+    """Client every local rank uses to talk to its group's manager server."""
+
+    def __init__(self, addr: str, connect_timeout_ms: int = 10000) -> None:
+        self._client = _Client(addr, connect_timeout_ms)
+
+    def _quorum(
+        self,
+        group_rank: int,
+        step: int,
+        checkpoint_metadata: str,
+        shrink_only: bool,
+        timeout_ms: int,
+        init_sync: bool = True,
+        commit_failures: int = 0,
+        trace_id: str = "",
+    ) -> QuorumResult:
+        req = _wire.encode("ManagerQuorumRequest", {
+            "group_rank": group_rank,
+            "step": step,
+            "checkpoint_metadata": checkpoint_metadata,
+            "shrink_only": shrink_only,
+            "init_sync": init_sync,
+            "commit_failures": commit_failures,
+            "trace_id": trace_id,
+        })
+        r = _wire.decode(
+            "ManagerQuorumResponse", self._client.call(MANAGER_QUORUM, req, timeout_ms)
+        )
+        heal = r["heal"]
+        return QuorumResult(
+            quorum_id=r["quorum_id"],
+            replica_rank=r["replica_rank"],
+            replica_world_size=r["replica_world_size"],
+            recover_src_manager_address=r["recover_src_manager_address"],
+            recover_src_replica_rank=r["recover_src_replica_rank"] if heal else None,
+            recover_dst_replica_ranks=r["recover_dst_replica_ranks"],
+            recover_dst_replica_ranks_all=(
+                r["recover_dst_replica_ranks_all"] or r["recover_dst_replica_ranks"]
+            ),
+            recover_src_replica_ranks=r["recover_src_replica_ranks"] if heal else [],
+            recover_src_manager_addresses=(
+                r["recover_src_manager_addresses"] if heal else []
+            ),
+            participant_replica_ranks=r["participant_replica_ranks"],
+            participant_manager_addresses=r["participant_manager_addresses"],
+            store_address=r["store_address"],
+            max_step=r["max_step"],
+            max_replica_rank=r["max_replica_rank"] if r["max_replica_rank"] >= 0 else None,
+            max_world_size=r["max_world_size"],
+            heal=heal,
+        )
+
+    def _checkpoint_metadata(self, rank: int, timeout_ms: int, trace_id: str = "") -> str:
+        req = _wire.encode(
+            "CheckpointMetadataRequest", {"group_rank": rank, "trace_id": trace_id}
+        )
+        resp = self._client.call(MANAGER_CHECKPOINT_METADATA, req, timeout_ms)
+        return _wire.decode("CheckpointMetadataResponse", resp)["checkpoint_metadata"]
+
+    def should_commit(
+        self,
+        group_rank: int,
+        step: int,
+        should_commit: bool,
+        timeout_ms: int,
+        trace_id: str = "",
+    ) -> bool:
+        req = _wire.encode("ShouldCommitRequest", {
+            "group_rank": group_rank,
+            "step": step,
+            "should_commit": should_commit,
+            "trace_id": trace_id,
+        })
+        resp = self._client.call(MANAGER_SHOULD_COMMIT, req, timeout_ms)
+        return _wire.decode("ShouldCommitResponse", resp)["should_commit"]
+
+    def close(self) -> None:
+        self._client.close()
+
+
+class StoreServer:
+    """Native key-value rendezvous store server."""
+
+    def __init__(self, bind: str = "[::]:0") -> None:
+        err = ctypes.c_char_p()
+        self._ptr = _lib().tf_store_new(bind.encode(), ctypes.byref(err))
+        if not self._ptr:
+            raise RuntimeError(_take_error(err))
+
+    def address(self) -> str:
+        return _take_string(_lib().tf_store_address(self._ptr))
+
+    def shutdown(self) -> None:
+        if self._ptr:
+            lib = _lib()
+            lib.tf_store_shutdown(self._ptr)
+            lib.tf_store_free(self._ptr)
+            self._ptr = None
+
+
+class StoreClient:
+    """Client for the rendezvous store; ``"host:port/prefix"`` prefixes
+    every key (the PrefixStore analogue)."""
+
+    def __init__(self, addr: str, prefix: str = "", connect_timeout_ms: int = 10000) -> None:
+        if "/" in addr:
+            addr, extra = addr.split("/", 1)
+            prefix = extra + "/" + prefix if prefix else extra
+        self._client = _Client(addr, connect_timeout_ms)
+        self._prefix = prefix
+
+    def _key(self, key: str) -> str:
+        return f"{self._prefix}/{key}" if self._prefix else key
+
+    def set(self, key: str, value: bytes, timeout_ms: int = 10000) -> None:
+        req = _wire.encode("StoreSetRequest", {"key": self._key(key), "value": value})
+        self._client.call(STORE_SET, req, timeout_ms)
+
+    def get(self, key: str, wait: bool = True, timeout_ms: int = 10000) -> Optional[bytes]:
+        req = _wire.encode("StoreGetRequest", {"key": self._key(key), "wait": wait})
+        resp = _wire.decode("StoreGetResponse", self._client.call(STORE_GET, req, timeout_ms))
+        return resp["value"] if resp["found"] else None
+
+    def add(self, key: str, delta: int, timeout_ms: int = 10000) -> int:
+        req = _wire.encode("StoreAddRequest", {"key": self._key(key), "delta": delta})
+        return _wire.decode("StoreAddResponse", self._client.call(STORE_ADD, req, timeout_ms))["value"]
+
+    def delete(self, key: str, timeout_ms: int = 10000) -> None:
+        req = _wire.encode("StoreDeleteRequest", {"key": self._key(key)})
+        self._client.call(STORE_DELETE, req, timeout_ms)
+
+    def close(self) -> None:
+        self._client.close()

@@ -1,0 +1,4 @@
+from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
+
+__all__ = ["CheckpointTransport", "HTTPTransport"]

@@ -1,0 +1,185 @@
+"""Flagship model: decoder-only transformer LM, the dense flash-attention
+subset of ``torchft_tpu/models/transformer.py`` with its math exactly:
+half-split rotary embedding, pre-norm blocks, a SwiGLU MLP, parameters in
+float32 and compute in ``cfg.dtype`` (bf16 on the card).
+
+The loss takes the fused lm-head cross-entropy (the Hopper kernels) when
+the activations are on CUDA, as the JAX model does on a single TPU, and the
+plain materialized-logits cross-entropy on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from torchft_tpu_torch.ops import flash_attention, fused_linear_cross_entropy, rms_norm
+
+
+def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another.  Raises if CUDA is asked for and no card is present."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    d_ff: int = 1408
+    max_seq: int = 2048
+    rope_theta: float = 10000.0
+    dtype: torch.dtype = torch.bfloat16  # activation / compute dtype
+    param_dtype: torch.dtype = torch.float32
+
+    @property
+    def d_head(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+
+def flagship_config() -> "tuple[TransformerConfig, int, int]":
+    """The flagship training shape: (config, batch size, sequence length) —
+    the JAX package's bench.py flagship_config (12 layers, d_model 768,
+    6 heads x 128, d_ff 2048, vocab 32000), about 134M parameters."""
+    cfg = TransformerConfig(
+        vocab_size=32000, d_model=768, n_layers=12, n_heads=6, n_kv_heads=6,
+        d_ff=2048, max_seq=1024,
+    )
+    return cfg, 16, 1024
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, halves split; x: [B, S, H, Dh], positions: [S]."""
+    d_half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, d_half, dtype=torch.float32, device=x.device) / d_half)
+    angles = positions[:, None].float() * freqs  # [S, d/2]
+    cos = torch.cos(angles)[None, :, None, :]
+    sin = torch.sin(angles)[None, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _normal(shape, fan_in: int, gen: torch.Generator, device, dtype) -> nn.Parameter:
+    t = torch.randn(shape, generator=gen, device=device, dtype=dtype) * fan_in ** -0.5
+    return nn.Parameter(t)
+
+
+class Block(nn.Module):
+    """One pre-norm decoder block: attention then SwiGLU MLP."""
+
+    def __init__(self, cfg: TransformerConfig, gen: torch.Generator, device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        E, H, KV, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+        pd = cfg.param_dtype
+
+        def linear(d_in: int, d_out: int) -> nn.Linear:
+            lin = nn.Linear(d_in, d_out, bias=False, device=device, dtype=pd)
+            lin.weight = _normal((d_out, d_in), d_in, gen, device, pd)
+            return lin
+
+        self.attn_norm = nn.Parameter(torch.ones(E, device=device, dtype=pd))
+        self.wq = linear(E, H * Dh)
+        self.wk = linear(E, KV * Dh)
+        self.wv = linear(E, KV * Dh)
+        self.wo = linear(H * Dh, E)
+        self.mlp_norm = nn.Parameter(torch.ones(E, device=device, dtype=pd))
+        self.w_gate = linear(E, Fd)
+        self.w_up = linear(E, Fd)
+        self.w_down = linear(Fd, E)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, KV, Dh, dt = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.dtype
+
+        def proj(lin: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+            return F.linear(h, lin.weight.to(dt))
+
+        h = rms_norm(x, self.attn_norm)
+        q = _rope(proj(self.wq, h).reshape(B, S, H, Dh), positions, cfg.rope_theta)
+        k = _rope(proj(self.wk, h).reshape(B, S, KV, Dh), positions, cfg.rope_theta)
+        v = proj(self.wv, h).reshape(B, S, KV, Dh)
+        attn = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+        x = x + proj(self.wo, attn.transpose(1, 2).reshape(B, S, H * Dh))
+
+        h = rms_norm(x, self.mlp_norm)
+        return x + proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h))
+
+
+class Transformer(nn.Module):
+    """Decoder-only LM.  ``lm_head`` keeps the ``[E, V]`` layout the fused
+    cross-entropy kernels read."""
+
+    def __init__(
+        self,
+        cfg: TransformerConfig,
+        device: Union[str, torch.device, None] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+        self.cfg = cfg
+        E, V, pd = cfg.d_model, cfg.vocab_size, cfg.param_dtype
+        self.embed = nn.Embedding(V, E, device=device, dtype=pd)
+        self.embed.weight = _normal((V, E), E, gen, device, pd)
+        self.layers = nn.ModuleList(Block(cfg, gen, device) for _ in range(cfg.n_layers))
+        self.final_norm = nn.Parameter(torch.ones(E, device=device, dtype=pd))
+        self.lm_head = _normal((E, V), E, gen, device, pd)
+
+    def decoder(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> hidden states [B, S, E] (before the final norm)."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.embed.weight.to(self.cfg.dtype)[tokens]
+        for layer in self.layers:
+            x = layer(x, positions)
+        return x
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> f32 logits [B, S, V]."""
+        return self.head(self.decoder(tokens))
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + lm head: [B, S, E] -> f32 logits [B, S, V] (operands
+        rounded to cfg.dtype, product and sum in f32)."""
+        x = rms_norm(x, self.final_norm)
+        return torch.matmul(x.float(), self.lm_head.to(self.cfg.dtype).float())
+
+    def lm_head_loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Mean next-token CE from decoder output x [B, S, E]: the fused
+        kernels on CUDA, the materialized logits on the CPU."""
+        B, S, E = x.shape
+        if x.device.type == "cuda":
+            h = rms_norm(x, self.final_norm)
+            return fused_linear_cross_entropy(
+                h.reshape(B * S, E), self.lm_head.to(self.cfg.dtype), targets.reshape(B * S)
+            )
+        return token_cross_entropy(self.head(x), targets)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Next-token CE; batch: {"tokens": [B, S], "targets": [B, S]}."""
+        return self.lm_head_loss(self.decoder(batch["tokens"]), batch["targets"])
+
+
+def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean CE as logsumexp - target logit."""
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - tgt).mean()
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return model.loss(batch)

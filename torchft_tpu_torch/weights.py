@@ -1,0 +1,40 @@
+"""Loading the JAX package's parameter tree into the port's model.
+
+``torchft_tpu.models.transformer.init_params`` returns a tree with the
+per-layer weights stacked along a leading L axis and matrices in the
+``[in, out]`` layout; the port's :class:`Transformer` keeps one module per
+layer and ``nn.Linear`` weights in ``[out, in]``.  :func:`params_from_jax`
+maps the former (as numpy arrays) onto the latter's state dict, so both
+packages can run from identical weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_NORMS = ("attn_norm", "mlp_norm")
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`~torchft_tpu_torch.models.Transformer` from the
+    JAX ``init_params`` tree of numpy arrays (dense models)."""
+    def t(a: Any) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    layers = tree["layers"]
+    n_layers = np.asarray(layers["wq"]).shape[0]
+    sd: Dict[str, torch.Tensor] = {
+        "embed.weight": t(tree["embed"]),
+        "final_norm": t(tree["final_norm"]),
+        "lm_head": t(tree["lm_head"]),
+    }
+    for i in range(n_layers):
+        for name in _NORMS:
+            sd[f"layers.{i}.{name}"] = t(np.asarray(layers[name])[i])
+        for name in _LINEARS:
+            sd[f"layers.{i}.{name}.weight"] = t(np.asarray(layers[name])[i].T)
+    return sd
