@@ -9,27 +9,42 @@ result):
 1. Card: its name and power limit (nvidia-smi).
 2. Build: the native coordination core (g++) and every Hopper kernel
    (one nvcc per csrc/*.cu, all at once), with their build times.
-3. Kernel checks: every kernel of the main path against its plain PyTorch
-   version on the card, in bf16, at the flagship shapes, element by
+3. Kernel checks: every kernel against its plain PyTorch version on the
+   card, at the flagship shapes (flash and cross-entropy in bf16; RMSNorm
+   with bf16 x and f32 w, plus ragged, 3-D and f32 cases), element by
    element within the stated tolerances (TOL_*); each check must also
-   reject a planted fault (a tile left out of a loop, a term dropped), so
-   a tolerance loose enough to pass a broken kernel fails the run.  Then
-   CUDA-event times of the kernel, the plain version, one
-   library call where PyTorch has one, and the bound (the least time the
-   card could take: bytes over 3.35 TB/s or bf16 operations over
-   989 TFLOP/s, the H100 SXM peaks at 700 W).
-4. Main path: a lighthouse, then two replica groups as two processes on the
-   one card, each training the flagship transformer (12 layers, d_model
-   768, 6 x 128 heads, vocab 32000, seq 1024, batch 16) under the
-   fault-tolerant loop (Manager -> GradientAverager over TCPCollective ->
-   should_commit -> AdamW).  Group 0 starts alone; group 1 starts after
-   group 0 has committed SOLO_STEPS steps, heals from it over HTTPTransport,
-   and both run merged to the same final step; group 0 then times plain
-   full_steps (compute alone).  Asserted: every step commits,
+   reject a planted fault (a tile left out of a loop, a term dropped, a
+   statistic over half a row), so a tolerance loose enough to pass a broken
+   kernel fails the run.  Then CUDA-event times of the kernel, the plain
+   version, one library call where PyTorch has one, and the bound (the
+   least time the card could take: bytes over 3.35 TB/s or bf16 operations
+   over 989 TFLOP/s, the H100 SXM peaks at 700 W).
+4. RMSNorm entry point: ``rms_norm_pallas`` forward and backward through
+   autograd on flagship activations ([16, 1024, 768] bf16, w f32), with
+   the launch counts set to 0 just before and read just after: the kernel
+   launches exactly once a call.  (No model calls it, in the port as in
+   the JAX package, whose models use the plain ``rms_norm``.)
+5. Flagship training: a lighthouse, then two replica groups as two
+   processes on the one card, each training the flagship transformer (12
+   layers, d_model 768, 6 x 128 heads, vocab 32000, seq 1024, batch 16)
+   under the fault-tolerant loop (Manager -> GradientAverager over
+   TCPCollective -> should_commit -> AdamW).  Group 0 starts alone; group 1
+   starts after group 0 has committed SOLO_STEPS steps, heals from it over
+   HTTPTransport, and both run merged to the same final step; group 0 then
+   times plain full_steps (compute alone).  Asserted: every step commits,
    every loss is finite, group 1 healed, both groups end with the same
-   params_sha256, and every kernel launched exactly as often as the steps
-   require (flash kernels 12 a step, cross-entropy kernels 1 a step).
-5. The kernels line, ``{"kernels": [...]}``, then the last line,
+   params_sha256, and every kernel of the path launched exactly as often as
+   the steps require (flash kernels 12 a step, cross-entropy kernels 1 a
+   step).
+6. Kill and heal: ``torchft_tpu_torch.launch``'s Launcher runs two groups
+   of ``python -m torchft_tpu_torch.examples.train_ddp`` on the card with
+   an embedded lighthouse; after group 0 has KILL_MERGED merged commits,
+   group 1 is killed with SIGKILL and restarted by the supervisor.
+   Asserted: exactly one restart, a heal in the new incarnation, both FINAL
+   lines at one step with one params_sha256, every loss finite.  Printed:
+   the seconds from the kill to the restarted group's first merged commit,
+   the survivor's uncommitted steps, its step ms alone and merged.
+7. The kernels line, ``{"kernels": [...]}``, then the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -40,6 +55,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -56,6 +72,10 @@ MERGED_STEPS = 3          # steps both groups run with 2 participants
 SOLO_STEPS = 4            # steps group 0 commits before group 1 starts
 RAW_STEPS = 3             # group 0's plain full_step timings after the run
 GROUP_TIMEOUT_S = 600.0
+RMS_CALLS = 3             # rms_norm_pallas calls of the entry-point phase
+KILL_STEPS = 2000         # train_ddp's --steps in the kill-and-heal phase
+KILL_MERGED = 30          # group 0's merged commits before the kill
+KILL_TIMEOUT_S = 420.0
 
 
 def nvidia_smi_line() -> str:
@@ -109,6 +129,15 @@ def bound(flops: float, nbytes: float) -> dict:
 TOL_FLASH = {"rtol": 1e-2, "row": 2e-2, "atol": 1e-4}
 TOL_LSE = {"rtol": 0.0, "row": 0.0, "atol": 1e-4}
 TOL_DLOGITS = {"rtol": 2e-2, "row": 0.0, "atol": 1e-6}
+# RMSNorm: one rounding of an f32 result on each side; results that differ
+# in the last f32 bits (rsqrtf, the shuffle-tree sum) can round one bf16
+# step apart, up to 2^-7 of the value just above a power of two, so
+# 1.6e-2 |ref| allows two steps; f32 outputs 1e-5 |ref|.  The gradients
+# (closed form against autograd's chain, both f32, dx rounded to bf16) add
+# a row term for dx's cancellation.
+TOL_RMS = {"rtol": 1.6e-2, "row": 0.0, "atol": 1e-5}
+TOL_RMS_F32 = {"rtol": 1e-5, "row": 0.0, "atol": 1e-6}
+TOL_RMS_GRAD = {"rtol": 1e-2, "row": 1e-3, "atol": 1e-5}
 
 
 def tol_text(tol: dict) -> str:
@@ -265,6 +294,8 @@ def kernel_checks() -> dict:
     del dl, dl_ref, lse_ref, onehot, tile_zeroed
     torch.cuda.empty_cache()
 
+    rms_checks(note, keep, gen, N, E)
+
     # -- times ------------------------------------------------------------
     print("timing (CUDA events, after warm-up):", flush=True)
     causal = True
@@ -320,6 +351,30 @@ def kernel_checks() -> dict:
          plain_ms=cuda_ms(lambda: C._ce_dlogits_reference(x, w, t, lse_ce, g), 3),
          library_ms=None,
          **bound(2 * N * E * V, N * E * 2 + E * V * 2 + 2 * N * 4 + 4 + N * V * 2))
+    from torchft_tpu_torch.ops import rmsnorm as R
+
+    # Four inputs in turn (100 MB of x, twice the 50 MB L2): each call reads
+    # x from device memory, as a caller with a fresh activation would.
+    xs = [randn(N, E) for _ in range(4)]
+    wr = 1.0 + 0.1 * torch.randn(E, generator=gen, device=dev)
+    wr_bf16 = wr.to(torch.bfloat16)
+    turn = iter(range(1 << 30))
+
+    def rotating(fn):
+        return lambda: fn(xs[next(turn) % len(xs)])
+
+    lib_dtype = F.rms_norm(xs[0], (E,), wr, 1e-6).dtype
+    note("rms_norm",
+         ms=cuda_ms(rotating(lambda x: R.rms_fwd(x, wr, 1e-6)), 100),
+         plain_ms=cuda_ms(rotating(lambda x: R._rms_reference(x, wr, 1e-6)), 20),
+         library_ms=cuda_ms(rotating(lambda x: F.rms_norm(x, (E,), wr, 1e-6)), 100),
+         library_call=f"F.rms_norm(x bf16, ({E},), w f32, 1e-6), which returns {lib_dtype}",
+         # The same call with w cast to bf16, the dtype pair PyTorch fuses.
+         library_bf16w_ms=cuda_ms(rotating(lambda x: F.rms_norm(x, (E,), wr_bf16, 1e-6)), 100),
+         # ~4 f32 operations an element take far less than the bytes' time:
+         # the bound is the bytes.
+         **bound(0.0, 2 * N * E * 2 + E * 4))
+    del xs
     for name, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         print(f"  {name}: kernel_ms {r['ms']:.3f}  plain_ms {r['plain_ms']:.3f}  "
@@ -327,7 +382,87 @@ def kernel_checks() -> dict:
     return rec
 
 
-# -- phase 4: one replica group (run as its own process) ---------------------
+def rms_checks(note, keep, gen, n: int, e: int) -> None:
+    """K6 against ``_rms_reference``: the flagship width (x [n, e] bf16, w
+    [e] f32) with a planted fault, ragged and 3-D inputs in both dtype
+    pairs, and the backward through autograd against the plain version's
+    autograd."""
+    import torch
+
+    from torchft_tpu_torch.ops import rmsnorm as R
+
+    dev = torch.device("cuda")
+    eps = 1e-6
+
+    def inputs(shape, dtype):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device=dev)
+        return x, w
+
+    x, w = inputs((n, e), torch.bfloat16)
+    ref = R._rms_reference(x, w, eps)
+    keep("rms_norm", check("rms_norm flagship x bf16", R.rms_norm_pallas(x, w, eps), ref,
+                           TOL_RMS), f"x [{n}, {e}] bf16, w f32")
+    half = x[:, : e // 2].float()
+    inv_half = torch.rsqrt(half.square().mean(-1, keepdim=True) + eps)
+    note("rms_norm", planted={"statistics over the first half of each row": reject(
+        "statistics over the first half of each row", (x.float() * inv_half * w).to(x.dtype),
+        ref, TOL_RMS)})
+    for shape in ((300, 1000), (300, 1001), (4, 50, e), (e,)):
+        for dtype, tol in ((torch.bfloat16, TOL_RMS), (torch.float32, TOL_RMS_F32)):
+            xs, ws = inputs(shape, dtype)
+            name = f"x {list(shape)} {str(dtype).split('.')[-1]}"
+            keep("rms_norm", check(f"rms_norm {name}", R.rms_norm_pallas(xs, ws, eps),
+                                   R._rms_reference(xs, ws, eps), tol), name)
+
+    # Backward: the closed form after the kernel's forward, against
+    # autograd through the plain version.
+    g = torch.randn(n, e, generator=gen, device=dev).to(torch.bfloat16)
+    grads = []
+    for fn in (R.rms_norm_pallas, R._rms_reference):
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xg, wg, eps).backward(g)
+        grads.append((xg.grad, wg.grad))
+    (dx, dw), (rdx, rdw) = grads
+    check("rms_norm_pallas backward dx", dx, rdx, TOL_RMS_GRAD)
+    check("rms_norm_pallas backward dw", dw, rdw, TOL_RMS_GRAD)
+    torch.cuda.synchronize()
+
+
+# -- phase 4: the RMSNorm entry point ------------------------------------------
+
+
+def rms_entry_point() -> dict:
+    """``rms_norm_pallas`` forward and backward through autograd on flagship
+    activations, counts set to 0 just before and read just after."""
+    import torch
+
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts, rms_norm_pallas
+
+    cfg, batch, seq = flagship_config()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.ones(cfg.d_model, device=dev, requires_grad=True)
+    reset_launch_counts()
+    for _ in range(RMS_CALLS):
+        xg = x.clone().requires_grad_()
+        out = rms_norm_pallas(xg, w)
+        out.float().square().mean().backward()
+        if not (torch.isfinite(xg.grad).all() and torch.isfinite(w.grad).all()):
+            raise AssertionError("rms_norm_pallas: non-finite gradients")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {name: (RMS_CALLS if name == "rms_norm" else 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"rms_norm_pallas phase launched {counts}, expected {want}")
+    print(f"  rms_norm_pallas x [{batch}, {seq}, {cfg.d_model}] bf16: {RMS_CALLS} forward + "
+          f"backward calls, launches {counts['rms_norm']}", flush=True)
+    return counts
+
+
+# -- phase 5: one replica group (run as its own process) ---------------------
 
 
 def run_group(args: argparse.Namespace) -> None:
@@ -464,7 +599,7 @@ def run_group(args: argparse.Namespace) -> None:
     print("RESULT " + json.dumps(result), flush=True)
 
 
-# -- phase 4: the parent process -----------------------------------------------
+# -- phase 5: the parent process -----------------------------------------------
 
 
 def main_path(card: str) -> dict:
@@ -564,6 +699,44 @@ def main_path(card: str) -> dict:
     return {name: r0["launches"][name] + r1["launches"][name] for name in per_step}
 
 
+# -- phase 6: kill and heal ---------------------------------------------------
+
+
+def _ms(x) -> str:
+    """A mean step time; None where the window held under two steps."""
+    return "n/a (under two steps)" if x is None else f"{x:.2f} ms"
+
+
+def kill_heal_phase(card: str) -> dict:
+    from torchft_tpu_torch.examples.kill_heal import kill_and_heal
+
+    # The floor of a restart: a bare process importing torch and reaching
+    # the card.
+    t0 = time.monotonic()
+    subprocess.run([sys.executable, "-c", "import torch; torch.zeros(1, device='cuda')"],
+                   check=True, timeout=300)
+    cold_start_s = time.monotonic() - t0
+    log_dir = tempfile.mkdtemp(prefix="tpuft_kill_")
+    try:
+        r = kill_and_heal("cuda", log_dir, steps=KILL_STEPS, merged_before_kill=KILL_MERGED,
+                          timeout_s=KILL_TIMEOUT_S)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    print(f"  restarts {r['restarts']}; both groups FINAL at step {r['final_step']} with "
+          f"params_sha256 {r['params_sha256']}; {r['steps_logged']} finite losses", flush=True)
+    print(f"  kill -> restarted group's first merged commit: {r['recovery_s']:.3f} s "
+          f"(kill -> respawn {r['kill_to_restart_s']:.3f} s, -> heal line "
+          f"{r['kill_to_heal_line_s']:.3f} s); survivor uncommitted steps "
+          f"{r['survivor_uncommitted_steps']}; survivor step "
+          f"{_ms(r['survivor_solo_step_ms'])} alone, {_ms(r['survivor_merged_step_ms'])} "
+          f"merged ({card})", flush=True)
+    print(f"  a bare process importing torch and reaching the card: {cold_start_s:.3f} s "
+          f"({card})", flush=True)
+    r["cold_start_s"] = cold_start_s
+    print("KILL_HEAL " + json.dumps(r), flush=True)
+    return r
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--group", type=int, help=argparse.SUPPRESS)
@@ -602,17 +775,26 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     # 3. Kernel checks.
-    print("kernel checks (bf16, flagship shapes):", flush=True)
+    print("kernel checks (flagship shapes):", flush=True)
     rec = kernel_checks()
 
-    # 4. Main path.
+    # 4. The RMSNorm entry point.
+    print("rms_norm_pallas entry point, flagship activations", flush=True)
+    launches = {"rms_norm": rms_entry_point()["rms_norm"]}
+
+    # 5. Flagship training.
     print("main path: lighthouse + 2 replica groups, flagship config", flush=True)
-    launches = main_path(card)
+    launches.update(main_path(card))
     missing = [n for n in KERNELS if launches.get(n, 0) == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
 
-    # 5. The kernels line, then the last line.
+    # 6. Kill and heal through the launcher and the train_ddp example.
+    print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
+          flush=True)
+    kill_heal_phase(card)
+
+    # 7. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -622,6 +804,8 @@ def main() -> int:
             "source": f"torchft_tpu_torch/csrc/{kern.source}.cu",
             "replaces": kern.replaces,
             "launches": launches[name],
+            "launches_on": "rms_norm_pallas entry point" if name == "rms_norm"
+                           else "flagship FT training",
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],
@@ -632,7 +816,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("library_call", "plain_call", "checked") if k in r},
+            **{k: r[k] for k in ("library_call", "library_bf16w_ms", "plain_call", "checked")
+               if k in r},
         })
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

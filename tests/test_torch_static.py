@@ -85,3 +85,24 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take() -> None:
     with pytest.raises(ValueError, match="CUDA"):
         cross_entropy._check("ce_lse", torch.zeros(4, 16, dtype=torch.bfloat16),
                              torch.zeros(16, 8, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16),
+    (torch.float64, torch.float64),
+])
+def test_rms_norm_wrapper_rejects_unbuilt_dtype_pairs(x_dtype, w_dtype) -> None:
+    """Only (bf16, f32) and (f32, f32) are instantiated: any other pair
+    raises before a launch, whatever the device; the two built pairs pass
+    the dtype check and then need a card."""
+    from torchft_tpu_torch.ops import rmsnorm
+
+    before = rmsnorm.RMS_NORM.launches
+    with pytest.raises(TypeError, match="no kernel"):
+        rmsnorm._check(torch.zeros(4, 16, dtype=x_dtype), torch.zeros(16, dtype=w_dtype))
+    for x_ok in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="CUDA"):
+            rmsnorm._check(torch.zeros(4, 16, dtype=x_ok), torch.zeros(16))
+    assert rmsnorm.RMS_NORM.launches == before

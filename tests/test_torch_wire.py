@@ -38,6 +38,8 @@ SAMPLES = {
     "StoreAddResponse": {"value": -123456789012},
     "StoreDeleteRequest": {"key": "gone"},
     "StoreDeleteResponse": {},
+    "LighthouseEvictRequest": {"replica_prefix": "1"},
+    "LighthouseEvictResponse": {"evicted": 3},
 }
 
 

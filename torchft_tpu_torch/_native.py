@@ -10,8 +10,9 @@ every native call.
 
 The library is built (``_build.native_lib_path``) and loaded at first use,
 not at import.  This slice binds what the fault-tolerant training loop
-needs: the lighthouse and manager servers, the manager client (quorum,
-checkpoint metadata, commit vote) and the rendezvous store.
+needs: the lighthouse server (with its evict), a lighthouse client for
+evicts, the manager server and client (quorum, checkpoint metadata, commit
+vote) and the rendezvous store.
 """
 
 from __future__ import annotations
@@ -63,6 +64,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tf_lighthouse_new.argtypes = [cp, cp, u64, u64, u64, u64, errp]
     lib.tf_lighthouse_address.restype = vp
     lib.tf_lighthouse_address.argtypes = [vp]
+    lib.tf_lighthouse_http_address.restype = vp
+    lib.tf_lighthouse_http_address.argtypes = [vp]
+    lib.tf_lighthouse_evict.restype = ctypes.c_int
+    lib.tf_lighthouse_evict.argtypes = [vp, cp]
     lib.tf_lighthouse_shutdown.argtypes = [vp]
     lib.tf_lighthouse_shutdown.restype = None
     lib.tf_lighthouse_free.argtypes = [vp]
@@ -209,12 +214,42 @@ class LighthouseServer:
     def address(self) -> str:
         return _take_string(_lib().tf_lighthouse_address(self._ptr))
 
+    def http_address(self) -> str:
+        """URL (``http://host:port``) of the dashboard and metrics server."""
+        return _take_string(_lib().tf_lighthouse_http_address(self._ptr))
+
+    def evict(self, replica_prefix: str) -> int:
+        """Drops the heartbeat and pending join of every replica id matching
+        ``replica_prefix`` (a full id, or a ``"<group>"`` family whose ids are
+        ``"<group>:<uuid>"``), so the next quorum forms without waiting on a
+        process a supervisor knows is dead.  Returns the number of ids
+        dropped."""
+        return int(_lib().tf_lighthouse_evict(self._ptr, replica_prefix.encode()))
+
     def shutdown(self) -> None:
         if self._ptr:
             lib = _lib()
             lib.tf_lighthouse_shutdown(self._ptr)
             lib.tf_lighthouse_free(self._ptr)
             self._ptr = None
+
+
+class LighthouseClient:
+    """Lighthouse access over the wire for one ``host:port`` (a supervisor's
+    evict of a dead group).  The JAX package's client also fails over across
+    an HA replica set; that waits for the HA port."""
+
+    def __init__(self, addr: str, connect_timeout_ms: int = 10000) -> None:
+        self._client = _Client(addr, connect_timeout_ms)
+
+    def evict(self, replica_prefix: str, timeout_ms: int = 5000) -> int:
+        """:meth:`LighthouseServer.evict` through wire method 4."""
+        req = _wire.encode("LighthouseEvictRequest", {"replica_prefix": replica_prefix})
+        resp = self._client.call(LIGHTHOUSE_EVICT, req, timeout_ms)
+        return _wire.decode("LighthouseEvictResponse", resp)["evicted"]
+
+    def close(self) -> None:
+        self._client.close()
 
 
 class ManagerServer:

@@ -9,7 +9,7 @@ varint, repeated ``int64`` packed.  Decoding also accepts unpacked repeated
 scalars and skips unknown fields, as proto3 parsers must.
 
 Only the messages in :data:`SCHEMAS` are covered (``proto/tpuft.proto``,
-Manager and Store services).
+Manager and Store services, and the lighthouse's Evict method).
 """
 
 from __future__ import annotations
@@ -66,6 +66,8 @@ SCHEMAS: Dict[str, List[Tuple[int, str, str]]] = {
     "StoreAddResponse": [(1, "value", "int64")],
     "StoreDeleteRequest": [(1, "key", "string")],
     "StoreDeleteResponse": [],
+    "LighthouseEvictRequest": [(1, "replica_prefix", "string")],
+    "LighthouseEvictResponse": [(1, "evicted", "int64")],
 }
 
 _DEFAULTS = {

@@ -1,3 +1,4 @@
+from torchft_tpu_torch.models.convnet import ConvNet, convnet_loss
 from torchft_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -8,8 +9,10 @@ from torchft_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "ConvNet",
     "Transformer",
     "TransformerConfig",
+    "convnet_loss",
     "flagship_config",
     "loss_fn",
     "resolve_device",

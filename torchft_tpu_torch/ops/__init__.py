@@ -4,7 +4,7 @@ PyTorch for CPU tensors."""
 from torchft_tpu_torch.ops._launch import KERNELS, launch_counts, reset_launch_counts
 from torchft_tpu_torch.ops.attention import flash_attention
 from torchft_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy
-from torchft_tpu_torch.ops.rmsnorm import rms_norm
+from torchft_tpu_torch.ops.rmsnorm import rms_norm, rms_norm_pallas
 
 __all__ = [
     "KERNELS",
@@ -13,4 +13,5 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
     "rms_norm",
+    "rms_norm_pallas",
 ]

@@ -1,11 +1,12 @@
-"""Loading the JAX package's parameter tree into the port's model.
+"""Loading the JAX package's parameter trees into the port's models.
 
 ``torchft_tpu.models.transformer.init_params`` returns a tree with the
 per-layer weights stacked along a leading L axis and matrices in the
 ``[in, out]`` layout; the port's :class:`Transformer` keeps one module per
 layer and ``nn.Linear`` weights in ``[out, in]``.  :func:`params_from_jax`
 maps the former (as numpy arrays) onto the latter's state dict, so both
-packages can run from identical weights.
+packages can run from identical weights; :func:`convnet_params_from_jax`
+does the same for the example's conv net.
 """
 
 from __future__ import annotations
@@ -38,3 +39,19 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name in _LINEARS:
             sd[f"layers.{i}.{name}.weight"] = t(np.asarray(layers[name])[i].T)
     return sd
+
+
+def convnet_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`~torchft_tpu_torch.models.ConvNet` from the JAX
+    ``init_convnet_params`` tree of numpy arrays: the HWIO convolution to
+    OIHW, the ``[in, out]`` dense weights to ``[out, in]``."""
+    def t(a: Any) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    return {
+        "conv": t(np.transpose(np.asarray(tree["conv"]), (3, 2, 0, 1))),
+        "w1": t(np.asarray(tree["w1"]).T),
+        "b1": t(tree["b1"]),
+        "w2": t(np.asarray(tree["w2"]).T),
+        "b2": t(tree["b2"]),
+    }
