@@ -11,11 +11,13 @@ result):
    (one nvcc per csrc/*.cu, all at once), with their build times.
 3. Kernel checks: every kernel against its plain PyTorch version on the
    card, at the flagship shapes (flash and cross-entropy in bf16; RMSNorm
-   with bf16 x and f32 w, plus ragged, 3-D and f32 cases), element by
-   element within the stated tolerances (TOL_*); each check must also
-   reject a planted fault (a tile left out of a loop, a term dropped, a
-   statistic over half a row), so a tolerance loose enough to pass a broken
-   kernel fails the run.  Then CUDA-event times of the kernel, the plain
+   with bf16 x and f32 w, plus ragged, 3-D and f32 cases; flash also at
+   S 4096 and a ragged S 1000), element by element within the stated
+   tolerances (TOL_*); each check must also reject a planted fault (a tile
+   left out of a loop, a mask skipped on the diagonal tile, a term dropped,
+   a statistic over half a row), so a tolerance loose enough to pass a
+   broken kernel fails the run, and two dK/dV launches on the same inputs
+   must agree bit for bit.  Then CUDA-event times of the kernel, the plain
    version, one library call where PyTorch has one, and the bound (the
    least time the card could take: bytes over 3.35 TB/s or bf16 operations
    over 989 TFLOP/s, the H100 SXM peaks at 700 W).
@@ -208,6 +210,17 @@ def kernel_checks() -> dict:
         if r["err_over_tol"] >= rec[name].get("err_over_tol", -1.0):
             note(name, **r, checked=case)
 
+    def diagonal_unmasked(q, k, v, scale):
+        """What a causal forward that skipped the mask on the diagonal tile
+        would give: keys above the diagonal but in the q row's own 128-row
+        tile stay in the softmax."""
+        s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+        rows = torch.arange(s.shape[1], device=s.device)[:, None]
+        cols = torch.arange(s.shape[2], device=s.device)[None, :]
+        keep = (cols <= rows) | (cols // 128 == rows // 128)
+        p = torch.softmax(torch.where(keep, s, torch.full_like(s, A._NEG_INF)), dim=-1)
+        return torch.einsum("bqk,bkd->bqd", p, v)
+
     # Flash forward: causal at the flagship shape, and one non-causal case.
     q, k, v = randn(BH, seq, D), randn(BH, seq, D), randn(BH, seq, D)
     for causal in (True, False):
@@ -218,8 +231,13 @@ def kernel_checks() -> dict:
         check(f"flash_fwd causal={causal} lse", lse, lse_ref, TOL_LSE)
         if causal:
             o_bad = A._fa_reference(q.float(), k.float(), v.float(), 1.05 * scale, causal)[0]
-            note("flash_fwd", planted={"O with the softmax scale 5% high": reject(
-                "O with the softmax scale 5% high", o_bad, o_ref, TOL_FLASH)})
+            note("flash_fwd", planted={
+                "O with the softmax scale 5% high": reject(
+                    "O with the softmax scale 5% high", o_bad, o_ref, TOL_FLASH),
+                "O with the diagonal tile unmasked": reject(
+                    "O with the diagonal tile unmasked",
+                    diagonal_unmasked(q.float(), k.float(), v.float(), scale), o_ref, TOL_FLASH),
+            })
 
     def planted_bwd(q, k, v, o, lse, do, dq, dv, rq, rv) -> dict:
         """What a causal backward that skipped one tile of a loop would give:
@@ -247,16 +265,23 @@ def kernel_checks() -> dict:
                                                  dv.float() - dv_part, rv, TOL_FLASH),
         }
 
-    # Flash backward: flagship S=1024 (causal and not) and S=4096 causal,
-    # where the TPU package takes its two-pass form.
-    for bh, s, causal in ((BH, seq, True), (BH, seq, False), (8, 4096, True)):
+    # Flash backward: flagship S=1024 (causal and not), S=4096 causal, where
+    # the TPU package takes its two-pass form, and a ragged S=1000 (not a
+    # multiple of the 128-row tiles), which also checks the forward.
+    for bh, s, causal in ((BH, seq, True), (BH, seq, False), (8, 4096, True), (8, 1000, True),
+                          (8, 1000, False)):
         qq, kk, vv, do = randn(bh, s, D), randn(bh, s, D), randn(bh, s, D), randn(bh, s, D)
         o, lse = A.flash_fwd(qq, kk, vv, scale, causal)
+        case = f"S={s} BH={bh} causal={causal}"
+        if s % 128:
+            o_ref, lse_ref = A._fa_reference(qq.float(), kk.float(), vv.float(), scale, causal)
+            keep("flash_fwd", check(f"flash_fwd {case} O", o, o_ref, TOL_FLASH), f"O, {case}")
+            check(f"flash_fwd {case} lse", lse, lse_ref, TOL_LSE)
+            del o_ref, lse_ref
         dq, dk, dv = A.flash_bwd(qq, kk, vv, o, lse, do, scale, causal)
         rq, rk, rv = A._fa_bwd_reference(
             qq.float(), kk.float(), vv.float(), o.float(), lse, do.float(), scale, causal
         )
-        case = f"S={s} BH={bh} causal={causal}"
         for nm, got, ref, kern in (("dq", dq, rq, "flash_bwd_dq"), ("dk", dk, rk, "flash_bwd_dkdv"),
                                    ("dv", dv, rv, "flash_bwd_dkdv")):
             keep(kern, check(f"flash_bwd {case} {nm}", got, ref, TOL_FLASH), f"{nm}, {case}")
@@ -265,6 +290,15 @@ def kernel_checks() -> dict:
             note("flash_bwd_dq", planted={"dq without kv tile 1": faults["dq without kv tile 1"]})
             note("flash_bwd_dkdv",
                  planted={"dv without the last q tile": faults["dv without the last q tile"]})
+            # Determinism: a second launch on the same inputs, bit for bit.
+            _, dk2, dv2 = A.flash_bwd(qq, kk, vv, o, lse, do, scale, causal)
+            same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            print(f"  flash_bwd {case}: two launches give bitwise equal dk and dv: {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("flash_bwd_dkdv: two launches on the same inputs differ")
+            note("flash_bwd_dkdv", bitwise_repeat=same)
+            del dk2, dv2
         del qq, kk, vv, do, o, lse, dq, dk, dv, rq, rk, rv
         torch.cuda.empty_cache()
 
@@ -816,7 +850,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("library_call", "library_bf16w_ms", "plain_call", "checked")
+            **{k: r[k] for k in ("library_call", "library_bf16w_ms", "plain_call", "checked",
+                                 "bitwise_repeat")
                if k in r},
         })
     print(nvidia_smi_line(), flush=True)

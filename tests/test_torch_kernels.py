@@ -224,3 +224,64 @@ def test_ce_kernels_match_plain_on_card(cuda_device) -> None:
     dl = C.ce_dlogits(x, w, t, lse_ref, one)
     dl_ref = C._ce_dlogits_reference(x.float(), w.float(), t, lse_ref, 1.0)
     _assert_close(dl, dl_ref, 2e-2, 0.0, 1e-6, "dlogits")
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize(
+    "what, call",
+    [
+        ("head dim 64", lambda: A.flash_fwd(*(_meta(2, 256, 64) for _ in range(3)), SCALE, True)),
+        ("k shorter than q", lambda: A.flash_fwd(_meta(2, 256, 128), _meta(2, 128, 128),
+                                                 _meta(2, 128, 128), SCALE, True)),
+        ("not a CUDA tensor", lambda: A.flash_fwd(*(_meta(2, 256, 128) for _ in range(3)),
+                                                  SCALE, True)),
+        ("backward, head dim 64", lambda: A.flash_bwd(
+            *(_meta(2, 256, 64) for _ in range(4)), _meta(2, 256, dtype=torch.float32),
+            _meta(2, 256, 64), SCALE, True)),
+        ("backward, not a CUDA tensor", lambda: A.flash_bwd(
+            *(_meta(2, 256, 128) for _ in range(4)), _meta(2, 256, dtype=torch.float32),
+            _meta(2, 256, 128), SCALE, True)),
+    ],
+)
+def test_flash_wrappers_raise_before_launch(what, call) -> None:
+    """A tensor the kernels do not take raises in the wrapper, before a
+    kernel library is loaded and before a launch is counted."""
+    kernels = (A.FLASH_FWD, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ)
+    before = [(k.launches, k._fn) for k in kernels]
+    with pytest.raises(ValueError):
+        call()
+    assert [(k.launches, k._fn) for k in kernels] == before, what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [1000, 4096])
+def test_flash_kernels_one_head_long_and_ragged_on_card(cuda_device, causal, seq) -> None:
+    """One head (BH 1): a sequence that is not a multiple of the 128-row
+    tiles, and a long one; the tolerances of the test above."""
+    rng = np.random.default_rng(23)
+    q, k, v, g = (_bf16(rng, 1, seq, 128, device=cuda_device) for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, SCALE, causal)
+    o_ref, lse_ref = A._fa_reference(q.float(), k.float(), v.float(), SCALE, causal)
+    _assert_close(o, o_ref, 1e-2, 2e-2, 1e-4, "O")
+    _assert_close(lse, lse_ref, 0.0, 0.0, 1e-4, "lse")
+    grads = A.flash_bwd(q, k, v, o, lse, g, SCALE, causal)
+    refs = A._fa_bwd_reference(q.float(), k.float(), v.float(), o.float(), lse, g.float(),
+                               SCALE, causal)
+    for got, ref, name in zip(grads, refs, ("dq", "dk", "dv")):
+        _assert_close(got, ref, 1e-2, 2e-2, 1e-4, name)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_dkdv_bitwise_repeatable_on_card(cuda_device) -> None:
+    """No atomics and one writer per output tile: two launches on the same
+    inputs give the same dK and dV bit for bit."""
+    rng = np.random.default_rng(24)
+    q, k, v, g = (_bf16(rng, 12, 1000, 128, device=cuda_device) for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, SCALE, True)
+    first = A.flash_bwd(q, k, v, o, lse, g, SCALE, True)
+    second = A.flash_bwd(q, k, v, o, lse, g, SCALE, True)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])

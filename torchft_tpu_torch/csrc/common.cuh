@@ -1,4 +1,5 @@
-// Shared helpers for the port's Hopper kernels (sm_90a).
+// Shared helpers for the port's wmma kernels (sm_90a): the flash dQ
+// backward and the cross-entropy pair.
 //
 // Matrix products use the tensor cores through nvcuda::wmma 16x16x16 bf16
 // fragments with f32 accumulation.  Tiles live in shared memory with padded
@@ -19,7 +20,6 @@ namespace wmma = nvcuda::wmma;
 
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 
