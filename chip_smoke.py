@@ -8,19 +8,22 @@ result):
 
 1. Card: its name and power limit (nvidia-smi).
 2. Build: the native coordination core (g++) and every Hopper kernel
-   (one nvcc per csrc/*.cu, all at once), with their build times.
+   (one nvcc per csrc/*.cu, all at once), with their build times and
+   ptxas reports; any spill in a wgmma kernel (WGMMA_KERNELS) fails.
 3. Kernel checks: every kernel against its plain PyTorch version on the
    card, at the flagship shapes (flash and cross-entropy in bf16; RMSNorm
    with bf16 x and f32 w, plus ragged, 3-D and f32 cases; flash also at
-   S 4096 and a ragged S 1000), element by element within the stated
-   tolerances (TOL_*); each check must also reject a planted fault (a tile
-   left out of a loop, a mask skipped on the diagonal tile, a term dropped,
-   a statistic over half a row), so a tolerance loose enough to pass a
-   broken kernel fails the run, and two dK/dV launches on the same inputs
-   must agree bit for bit.  Then CUDA-event times of the kernel, the plain
-   version, one library call where PyTorch has one, and the bound (the
-   least time the card could take: bytes over 3.35 TB/s or bf16 operations
-   over 989 TFLOP/s, the H100 SXM peaks at 700 W).
+   S 4096 and a ragged S 1000; cross-entropy also at a ragged N 300,
+   V 1000), element by element within the stated tolerances (TOL_*); each
+   check must also reject a planted fault (a tile left out of a loop, a
+   mask skipped on the diagonal tile or past V, a term dropped, a
+   statistic over half a row), so a tolerance loose enough to pass a
+   broken kernel fails the run, and two launches of each flash backward
+   kernel on the same inputs must agree bit for bit.  Then CUDA-event
+   times of the kernel, the plain version, one library call where PyTorch
+   has one (and cuBLAS's product of ce_lse's shape as a reference point),
+   and the bound (the least time the card could take: bytes over 3.35 TB/s
+   or bf16 operations over 989 TFLOP/s, the H100 SXM peaks at 700 W).
 4. RMSNorm entry point: ``rms_norm_pallas`` forward and backward through
    autograd on flagship activations ([16, 1024, 768] bf16, w f32), with
    the launch counts set to 0 just before and read just after: the kernel
@@ -74,10 +77,31 @@ MERGED_STEPS = 3          # steps both groups run with 2 participants
 SOLO_STEPS = 4            # steps group 0 commits before group 1 starts
 RAW_STEPS = 3             # group 0's plain full_step timings after the run
 GROUP_TIMEOUT_S = 600.0
+JOIN_GRACE_S = 1.0        # for group 1's first quorum request to reach the lighthouse
 RMS_CALLS = 3             # rms_norm_pallas calls of the entry-point phase
 KILL_STEPS = 2000         # train_ddp's --steps in the kill-and-heal phase
 KILL_MERGED = 30          # group 0's merged commits before the kill
 KILL_TIMEOUT_S = 420.0
+# The kernels built on wgmma, whose ptxas report must show no spill.
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                 "ce_lse_kernel")
+
+
+def check_spills(build_logs: dict) -> None:
+    """Fails unless ptxas reported 0 bytes of spill for every wgmma kernel:
+    a spill inside the warpgroup pipeline serialises the wgmma."""
+    from torchft_tpu_torch import _build
+
+    spills = {}
+    for log in build_logs.values():
+        spills.update(_build.spill_bytes(log))
+    for kernel in WGMMA_KERNELS:
+        found = {f: b for f, b in spills.items() if kernel in f}
+        if not found:
+            raise AssertionError(f"no ptxas report for {kernel}")
+        if any(found.values()):
+            raise AssertionError(f"{kernel} spills: {found} bytes of spill stores + loads")
+    print(f"  0 bytes of spill in {', '.join(WGMMA_KERNELS)}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -291,14 +315,15 @@ def kernel_checks() -> dict:
             note("flash_bwd_dkdv",
                  planted={"dv without the last q tile": faults["dv without the last q tile"]})
             # Determinism: a second launch on the same inputs, bit for bit.
-            _, dk2, dv2 = A.flash_bwd(qq, kk, vv, o, lse, do, scale, causal)
-            same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
-            print(f"  flash_bwd {case}: two launches give bitwise equal dk and dv: {same}",
-                  flush=True)
-            if not same:
-                raise AssertionError("flash_bwd_dkdv: two launches on the same inputs differ")
-            note("flash_bwd_dkdv", bitwise_repeat=same)
-            del dk2, dv2
+            dq2, dk2, dv2 = A.flash_bwd(qq, kk, vv, o, lse, do, scale, causal)
+            for kern, same in (("flash_bwd_dq", torch.equal(dq, dq2)),
+                               ("flash_bwd_dkdv", torch.equal(dk, dk2) and torch.equal(dv, dv2))):
+                print(f"  flash_bwd {case}: two {kern} launches give bitwise equal results: "
+                      f"{same}", flush=True)
+                if not same:
+                    raise AssertionError(f"{kern}: two launches on the same inputs differ")
+                note(kern, bitwise_repeat=same)
+            del dq2, dk2, dv2
         del qq, kk, vv, do, o, lse, dq, dk, dv, rq, rk, rv
         torch.cuda.empty_cache()
 
@@ -327,6 +352,24 @@ def kernel_checks() -> dict:
     })
     del dl, dl_ref, lse_ref, onehot, tile_zeroed
     torch.cuda.empty_cache()
+
+    # Ragged cross-entropy: N and V not multiples of the tiles (the last
+    # 256-column vocab tile has 24 zero-filled columns past V).
+    n_r, e_r, v_r = 300, 256, 1000
+    x_r, w_r = randn(n_r, e_r), randn(e_r, v_r, std=e_r ** -0.5)
+    t_r = torch.randint(0, v_r, (n_r,), generator=gen, device=dev)
+    case = f"N={n_r} E={e_r} V={v_r}"
+    lse_r = C._ce_lse_reference(x_r, w_r)
+    padded = -(-v_r // C._COLS_PER_TILE) * C._COLS_PER_TILE - v_r
+    pad_fault = torch.logaddexp(lse_r, torch.full_like(lse_r, math.log(padded)))
+    note("ce_lse", planted={**rec["ce_lse"]["planted"], "lse with the padding past V as logits 0":
+                            reject("lse with the padding past V as logits 0", pad_fault, lse_r,
+                                   TOL_LSE)})
+    keep("ce_lse", check(f"ce_lse {case}", C.ce_lse(x_r, w_r), lse_r, TOL_LSE), f"lse, {case}")
+    dl_r = C.ce_dlogits(x_r, w_r, t_r, lse_r, one)
+    dl_r_ref = C._ce_dlogits_reference(x_r.float(), w_r.float(), t_r, lse_r, 1.0)
+    keep("ce_dlogits", check(f"ce_dlogits {case} (scale 1)", dl_r, dl_r_ref, TOL_DLOGITS),
+         f"dlogits at scale 1, {case}")
 
     rms_checks(note, keep, gen, N, E)
 
@@ -379,6 +422,9 @@ def kernel_checks() -> dict:
          ms=cuda_ms(lambda: C.ce_lse(x, w), 5),
          plain_ms=cuda_ms(lambda: C._ce_lse_reference(x, w), 3),
          library_ms=None,
+         # A reference point, not the function: cuBLAS's bf16 product of the
+         # same shape, which writes the [N, V] logits K4 never stores.
+         matmul_ms=cuda_ms(lambda: torch.matmul(x, w), 5),
          **bound(2 * N * E * V, N * E * 2 + E * V * 2 + N * 4))
     note("ce_dlogits",
          ms=cuda_ms(lambda: C.ce_dlogits(x, w, t, lse_ce, g), 5),
@@ -411,8 +457,13 @@ def kernel_checks() -> dict:
     del xs
     for name, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        extra = f"  matmul_ms {r['matmul_ms']:.3f}" if "matmul_ms" in r else ""
         print(f"  {name}: kernel_ms {r['ms']:.3f}  plain_ms {r['plain_ms']:.3f}  "
-              f"library_ms {lib}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+              f"library_ms {lib}{extra}  bound_ms {r['bound_ms']:.4f} ({r['bound_by']})",
+              flush=True)
+    bwd = rec["flash_bwd_dkdv"]["ms"] + rec["flash_bwd_dq"]["ms"]
+    print(f"  flash backward, flash_bwd_dkdv + flash_bwd_dq: {bwd:.3f} ms against "
+          f"scaled_dot_product_attention's backward {sdpa_bwd:.3f} ms", flush=True)
     return rec
 
 
@@ -556,8 +607,6 @@ def run_group(args: argparse.Namespace) -> None:
     )
     trainer = TrainStep(model, opt, loss_fn, manager)
     data = torch.Generator(device=dev).manual_seed(7 + group)
-    if group == 1:
-        open(os.path.join(run_dir, "g1_up"), "w").close()
 
     reset_launch_counts()
     steps, merged, healed = [], 0, 0
@@ -566,6 +615,13 @@ def run_group(args: argparse.Namespace) -> None:
             raise RuntimeError("group never merged with its peer")
         before = manager.current_step()
         manager.start_quorum()
+        if group == 1 and not steps:
+            # This request waits at the lighthouse (1 of 2 healthy groups
+            # joined) until group 0 joins too, so group 1 joins at step
+            # SOLO_STEPS + 1 in every run: two runs of one tree take the same
+            # steps and end with the same params_sha256.
+            time.sleep(JOIN_GRACE_S)
+            open(os.path.join(run_dir, "g1_up"), "w").close()
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=data, device=dev)
         b = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
         t0 = time.perf_counter()
@@ -807,6 +863,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+    check_spills(_build.build_logs)
 
     # 3. Kernel checks.
     print("kernel checks (flagship shapes):", flush=True)
@@ -850,8 +907,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("library_call", "library_bf16w_ms", "plain_call", "checked",
-                                 "bitwise_repeat")
+            **{k: r[k] for k in ("library_call", "library_bf16w_ms", "matmul_ms", "plain_call",
+                                 "checked", "bitwise_repeat")
                if k in r},
         })
     print(nvidia_smi_line(), flush=True)

@@ -285,3 +285,102 @@ def test_flash_bwd_dkdv_bitwise_repeatable_on_card(cuda_device) -> None:
     first = A.flash_bwd(q, k, v, o, lse, g, SCALE, True)
     second = A.flash_bwd(q, k, v, o, lse, g, SCALE, True)
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_bitwise_repeatable_on_card(cuda_device, causal) -> None:
+    """The dQ kernel, too, has one writer per output tile and no atomics."""
+    rng = np.random.default_rng(25)
+    q, k, v, g = (_bf16(rng, 12, 1000, 128, device=cuda_device) for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, SCALE, causal)
+    first = A.flash_bwd(q, k, v, o, lse, g, SCALE, causal)
+    second = A.flash_bwd(q, k, v, o, lse, g, SCALE, causal)
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, e, v", [(1000, 128, 520), (256, 784, 1000), (129, 16, 8)])
+def test_ce_lse_ragged_edges_on_card(cuda_device, n, e, v) -> None:
+    """Edges of ce_lse's tiles: 64-column boxes of w wholly past V (V 520
+    in a 768-column tile), E not a multiple of the 64-wide chunks (784),
+    and the smallest E and V the wrapper takes; lse within 1e-4."""
+    rng = np.random.default_rng(26)
+    x = _bf16(rng, n, e, device=cuda_device)
+    w = _bf16(rng, e, v, device=cuda_device, std=e ** -0.5)
+    _assert_close(C.ce_lse(x, w), C._ce_lse_reference(x, w), 0.0, 0.0, 1e-4, "lse")
+
+
+@pytest.mark.parametrize(
+    "what, call",
+    [
+        ("ce_lse, E % 16 != 0", lambda: C.ce_lse(_meta(64, 40), _meta(40, 256))),
+        ("ce_lse, V % 8 != 0", lambda: C.ce_lse(_meta(64, 32), _meta(32, 250))),
+        ("ce_lse, mismatched E", lambda: C.ce_lse(_meta(64, 32), _meta(48, 256))),
+        ("ce_lse, not a CUDA tensor", lambda: C.ce_lse(_meta(64, 32), _meta(32, 256))),
+        ("ce_dlogits, E % 16 != 0", lambda: C.ce_dlogits(
+            _meta(64, 40), _meta(40, 256), _meta(64, dtype=torch.int32),
+            _meta(64, dtype=torch.float32), _meta(1, dtype=torch.float32))),
+        ("ce_dlogits, V % 8 != 0", lambda: C.ce_dlogits(
+            _meta(64, 32), _meta(32, 250), _meta(64, dtype=torch.int32),
+            _meta(64, dtype=torch.float32), _meta(1, dtype=torch.float32))),
+        ("ce_dlogits, mismatched E", lambda: C.ce_dlogits(
+            _meta(64, 32), _meta(48, 256), _meta(64, dtype=torch.int32),
+            _meta(64, dtype=torch.float32), _meta(1, dtype=torch.float32))),
+        ("ce_dlogits, not a CUDA tensor", lambda: C.ce_dlogits(
+            _meta(64, 32), _meta(32, 256), _meta(64, dtype=torch.int32),
+            _meta(64, dtype=torch.float32), _meta(1, dtype=torch.float32))),
+    ],
+)
+def test_ce_wrappers_raise_before_launch(what, call) -> None:
+    """The cross-entropy twin of the test above: each input the kernels do
+    not take raises its own error in the wrapper, before a kernel library
+    is loaded and before a launch is counted."""
+    match = {"E % 16": "E % 16", "V % 8": "V % 8", "mismatched E": r"x \[N, E\]",
+             "not a CUDA": "CUDA device"}
+    kernels = (C.CE_LSE, C.CE_DLOGITS)
+    before = [(k.launches, k._fn) for k in kernels]
+    with pytest.raises(ValueError, match=next(m for key, m in match.items() if key in what)):
+        call()
+    assert [(k.launches, k._fn) for k in kernels] == before, what
+
+
+@pytest.mark.parametrize("n, v, blocks", [
+    (16384, 32000, 132),  # the flagship
+    (16384, 32000, 114),  # the flagship on a card with fewer SMs
+    (300, 1000, 132),
+    (1000, 520, 132),
+    (16000, 32008, 132),
+    (129, 8, 132),
+    (128 * 132, 256 * 10, 132),
+])
+def test_vocab_slices_cover_v_in_whole_tiles(n, v, blocks) -> None:
+    """ce_lse's slices: whole 256-column tiles, none empty, together exactly
+    V's columns; and the busiest block holds at most 2% more tiles than an
+    even spread, unless the slices are single tiles already."""
+    per, slices = C._vocab_slices(n, v, blocks)
+    assert per % 256 == 0 and per > 0
+    assert (slices - 1) * per < v <= slices * per
+    row_tiles, v_tiles = -(-n // 128), -(-v // 256)
+    busiest = -(-(row_tiles * slices) // blocks) * (per // 256)
+    assert per == 256 or busiest <= 1.02 * row_tiles * v_tiles / blocks
+    if (n, v, blocks) == (16384, 32000, 132):
+        assert (per, slices) == (768, 42)
+
+
+def test_spill_bytes_reads_the_ptxas_report() -> None:
+    """chip_smoke.py fails on a spill in a wgmma kernel; this is the parser
+    it reads ptxas's remarks with."""
+    from torchft_tpu_torch._build import spill_bytes
+
+    log = (
+        "ptxas info    : Compiling entry function '_ZN3tft3lse13ce_lse_kernelEii' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN3tft3lse13ce_lse_kernelEii\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 480 bytes cmem[0]\n"
+        "ptxas info    : Function properties for _ZN3tft2dq19flash_bwd_dq_kernelEi\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+    )
+    assert spill_bytes(log) == {"_ZN3tft3lse13ce_lse_kernelEii": 0,
+                                "_ZN3tft2dq19flash_bwd_dq_kernelEi": 20}
+    assert spill_bytes("ptxas info    : 0 bytes gmem\n") == {}

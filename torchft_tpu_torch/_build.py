@@ -23,6 +23,7 @@ import fcntl
 import hashlib
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -180,15 +181,38 @@ def _kernel_path(name: str) -> str:
     return os.path.join(BUILD_DIR, "kernels", f"{name}-{tag}.so")
 
 
+_PROPERTIES = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame, "
+                         r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def spill_bytes(log: str) -> Dict[str, int]:
+    """Function (mangled name) -> bytes of spill stores plus loads, from
+    the ``-Xptxas -v`` remarks of one build."""
+    return {m[1]: int(m[3]) + int(m[4]) for m in _PROPERTIES.finditer(log)}
+
+
+def _log_path(lib: str) -> str:
+    """Where a kernel library's compiler remarks are kept."""
+    return lib[: -len(".so")] + ".ptxas.txt"
+
+
+def _load_logs(names: Sequence[str], paths: Dict[str, str]) -> None:
+    for n in names:
+        build_seconds.setdefault("kernel:" + n, 0.0)
+        if n not in build_logs and os.path.exists(_log_path(paths[n])):
+            with open(_log_path(paths[n])) as f:
+                build_logs[n] = f.read()
+
+
 def build_kernels(names: Sequence[str] = ()) -> Dict[str, str]:
     """Builds the named kernel libraries (default: all), one ``nvcc`` per
-    source, all started together.  Returns name -> library path."""
+    source, all started together.  Returns name -> library path; a library
+    built earlier brings its compiler remarks into ``build_logs``."""
     names = list(names) or kernel_sources()
     paths = {n: _kernel_path(n) for n in names}
     missing = [n for n in names if not os.path.exists(paths[n])]
     if not missing:
-        for n in names:
-            build_seconds.setdefault("kernel:" + n, 0.0)
+        _load_logs(names, paths)
         return paths
     with _locked("kernels"):
         missing = [n for n in names if not os.path.exists(paths[n])]
@@ -198,16 +222,20 @@ def build_kernels(names: Sequence[str] = ()) -> Dict[str, str]:
         def compile_one(name: str) -> None:
             t0 = time.monotonic()
             tmp = paths[name] + f".tmp{os.getpid()}"
-            build_logs[name] = _run(
+            log = _run(
                 [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC_DIR,
                  "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")], timeout=900,
             )
+            with open(_log_path(paths[name]), "w") as f:
+                f.write(log)
+            build_logs[name] = log
             os.replace(tmp, paths[name])
             build_seconds["kernel:" + name] = time.monotonic() - t0
 
         with ThreadPoolExecutor(max_workers=max(1, len(missing))) as pool:
             for fut in [pool.submit(compile_one, n) for n in missing]:
                 fut.result()
+    _load_logs(names, paths)
     return paths
 
 

@@ -1,5 +1,5 @@
-// Shared helpers for the port's wmma kernels (sm_90a): the flash dQ
-// backward and the cross-entropy pair.
+// Helpers for the port's remaining wmma kernel (sm_90a): the cross-entropy
+// dlogits kernel.
 //
 // Matrix products use the tensor cores through nvcuda::wmma 16x16x16 bf16
 // fragments with f32 accumulation.  Tiles live in shared memory with padded
@@ -21,7 +21,6 @@ namespace wmma = nvcuda::wmma;
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 
 // Copies a rows x cols bf16 tile from global memory (row stride ld_g
 // elements) into shared memory (row stride ld_s), zero-filling rows >=
@@ -42,16 +41,6 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ s, int ld_s,
     }
     *reinterpret_cast<uint4*>(s + r * ld_s + c) = v;
   }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // Kernels needing more than 48 KB of shared memory must opt in.

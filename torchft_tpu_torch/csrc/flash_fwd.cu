@@ -142,7 +142,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sacc);
 
       const int k0 = j * BN;
@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_m64n128k16_rs_tb(o, pf + 4 * kk, make_desc(v_base + 2048 * kk, HALF, 1024));
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pf);
       if (lane == 0) mbar_arrive(&sm.empty[s]);

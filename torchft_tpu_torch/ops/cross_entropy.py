@@ -24,7 +24,7 @@ _i, _p = ctypes.c_int, ctypes.c_void_p
 
 CE_LSE = Kernel(
     "ce_lse", "cross_entropy", "tf_ce_lse",
-    [_p, _p, _p, _i, _i, _i, _i, _i],
+    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i],
     replaces="torchft_tpu/ops/cross_entropy.py:114",
 )
 CE_DLOGITS = Kernel(
@@ -35,13 +35,13 @@ CE_DLOGITS = Kernel(
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    check_cuda(name, torch.bfloat16, x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{name}: expected x [N, E] and w [E, V], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.shape[1] % 16 or w.shape[1] % 8:
         raise ValueError(f"{name}: needs E % 16 == 0 and V % 8 == 0, got "
                          f"E={x.shape[1]}, V={w.shape[1]}")
+    check_cuda(name, torch.bfloat16, x, w)
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -58,17 +58,26 @@ def _ce_dlogits_reference(x, w, targets, lse, scale) -> torch.Tensor:
     return (p * scale).to(x.dtype)
 
 
-_ROWS_PER_BLOCK, _COLS_PER_TILE, _TARGET_BLOCKS = 128, 64, 1024
+_ROWS_PER_TILE, _COLS_PER_TILE = 128, 256
+# How much busier than an even spread of the tiles the busiest block may be.
+_SPREAD = 1.02
 
 
-def _vocab_slices(n: int, v: int) -> "tuple[int, int]":
-    """(columns per slice, slices) for ce_lse: enough (row tile, slice)
-    blocks to fill the card, whole 64-column tiles per slice, none empty."""
-    row_tiles = -(-n // _ROWS_PER_BLOCK)
+def _vocab_slices(n: int, v: int, blocks: int) -> "tuple[int, int]":
+    """(columns per slice, slices) for ce_lse, whose ``blocks`` persistent
+    blocks walk the (row tile, slice) items.  A slice is a whole number of
+    256-column tiles and none is empty.  Wider slices leave fewer partial
+    results to fold but spread the tiles less evenly over the blocks: the
+    widest whose busiest block has at most ``_SPREAD`` times the tiles of an
+    even spread."""
+    row_tiles = -(-n // _ROWS_PER_TILE)
     v_tiles = -(-v // _COLS_PER_TILE)
-    want = max(1, min(v_tiles, -(-_TARGET_BLOCKS // row_tiles)))
-    per = -(-v_tiles // want) * _COLS_PER_TILE
-    return per, -(-v // per)
+    even = row_tiles * v_tiles / blocks
+    for per in range(v_tiles, 1, -1):
+        slices = -(-v_tiles // per)
+        if -(-(row_tiles * slices) // blocks) * per <= _SPREAD * even:
+            return per * _COLS_PER_TILE, slices
+    return _COLS_PER_TILE, v_tiles
 
 
 def ce_lse(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -78,11 +87,13 @@ def ce_lse(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check("ce_lse", x, w)
     n, e = x.shape
     v = w.shape[1]
-    v_per_split, splits = _vocab_slices(n, v)
+    blocks = torch.cuda.get_device_properties(x.device).multi_processor_count
+    v_per_split, splits = _vocab_slices(n, v, blocks)
     part = torch.empty((splits, n), dtype=torch.float32, device=x.device)
-    CE_LSE(x.data_ptr(), w.data_ptr(), part.data_ptr(), n, e, v, v_per_split, splits)
-    # Fold the per-slice results: O(slices x N), outside the kernel.
-    return part[0] if splits == 1 else torch.logsumexp(part, dim=0)
+    lse = torch.empty(n, dtype=torch.float32, device=x.device)
+    CE_LSE(x.data_ptr(), w.data_ptr(), part.data_ptr(), lse.data_ptr(), n, e, v, v_per_split,
+           splits, blocks)
+    return lse
 
 
 def ce_dlogits(x, w, targets, lse, scale: torch.Tensor) -> torch.Tensor:
