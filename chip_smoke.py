@@ -13,15 +13,17 @@ result):
 3. Kernel checks: every kernel against its plain PyTorch version on the
    card, at the flagship shapes (flash and cross-entropy in bf16; RMSNorm
    with bf16 x and f32 w, plus ragged, 3-D and f32 cases; flash also at
-   S 4096 and a ragged S 1000; cross-entropy also at a ragged N 300,
-   V 1000), element by element within the stated tolerances (TOL_*); each
+   S 4096 and a ragged S 1000; cross-entropy also at ragged (N, E, V) =
+   (300, 256, 1000), and dlogits at (1000, 128, 520) and (256, 784,
+   1000)), element by element within the stated tolerances (TOL_*); each
    check must also reject a planted fault (a tile left out of a loop, a
    mask skipped on the diagonal tile or past V, a term dropped, a
    statistic over half a row), so a tolerance loose enough to pass a
    broken kernel fails the run, and two launches of each flash backward
-   kernel on the same inputs must agree bit for bit.  Then CUDA-event
-   times of the kernel, the plain version, one library call where PyTorch
-   has one (and cuBLAS's product of ce_lse's shape as a reference point),
+   kernel and of ce_dlogits on the same inputs must agree bit for bit.
+   Then CUDA-event times of the kernel, the plain version, one library
+   call where PyTorch has one (and cuBLAS's product of the cross-entropy
+   kernels' shape as a reference point),
    and the bound (the least time the card could take: bytes over 3.35 TB/s
    or bf16 operations over 989 TFLOP/s, the H100 SXM peaks at 700 W).
 4. RMSNorm entry point: ``rms_norm_pallas`` forward and backward through
@@ -84,7 +86,7 @@ KILL_MERGED = 30          # group 0's merged commits before the kill
 KILL_TIMEOUT_S = 420.0
 # The kernels built on wgmma, whose ptxas report must show no spill.
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                 "ce_lse_kernel")
+                 "ce_lse_kernel", "ce_dlogits_kernel")
 
 
 def check_spills(build_logs: dict) -> None:
@@ -344,13 +346,23 @@ def kernel_checks() -> dict:
          checked="dlogits at scale 1")
     onehot = torch.zeros_like(dl)
     onehot[torch.arange(N, device=dev), t] = -1.0
-    tile_zeroed = dl.clone()
-    tile_zeroed[:, 64:128] = 0.0
+    # Consumer warpgroup 1's half of item (row tile 0, column tile 1) left
+    # unwritten (here: zero).
+    half_zeroed = dl.clone()
+    half_zeroed[64:128, 256:512] = 0.0
     note("ce_dlogits", planted={
         "-onehot only": reject("-onehot only", onehot, dl_ref, TOL_DLOGITS),
-        "vocab tile 1 zeroed": reject("vocab tile 1 zeroed", tile_zeroed, dl_ref, TOL_DLOGITS),
+        "rows 64:128 of columns 256:512 zeroed": reject(
+            "rows 64:128 of columns 256:512 zeroed", half_zeroed, dl_ref, TOL_DLOGITS),
     })
-    del dl, dl_ref, lse_ref, onehot, tile_zeroed
+    del onehot, half_zeroed
+    # Determinism: a second launch on the same inputs, bit for bit.
+    same = torch.equal(dl, C.ce_dlogits(x, w, t, lse_ref, one))
+    print(f"  ce_dlogits: two launches give bitwise equal results: {same}", flush=True)
+    if not same:
+        raise AssertionError("ce_dlogits: two launches on the same inputs differ")
+    note("ce_dlogits", bitwise_repeat=same)
+    del dl, dl_ref, lse_ref
     torch.cuda.empty_cache()
 
     # Ragged cross-entropy: N and V not multiples of the tiles (the last
@@ -370,6 +382,19 @@ def kernel_checks() -> dict:
     dl_r_ref = C._ce_dlogits_reference(x_r.float(), w_r.float(), t_r, lse_r, 1.0)
     keep("ce_dlogits", check(f"ce_dlogits {case} (scale 1)", dl_r, dl_r_ref, TOL_DLOGITS),
          f"dlogits at scale 1, {case}")
+    # dlogits at the other edges of its tiles: 64-column boxes wholly past V
+    # (V 520 in a 768-column span of tiles), and E not a multiple of the
+    # 64-wide chunks (784).
+    for n_r, e_r, v_r in ((1000, 128, 520), (256, 784, 1000)):
+        x_r, w_r = randn(n_r, e_r), randn(e_r, v_r, std=e_r ** -0.5)
+        t_r = torch.randint(0, v_r, (n_r,), generator=gen, device=dev)
+        case = f"N={n_r} E={e_r} V={v_r}"
+        lse_r = C._ce_lse_reference(x_r, w_r)
+        keep("ce_dlogits", check(f"ce_dlogits {case} (scale 1)", C.ce_dlogits(x_r, w_r, t_r, lse_r,
+                                                                             one),
+                                 C._ce_dlogits_reference(x_r.float(), w_r.float(), t_r, lse_r,
+                                                         1.0), TOL_DLOGITS),
+             f"dlogits at scale 1, {case}")
 
     rms_checks(note, keep, gen, N, E)
 
@@ -430,6 +455,9 @@ def kernel_checks() -> dict:
          ms=cuda_ms(lambda: C.ce_dlogits(x, w, t, lse_ce, g), 5),
          plain_ms=cuda_ms(lambda: C._ce_dlogits_reference(x, w, t, lse_ce, g), 3),
          library_ms=None,
+         # A reference point, not the function: cuBLAS's bf16 product of the
+         # same shape, which writes as many bf16 bytes as K5 does.
+         matmul_ms=cuda_ms(lambda: torch.matmul(x, w), 5),
          **bound(2 * N * E * V, N * E * 2 + E * V * 2 + 2 * N * 4 + 4 + N * V * 2))
     from torchft_tpu_torch.ops import rmsnorm as R
 

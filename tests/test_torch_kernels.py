@@ -311,6 +311,36 @@ def test_ce_lse_ragged_edges_on_card(cuda_device, n, e, v) -> None:
     _assert_close(C.ce_lse(x, w), C._ce_lse_reference(x, w), 0.0, 0.0, 1e-4, "lse")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, e, v", [(1000, 128, 520), (256, 784, 1000), (129, 16, 8)])
+def test_ce_dlogits_ragged_edges_on_card(cuda_device, n, e, v) -> None:
+    """The same edges for ce_dlogits, whose TMA stores must clip rows past
+    N and columns past V (at V 8 all but 8 columns of the one 256-column
+    tile); element-wise within 2e-2 |ref| + 1e-6."""
+    rng = np.random.default_rng(27)
+    x = _bf16(rng, n, e, device=cuda_device)
+    w = _bf16(rng, e, v, device=cuda_device, std=e ** -0.5)
+    t = torch.from_numpy(rng.integers(0, v, n)).to(cuda_device)
+    lse = C._ce_lse_reference(x, w)
+    dl = C.ce_dlogits(x, w, t, lse, torch.full((1,), 0.5, device=cuda_device))
+    _assert_close(dl, C._ce_dlogits_reference(x.float(), w.float(), t, lse, 0.5), 2e-2, 0.0,
+                  1e-6, "dlogits")
+
+
+@pytest.mark.gpu
+def test_ce_dlogits_bitwise_repeatable_on_card(cuda_device) -> None:
+    """One writer per output element and no atomics: two launches on the
+    same inputs give the same dlogits bit for bit."""
+    rng = np.random.default_rng(28)
+    n, e, v = 1000, 256, 4000
+    x = _bf16(rng, n, e, device=cuda_device)
+    w = _bf16(rng, e, v, device=cuda_device, std=e ** -0.5)
+    t = torch.from_numpy(rng.integers(0, v, n)).to(cuda_device)
+    lse = C.ce_lse(x, w)
+    scale = torch.full((1,), 1.0 / n, device=cuda_device)
+    assert torch.equal(C.ce_dlogits(x, w, t, lse, scale), C.ce_dlogits(x, w, t, lse, scale))
+
+
 @pytest.mark.parametrize(
     "what, call",
     [
@@ -366,6 +396,26 @@ def test_vocab_slices_cover_v_in_whole_tiles(n, v, blocks) -> None:
     assert per == 256 or busiest <= 1.02 * row_tiles * v_tiles / blocks
     if (n, v, blocks) == (16384, 32000, 132):
         assert (per, slices) == (768, 42)
+
+
+@pytest.mark.parametrize("variant", ["full_tile_3_stages", "direct_st_global", "evict_first"])
+def test_ce_dlogits_ab_variants_apply_to_the_kernel_source(variant) -> None:
+    """tools/ab_ce_dlogits.py derives each design variant from
+    csrc/cross_entropy.cu by text substitution: every substitution still
+    finds its one anchor, and only the K5 epilogue or staging changes."""
+    from torchft_tpu_torch import _build
+    from torchft_tpu_torch.tools import ab_ce_dlogits as ab
+
+    with open(f"{_build.CSRC_DIR}/cross_entropy.cu") as f:
+        src = f.read()
+    assert ab.variant_source("kept", src) == src
+    out = ab.variant_source(variant, src)
+    assert out != src
+    assert out[: src.index("namespace dlogits {")].replace("STAGES = 3", "STAGES = 4") == \
+        src[: src.index("namespace dlogits {")]
+    assert ("STAGES = 3" in out) == (variant == "full_tile_3_stages")
+    assert ("sm.out" in out) == (variant != "direct_st_global")
+    assert ("L2::cache_hint" in out) == (variant == "evict_first")
 
 
 def test_spill_bytes_reads_the_ptxas_report() -> None:

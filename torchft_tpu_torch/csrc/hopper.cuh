@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the flash-attention and lm-head
-// log-sum-exp kernels: mbarriers, TMA tensor loads and stores, wgmma
+// cross-entropy kernels: mbarriers, TMA tensor loads and stores, wgmma
 // descriptors and instructions, register reallocation, and the host-side
-// tensor-map encoders.  Raw PTX, no CUTLASS.
+// shared-memory opt-in and tensor-map encoders.  Raw PTX, no CUTLASS.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzle: a [rows, 64 c]
 // bf16 tile is held as c 64-column blocks, each [rows][64] with 128-byte
@@ -98,9 +98,31 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       : "memory");
 }
 
-__device__ __forceinline__ void tma_store_commit_and_wait() {
+// The same for a 2-D tensor map: columns and rows past the tensor are not
+// written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Closes this thread's stores issued since the last commit into one group.
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Returns once this thread's committed stores have read their shared
+// memory, which may then be written again.
+__device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  tma_store_commit();
+  tma_store_wait_read();
 }
 
 // Makes this thread's shared-memory writes visible to the async proxy (TMA).
@@ -112,11 +134,11 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// Byte offset of element (row, col), col in [0, 128), in a swizzled
-// [rows, 128] bf16 tile whose 64-column halves are half_bytes apart.
-__device__ __forceinline__ uint32_t sw128_offset(int row, int col, uint32_t half_bytes) {
+// Byte offset of element (row, col) in a swizzled [rows, 64 k] bf16 tile
+// whose 64-column blocks are block_bytes apart.
+__device__ __forceinline__ uint32_t sw128_offset(int row, int col, uint32_t block_bytes) {
   const int c = col & 63;
-  return (col >> 6) * half_bytes + row * 128 + ((((c >> 3) ^ (row & 7)) << 4) | ((c & 7) << 1));
+  return (col >> 6) * block_bytes + row * 128 + ((((c >> 3) ^ (row & 7)) << 4) | ((c & 7) << 1));
 }
 
 // -- register reallocation ----------------------------------------------------
@@ -307,7 +329,14 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss_tb(float (&d)[128], uint64_t
 
 }  // namespace hopper
 
-// -- host: tensor maps ---------------------------------------------------------
+// -- host: launch attributes and tensor maps -----------------------------------
+
+// Kernels needing more than 48 KB of shared memory must opt in.
+template <typename Kernel>
+__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -353,7 +382,7 @@ inline cudaError_t make_map_bsd(CUtensorMap* map, const void* base, int bh, int 
 
 // A row-major [rows, cols] bf16 matrix (cols % 8 == 0, so rows are 16-byte
 // aligned) as a 2-D map whose box is 64 columns x box_rows rows, 128-byte
-// swizzle, zero fill past either edge.
+// swizzle: loads fill zeros past either edge, stores write nothing there.
 inline cudaError_t make_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
                                int box_rows) {
   EncodeTiledFn fn = encode_tiled();

@@ -29,7 +29,7 @@ CE_LSE = Kernel(
 )
 CE_DLOGITS = Kernel(
     "ce_dlogits", "cross_entropy", "tf_ce_dlogits",
-    [_p, _p, _p, _p, _p, _p, _i, _i, _i],
+    [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i],
     replaces="torchft_tpu/ops/cross_entropy.py:147",
 )
 
@@ -112,8 +112,9 @@ def ce_dlogits(x, w, targets, lse, scale: torch.Tensor) -> torch.Tensor:
         if t.device != x.device:
             raise ValueError("ce_dlogits: targets, lse and scale must be on x's device")
     dl = torch.empty((n, w.shape[1]), dtype=x.dtype, device=x.device)
+    blocks = torch.cuda.get_device_properties(x.device).multi_processor_count
     CE_DLOGITS(x.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(), scale.data_ptr(),
-               dl.data_ptr(), n, e, w.shape[1])
+               dl.data_ptr(), n, e, w.shape[1], blocks)
     return dl
 
 
