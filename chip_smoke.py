@@ -34,15 +34,21 @@ result):
 5. Flagship training: a lighthouse, then two replica groups as two
    processes on the one card, each training the flagship transformer (12
    layers, d_model 768, 6 x 128 heads, vocab 32000, seq 1024, batch 16)
-   under the fault-tolerant loop (Manager -> GradientAverager over
-   TCPCollective -> should_commit -> AdamW).  Group 0 starts alone; group 1
+   under the fault-tolerant loop (Manager -> pipelined GradientAverager
+   over TCPCollective with its defaults: the native ring engine, 2 lanes,
+   the f32 wire -> should_commit -> AdamW).  Group 0 starts alone; group 1
    starts after group 0 has committed SOLO_STEPS steps, heals from it over
    HTTPTransport, and both run merged to the same final step; group 0 then
    times plain full_steps (compute alone).  Asserted: every step commits,
    every loss is finite, group 1 healed, both groups end with the same
-   params_sha256, and every kernel of the path launched exactly as often as
-   the steps require (flash kernels 12 a step, cross-entropy kernels 1 a
-   step).
+   params_sha256, both rings ran the native engine on 2 lanes and the f32
+   wire, and every kernel of the path launched exactly as often as the
+   steps require (flash kernels 12 a step, cross-entropy kernels 1 a step).
+   Printed: the averager's last_stats, the merged step's split into the
+   train thread's waits for the copies off the card, for the ring and for
+   the copies back, and params_sha256 beside the previous tree's
+   (PREVIOUS_PARAMS_SHA256; two groups on the f32 wire reduce each element
+   by one IEEE sum and one division by 2 on any engine, lanes or stripes).
 6. Kill and heal: ``torchft_tpu_torch.launch``'s Launcher runs two groups
    of ``python -m torchft_tpu_torch.examples.train_ddp`` on the card with
    an embedded lighthouse; after group 0 has KILL_MERGED merged commits,
@@ -51,7 +57,14 @@ result):
    lines at one step with one params_sha256, every loss finite.  Printed:
    the seconds from the kill to the restarted group's first merged commit,
    the survivor's uncommitted steps, its step ms alone and merged.
-7. The kernels line, ``{"kernels": [...]}``, then the last line,
+7. Bare ring on the card's host: two in-process ranks allreduce the
+   flagship's gradient payload (its parameter count in f32, 537 MB)
+   BARE_RING_REPEATS times in each of three configurations: the Python
+   engine on 1 lane (the earlier port's ring), the native engine on 2
+   lanes, and the native engine on 2 lanes with the bf16 wire.  Asserted:
+   the Python and native f32 results are bitwise equal, and both ranks
+   hold the same bits.  Printed: seconds and GB/s of payload per op.
+8. The kernels line, ``{"kernels": [...]}``, then the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -84,6 +97,11 @@ RMS_CALLS = 3             # rms_norm_pallas calls of the entry-point phase
 KILL_STEPS = 2000         # train_ddp's --steps in the kill-and-heal phase
 KILL_MERGED = 30          # group 0's merged commits before the kill
 KILL_TIMEOUT_S = 420.0
+BARE_RING_REPEATS = 3     # allreduces per configuration in the bare-ring phase
+BARE_RING_TIMEOUT_S = 300.0
+# params_sha256 of phase 5 on the previous tree (the single-lane Python
+# ring), printed beside this run's.
+PREVIOUS_PARAMS_SHA256 = "a6708cb8b8f7ca7d788b7e4aec47ebe288e95de86bd675e5311f02544f344981"
 # The kernels built on wgmma, whose ptxas report must show no spill.
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                  "ce_lse_kernel", "ce_dlogits_kernel")
@@ -638,6 +656,7 @@ def run_group(args: argparse.Namespace) -> None:
 
     reset_launch_counts()
     steps, merged, healed = [], 0, 0
+    ring_seen: dict = {}
     while merged < MERGED_STEPS:
         if len(steps) > 100:
             raise RuntimeError("group never merged with its peer")
@@ -663,6 +682,12 @@ def run_group(args: argparse.Namespace) -> None:
         rec = {"group": group, "step": manager.current_step(), "loss": loss_v,
                "committed": committed, "participants": participants,
                "ring": collective.size(), "healed": jumped, "step_s": dt}
+        if collective.size() == 2:
+            # The averager's last exchange: this step's (alone it returns
+            # before any copy and keeps the previous step's stats).
+            rec["exchange"] = dict(trainer.averager.last_stats)
+            ring_seen = {"ring_engine": collective.ring_engine, "lanes": collective.lanes,
+                         "wire": collective.wire_dtype}
         steps.append(rec)
         print("STEP " + json.dumps(rec), flush=True)
         if not committed:
@@ -680,7 +705,8 @@ def run_group(args: argparse.Namespace) -> None:
     for name, p in model.state_dict().items():
         h.update(name.encode())
         h.update(p.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
-    merged_s = [r["step_s"] for r in steps if r["participants"] == 2]
+    merged_recs = [r for r in steps if r["participants"] == 2]
+    merged_s = [r["step_s"] for r in merged_recs]
     # Group 0's solo steps (ring of one: no gradient traffic), the first
     # one (warm-up) left out.
     solo_s = [r["step_s"] for r in steps[1:] if r["ring"] == 1]
@@ -688,6 +714,15 @@ def run_group(args: argparse.Namespace) -> None:
     tokens = batch * seq
     result = {
         "group": group,
+        **ring_seen,
+        "exchange_last_stats": merged_recs[-1]["exchange"],
+        # Mean over the merged steps of the train thread's waits in the
+        # averager: for the copies off the card, for the ring, for the
+        # copies back.
+        "merged_split_ms": {
+            k: 1e3 * sum(r["exchange"][k] for r in merged_recs) / len(merged_recs)
+            for k in ("d2h_wait_s", "ring_wait_s", "h2d_s")
+        },
         "steps_run": len(steps),
         "final_step": manager.current_step(),
         "healed": healed,
@@ -789,6 +824,16 @@ def main_path(card: str) -> dict:
         raise AssertionError(f"expected group 1 to heal once: {r0['healed']}, {r1['healed']}")
     if r0["params_sha256"] != r1["params_sha256"]:
         raise AssertionError("the groups' final parameters differ")
+    for r in (r0, r1):
+        ring = (r.get("ring_engine"), r.get("lanes"), r.get("wire"))
+        print(f"group {r['group']}: ring engine {ring[0]}, {ring[1]} lanes, {ring[2]} wire; "
+              f"averager last_stats {json.dumps(r['exchange_last_stats'])}", flush=True)
+        if ring != ("native", 2, "f32"):
+            raise AssertionError(f"group {r['group']} ran the ring {ring}, expected the "
+                                 f"defaults ('native', 2, 'f32')")
+    same = r0["params_sha256"] == PREVIOUS_PARAMS_SHA256
+    print(f"params_sha256 {r0['params_sha256']}; previous tree's {PREVIOUS_PARAMS_SHA256}: "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
     from torchft_tpu_torch.models import flagship_config
 
     cfg, batch, seq = flagship_config()
@@ -814,6 +859,12 @@ def main_path(card: str) -> dict:
         print(f"group 0 {name}: {ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s, "
               f"{flops / ms / 1e9:.1f} model TFLOP/s = "
               f"{flops / ms * 1e3 / PEAK_BF16_FLOPS:.4f} of the bf16 peak ({card})", flush=True)
+    for r in (r0, r1):
+        split = r["merged_split_ms"]
+        print(f"group {r['group']} merged ft_step {r['merged_step_ms']:.1f} ms, of which the train "
+              f"thread waited {split['d2h_wait_s']:.1f} ms for the copies off the card, "
+              f"{split['ring_wait_s']:.1f} ms for the ring, {split['h2d_s']:.1f} ms for the "
+              f"copies back (mean of {MERGED_STEPS} merged steps; {card})", flush=True)
     return {name: r0["launches"][name] + r1["launches"][name] for name in per_step}
 
 
@@ -853,6 +904,93 @@ def kill_heal_phase(card: str) -> dict:
     r["cold_start_s"] = cold_start_s
     print("KILL_HEAL " + json.dumps(r), flush=True)
     return r
+
+
+# -- phase 7: the bare ring ---------------------------------------------------
+
+# (engine, lanes, wire): the earlier port's ring, then the defaults, then the
+# defaults on the bf16 wire.
+BARE_RING_CONFIGS = (("py", 1, "f32"), ("native", 2, "f32"), ("native", 2, "bf16"))
+
+
+def flagship_param_count() -> int:
+    """Parameters of the flagship transformer: its gradient payload in
+    float32 elements."""
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg, _, _ = flagship_config()
+    E, V, F, Dh = cfg.d_model, cfg.vocab_size, cfg.d_ff, cfg.d_head
+    layer = 2 * E + E * cfg.n_heads * Dh * 2 + 2 * E * cfg.n_kv_heads * Dh + 3 * E * F
+    return 2 * V * E + E + cfg.n_layers * layer
+
+
+def bare_ring(card: str) -> dict:
+    """Two in-process ranks allreduce the flagship's gradient payload over
+    127.0.0.1 in each of BARE_RING_CONFIGS, each op on a fresh copy handed
+    over with ``donate=True`` (as the averager hands its pinned buffers)."""
+    import numpy as np
+
+    from torchft_tpu_torch._native import StoreServer
+    from torchft_tpu_torch.collectives import TCPCollective
+
+    n = flagship_param_count()
+    data = [np.random.default_rng(11 + r).standard_normal(n, dtype=np.float32) for r in range(2)]
+    exact = data[0] + data[1]  # two addends: one IEEE sum, in any order
+    store = StoreServer(bind="127.0.0.1:0")
+    report = {"payload_bytes": 4 * n, "ops": {}}
+    outs = {}
+    try:
+        for i, (engine, lanes, wire) in enumerate(BARE_RING_CONFIGS):
+            cols = [TCPCollective(timeout=BARE_RING_TIMEOUT_S, wire_dtype=wire, lanes=lanes,
+                                  engine=engine, host="127.0.0.1") for _ in range(2)]
+            barrier = threading.Barrier(2)
+
+            def rank(r: int, cols=cols, barrier=barrier, engine=engine, i=i):
+                c = cols[r]
+                c.configure(f"{store.address()}/bare/{i}", r, 2)
+                if c.ring_engine != engine:
+                    raise AssertionError(f"bare ring: asked for {engine}, ran {c.ring_engine}")
+                secs, out = [], None
+                for _ in range(BARE_RING_REPEATS):
+                    buf = data[r].copy()
+                    barrier.wait(timeout=BARE_RING_TIMEOUT_S)
+                    t0 = time.perf_counter()
+                    (out,) = c.allreduce([buf], donate=True).wait(timeout=BARE_RING_TIMEOUT_S)
+                    secs.append(time.perf_counter() - t0)
+                return secs, out
+
+            try:
+                with ThreadPoolExecutor(max_workers=2) as pool:
+                    futs = [pool.submit(rank, r) for r in range(2)]
+                    got = [f.result(timeout=2 * BARE_RING_TIMEOUT_S) for f in futs]
+            finally:
+                for c in cols:
+                    c.shutdown()
+            if got[0][1].view(np.uint32).tobytes() != got[1][1].view(np.uint32).tobytes():
+                raise AssertionError(f"bare ring {engine}/{lanes}/{wire}: the ranks differ")
+            secs = [max(a, b) for a, b in zip(got[0][0], got[1][0])]
+            key = f"{engine}, {lanes} lane{'s' if lanes > 1 else ''}, {wire} wire"
+            report["ops"][key] = {"s": secs, "gb_per_s": [4 * n / s / 1e9 for s in secs]}
+            print(f"  {key}: " + ", ".join(f"{s:.3f} s ({4 * n / s / 1e9:.2f} GB/s)" for s in secs)
+                  + f" for {4 * n / 1e6:.1f} MB of f32 ({card})", flush=True)
+            if wire == "f32":
+                outs[engine] = got[0][1]
+                if not np.array_equal(got[0][1].view(np.uint32), exact.view(np.uint32)):
+                    raise AssertionError(f"bare ring {key}: the sum is not a + b bit for bit")
+            else:
+                a, b = data
+                if not (np.abs(got[0][1] - exact) <= 2.0 ** -7 * (np.abs(a) + np.abs(b))).all():
+                    raise AssertionError(f"bare ring {key}: the sum is off by more than bf16 "
+                                         f"rounding")
+            del got
+    finally:
+        store.shutdown()
+    same = np.array_equal(outs["py"].view(np.uint32), outs["native"].view(np.uint32))
+    print(f"  py and native f32 results bitwise equal: {same}", flush=True)
+    if not same:
+        raise AssertionError("bare ring: the Python and native engines' f32 results differ")
+    print("BARE_RING " + json.dumps(report), flush=True)
+    return report
 
 
 def main() -> int:
@@ -913,7 +1051,12 @@ def main() -> int:
           flush=True)
     kill_heal_phase(card)
 
-    # 7. The kernels line, then the last line.
+    # 7. The bare ring on the card's host.
+    print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
+          f"{BARE_RING_REPEATS} allreduces a configuration", flush=True)
+    bare_ring(card)
+
+    # 8. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]

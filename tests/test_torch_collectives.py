@@ -1,0 +1,355 @@
+"""The port's data plane against the JAX package's, bitwise.
+
+- Mixed rings: a JAX ``TCPCollective`` rank and a port rank on one store,
+  each on either engine, at 1, 2 and 4 lanes, on the f32 and the bf16 wire,
+  summing and averaging the JAX ring-engine tests' payloads (an odd length,
+  a two-array bucket, a 0-d scalar): every rank's results bitwise equal an
+  all-JAX Python-engine ring's.
+- Port-only rings: the native engine bitwise equal to the Python engine.
+- The bf16 wire's encode bitwise equal to ``ml_dtypes``' cast (imported
+  here, on the reference side only).
+- Abort: a mid-op abort latches the error on the survivors, every dup'd fd
+  of the native engine closes, and a reconfigure runs a fresh ring.
+- Engine selection: ``engine="native"`` raises where the engine cannot be
+  built; ``"auto"`` warns once and runs the Python engine.
+
+Payloads are small with ``chunk_bytes=4 << 10``, so the striped paths run
+several stripes.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_ref import import_reference
+from torchft_tpu_torch import _native
+from torchft_tpu_torch import collectives as C
+from torchft_tpu_torch.collectives import TCPCollective, bf16_decode, bf16_encode
+
+HOST = "127.0.0.1"
+CHUNK = 4 << 10
+_PREFIX = itertools.count()
+
+
+@pytest.fixture(scope="module")
+def jax_collectives():
+    return import_reference("torchft_tpu.collectives")
+
+
+@pytest.fixture(scope="module")
+def store():
+    server = _native.StoreServer(bind=f"{HOST}:0")
+    yield server
+    server.shutdown()
+
+
+def _payloads(rank: int) -> List[List[np.ndarray]]:
+    """tests/test_ring_engine.py's payloads: an odd length (uneven chunk and
+    stripe boundaries), a two-array bucket, and a 0-d scalar (all-empty
+    stripes)."""
+    rng = np.random.default_rng(1000 + rank)
+    big = (rng.standard_normal(6311) * (rank + 1)).astype(np.float32)
+    small = np.full((7,), 0.25 * (rank + 1), dtype=np.float32)
+    scalar = np.asarray(np.float32(0.1) * (rank + 1))
+    return [[big, small], [scalar]]
+
+
+def _make(kind: str, engine: str, lanes: int, wire: str, jax_collectives, timeout: float = 30.0):
+    if kind == "jax":
+        return jax_collectives.TCPCollective(
+            timeout=timeout, chunk_bytes=CHUNK, wire_dtype=wire, lanes=lanes, topology="ring",
+            engine=engine, transport="tcp",
+        )
+    return TCPCollective(timeout=timeout, chunk_bytes=CHUNK, wire_dtype=wire, lanes=lanes,
+                         engine=engine, host=HOST)
+
+
+def _run_ring(store, cols) -> Dict[int, dict]:
+    """Configures ``cols`` as one ring and runs sum and avg over every
+    payload on each rank; returns {rank: {"out": [...], "engine": ...}}."""
+    prefix = f"mixed/{next(_PREFIX)}"
+    world = len(cols)
+    out: Dict[int, dict] = {}
+
+    def worker(rank: int) -> None:
+        c = cols[rank]
+        c.configure(f"{store.address()}/{prefix}", rank, world)
+        got: List[np.ndarray] = []
+        for arrays in _payloads(rank):
+            for op in ("sum", "avg"):
+                got += [np.asarray(a) for a in c.allreduce(arrays, op=op).wait(timeout=30)]
+        out[rank] = {"out": got, "engine": c.ring_engine}
+
+    try:
+        with ThreadPoolExecutor(max_workers=world) as pool:
+            for f in [pool.submit(worker, r) for r in range(world)]:
+                f.result(timeout=90)
+    finally:
+        for c in cols:
+            c.shutdown()
+    return out
+
+
+def _assert_bitwise(a: List[np.ndarray], b: List[np.ndarray], ctx: str) -> None:
+    """tests/test_ring_engine.py's ``_assert_bitwise``."""
+    assert len(a) == len(b), ctx
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and x.shape == y.shape, f"{ctx} out[{i}]"
+        xb = np.ascontiguousarray(x).view(np.uint8)
+        yb = np.ascontiguousarray(y).view(np.uint8)
+        assert (xb == yb).all(), f"{ctx} out[{i}] differs bitwise"
+
+
+_REFERENCE: Dict[tuple, Dict[int, dict]] = {}
+
+
+def _all_jax_py(store, lanes: int, wire: str, jax_collectives) -> Dict[int, dict]:
+    key = (lanes, wire)
+    if key not in _REFERENCE:
+        _REFERENCE[key] = _run_ring(
+            store, [_make("jax", "py", lanes, wire, jax_collectives) for _ in range(2)])
+    return _REFERENCE[key]
+
+
+@pytest.mark.parametrize("port_rank", [0, 1])
+@pytest.mark.parametrize("jax_engine, port_engine",
+                         [("py", "py"), ("py", "native"), ("native", "py"), ("native", "native")])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_mixed_jax_and_port_ring_bitwise(store, jax_collectives, lanes, wire, jax_engine,
+                                         port_engine, port_rank) -> None:
+    ref = _all_jax_py(store, lanes, wire, jax_collectives)
+    cols = [_make("jax", jax_engine, lanes, wire, jax_collectives) for _ in range(2)]
+    cols[port_rank] = _make("port", port_engine, lanes, wire, jax_collectives)
+    got = _run_ring(store, cols)
+    assert got[port_rank]["engine"] == port_engine
+    assert got[1 - port_rank]["engine"] == jax_engine
+    for rank in range(2):
+        _assert_bitwise(ref[rank]["out"], got[rank]["out"],
+                        f"lanes={lanes} wire={wire} jax={jax_engine} port={port_engine} "
+                        f"port_rank={port_rank} rank={rank}")
+
+
+@pytest.mark.parametrize("world, lanes", [(2, 1), (2, 2), (2, 4), (3, 1), (3, 2)])
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+def test_port_native_engine_bitwise_equals_python_engine(store, world, lanes, wire) -> None:
+    outs = {}
+    for engine in ("py", "native"):
+        got = _run_ring(store, [_make("port", engine, lanes, wire, None) for _ in range(world)])
+        assert {r["engine"] for r in got.values()} == {engine}
+        outs[engine] = got
+    for rank in range(world):
+        _assert_bitwise(outs["py"][rank]["out"], outs["native"][rank]["out"],
+                        f"world={world} lanes={lanes} wire={wire} rank={rank}")
+        # Every rank decodes the same bits (the commit protocol's premise).
+        _assert_bitwise(outs["native"][0]["out"], outs["native"][rank]["out"], f"rank={rank}")
+
+
+def test_bf16_encode_is_ml_dtypes_cast_bitwise() -> None:
+    import ml_dtypes
+
+    rng = np.random.default_rng(0)
+    x = np.concatenate([
+        rng.standard_normal(50_000).astype(np.float32),
+        (rng.standard_normal(1000) * 1e-39).astype(np.float32),  # subnormals
+        np.frombuffer(rng.integers(0, 2**32, 50_000, dtype=np.uint32).tobytes(), np.float32),
+        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 3.4e38, -3.4e38,
+                  1 + 2**-8, 1 + 3 * 2**-8, 1.0 + 2**-9], dtype=np.float32),
+    ])
+    with np.errstate(invalid="ignore"):
+        want = x.astype(ml_dtypes.bfloat16).view(np.uint16)
+    got = bf16_encode(x)
+    assert got.dtype == np.uint16 and got.shape == x.shape
+    assert (got == want).all(), np.flatnonzero(got != want)[:10]
+    # Decode is exact: each bf16 value comes back as itself.
+    np.testing.assert_array_equal(bf16_decode(want).view(np.uint32),
+                                  want.view(ml_dtypes.bfloat16).astype(np.float32).view(np.uint32))
+
+
+def test_bf16_tensors_ride_the_bf16_wire_as_the_jax_bf16_arrays_do(store, jax_collectives) -> None:
+    """A device-prepped bucket reaches the collective as bf16: the port
+    (a CPU bf16 tensor) and the JAX package (an ml_dtypes array) reduce it
+    to the same bits, accumulating in f32."""
+    import ml_dtypes
+
+    base = [np.linspace(-3, 3, 5001, dtype=np.float32) * (r + 1) for r in range(2)]
+    results = {}
+    for kind in ("jax", "port"):
+        cols = [_make(kind, "native", 2, "bf16", jax_collectives) for _ in range(2)]
+        prefix = f"bf16in/{next(_PREFIX)}"
+
+        def worker(rank: int, cols=cols, kind=kind, prefix=prefix) -> np.ndarray:
+            cols[rank].configure(f"{store.address()}/{prefix}", rank, 2)
+            bits = base[rank].astype(ml_dtypes.bfloat16)
+            arg = (bits if kind == "jax"
+                   else torch.from_numpy(bits.view(np.uint16).view(np.int16)).view(torch.bfloat16))
+            (out,) = cols[rank].allreduce([arg], op="sum").wait(timeout=30)
+            if kind == "port":
+                assert out.dtype == torch.bfloat16
+                return out.view(torch.int16).numpy().view(np.uint16)
+            return np.asarray(out).view(np.uint16)
+
+        try:
+            with ThreadPoolExecutor(max_workers=2) as pool:
+                results[kind] = [f.result(timeout=60) for f in
+                                 [pool.submit(worker, r) for r in range(2)]]
+        finally:
+            for c in cols:
+                c.shutdown()
+    for rank in range(2):
+        np.testing.assert_array_equal(results["port"][rank], results["jax"][rank])
+
+
+def test_native_abort_latches_sweeps_engine_fds_and_reconfigures(store) -> None:
+    """The port's twin of tests/test_ring_engine.py's abort test, on the
+    flat ring: rank 2 aborts mid-run, the survivors' next op fails and
+    latches (never raises), and the reconfigure to a ring of two closes
+    every dup'd fd of the failed engine and every old lane socket, then
+    reduces on a fresh native engine."""
+    world = 3
+    cols = [TCPCollective(timeout=5.0, lanes=2, chunk_bytes=CHUNK, engine="native", host=HOST)
+            for _ in range(world)]
+    prefix, prefix2 = f"abort/{next(_PREFIX)}", f"abort/{next(_PREFIX)}"
+    engines: Dict[int, object] = {}
+    old_socks: Dict[int, list] = {}
+    barrier = threading.Barrier(world)
+
+    def worker(rank: int) -> str:
+        c = cols[rank]
+        c.configure(f"{store.address()}/{prefix}", rank, world)
+        assert c.ring_engine == "native"
+        engines[rank] = c._engine
+        assert engines[rank].open_fd_count() == 4  # 2 lanes x 2 directions
+        old_socks[rank] = [p.sock for p in c._next_lanes + c._prev_lanes]
+        x = np.ones(8192, dtype=np.float32)
+        c.allreduce([x]).wait(timeout=20)
+        barrier.wait(timeout=10)
+        if rank == world - 1:
+            c.abort()
+            return "dead"
+        exc = c.allreduce([x]).exception(timeout=20)
+        assert exc is not None, "expected a failure after the peer's abort"
+        assert c.errored() is not None
+        # Latched: later ops fail at once without touching the dead ring.
+        assert c.allreduce([x]).exception(timeout=20) is not None
+        return "latched"
+
+    with ThreadPoolExecutor(max_workers=world) as pool:
+        states = [f.result(timeout=90) for f in [pool.submit(worker, r) for r in range(world)]]
+    assert states.count("latched") == world - 1
+
+    def recover(rank: int) -> np.ndarray:
+        c = cols[rank]
+        c.configure(f"{store.address()}/{prefix2}", rank, 2)
+        assert c.errored() is None
+        assert engines[rank].open_fd_count() == 0
+        assert all(s.fileno() == -1 for s in old_socks[rank])
+        assert c.ring_engine == "native" and c._engine is not engines[rank]
+        (out,) = c.allreduce([np.full(4, float(rank + 1), dtype=np.float32)]).wait(timeout=20)
+        return out
+
+    try:
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for f in [pool.submit(recover, r) for r in range(2)]:
+                np.testing.assert_array_equal(f.result(timeout=90), np.full(4, 3.0, np.float32))
+    finally:
+        for c in cols:
+            c.shutdown()
+    assert all(e.open_fd_count() == 0 for e in engines.values())
+
+
+def test_engine_selection_raises_for_native_and_warns_once_for_auto(
+        store, monkeypatch, caplog) -> None:
+    class Broken:
+        TIER_FLAT = 0
+
+        def __init__(self, lanes: int) -> None:
+            raise RuntimeError("libtpuft.so lacks tf_ring_new (stale build)")
+
+    monkeypatch.setattr(_native, "RingEngine", Broken)
+    monkeypatch.setattr(C, "_native_fallback_warned", False)
+    native = [TCPCollective(timeout=10.0, engine="native", host=HOST) for _ in range(2)]
+    prefix = f"select/{next(_PREFIX)}"
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futs = [pool.submit(native[r].configure, f"{store.address()}/{prefix}", r, 2)
+                for r in range(2)]
+        for f in futs:
+            with pytest.raises(RuntimeError, match="engine='native'"):
+                f.result(timeout=30)
+    for c in native:
+        c.shutdown()
+
+    with caplog.at_level(logging.WARNING, logger="torchft_tpu_torch.collectives"):
+        for _ in range(2):  # two configurations, one warning
+            got = _run_ring(store, [TCPCollective(timeout=10.0, engine="auto", host=HOST)
+                                    for _ in range(2)])
+            assert {r["engine"] for r in got.values()} == {"py"}
+    warnings = [r for r in caplog.records if "PYTHON ring engine" in r.getMessage()]
+    assert len(warnings) == 1 and "stale build" in warnings[0].getMessage()
+
+
+def test_defaults_match_the_jax_flagship_collective(jax_collectives, monkeypatch) -> None:
+    """``TCPCollective(timeout, host)`` as the entry points build it takes
+    the JAX package's defaults: 2 lanes, 4 MB stripes, the f32 wire, the
+    auto engine, which resolves to the native one."""
+    for env in ("TPUFT_RING_LANES", "TPUFT_RING_ENGINE", "TPUFT_LINK_PROFILE",
+                "TPUFT_SHAPED_LINK"):
+        monkeypatch.delenv(env, raising=False)
+    port = TCPCollective(timeout=30.0, host=HOST)
+    ref = jax_collectives.TCPCollective(timeout=30.0)
+    assert (port.lanes, port._chunk_bytes, port.wire_dtype, port._engine_mode) == (
+        ref._lanes, ref._chunk_bytes, ref.wire_dtype, ref._engine_mode) == (2, 4 << 20, "f32",
+                                                                          "auto")
+    assert _native.ring_engine_available()
+    for max_chunk in (0, 1, CHUNK, 5 * CHUNK + 1, 300 * CHUNK, 537 << 20):
+        for lanes in (1, 2, 3, 4, 6, 8):
+            a = TCPCollective(chunk_bytes=CHUNK, lanes=lanes, host=HOST)
+            b = jax_collectives.TCPCollective(chunk_bytes=CHUNK, lanes=lanes)
+            assert a._stripe_count(max_chunk) == b._stripe_count(max_chunk)
+            assert [a._tag_base(s, t) for s in (0, 7, 2**22) for t in (0, 5, 63)] == \
+                [b._tag_base(s, t) for s in (0, 7, 2**22) for t in (0, 5, 63)]
+    assert port.wire_nbytes(np.zeros(10, np.float32)) == 40
+    assert TCPCollective(wire_dtype="bf16").wire_nbytes(torch.zeros(10)) == 20
+
+
+def test_ring_engine_counters_and_detach(store) -> None:
+    """The engine's byte counters see every frame of a pass, and a detach
+    with no op in flight releases its dup'd fds without shutting the
+    collective's own sockets down."""
+    cols = [TCPCollective(timeout=10.0, lanes=2, chunk_bytes=CHUNK, engine="native", host=HOST)
+            for _ in range(2)]
+    prefix = f"counters/{next(_PREFIX)}"
+
+    def worker(rank: int):
+        c = cols[rank]
+        c.configure(f"{store.address()}/{prefix}", rank, 2)
+        c.allreduce([np.ones(10_000, dtype=np.float32)]).wait(timeout=20)
+        engine = c._engine
+        assert engine.pass_calls == 1  # one crossing into the engine for all stripes
+        sent, recv = engine.counters(_native.RingEngine.TIER_FLAT)
+        links = [engine.link_bytes(_native.RingEngine.TIER_FLAT, d, lane)
+                 for d in (0, 1) for lane in range(2)]
+        return engine, sent, recv, links, c
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        got = [f.result(timeout=60) for f in [pool.submit(worker, r) for r in range(2)]]
+    try:
+        for engine, sent, recv, links, c in got:
+            # Each rank sends half the payload twice (reduce-scatter and
+            # allgather), in stripes with a 12-byte header each.
+            assert len(sent) == len(recv) == 2 and sum(sent) >= 40_000 and sum(recv) >= 40_000
+            assert links == sent + recv
+            engine.detach()
+            assert engine.open_fd_count() == 0
+            assert all(p.sock.fileno() != -1 for p in c._next_lanes + c._prev_lanes)
+    finally:
+        for c in cols:
+            c.shutdown()

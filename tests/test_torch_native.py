@@ -264,16 +264,42 @@ def test_gradient_averager_packs_and_unpacks_buckets() -> None:
     from torchft_tpu_torch.ddp import GradientAverager, plan_buckets
     from torchft_tpu_torch.futures import completed_future
 
-    assert plan_buckets([10, 10, 30, 1], bucket_bytes=80) == [[0, 1], [2], [3]]
+    f32 = torch.float32
+    plan = plan_buckets([((10,), f32), ((10,), f32), ((30,), f32), ((1,), f32)], bucket_bytes=80)
+    assert [b.indices for b in plan] == [[0, 1], [2], [3]]
+
+    class Ring:
+        wire_dtype = "f32"
+
+        def size(self):
+            return 2
 
     class HalvingManager:
         calls = 0
+        timeout = TIMEOUT
 
-        def allreduce(self, flat):
+        def allreduce(self, flat, allow_wire_compression=True, donate=False):
             HalvingManager.calls += 1
-            assert flat.dtype == torch.float32
+            assert flat.dtype == torch.float32 and donate
             return completed_future(flat * 0.5)
 
+        def wait_quorum(self):
+            pass
+
+        def errored(self):
+            return None
+
+        def collective(self):
+            return Ring()
+
+        def is_participating(self):
+            return True
+
+        def num_participants(self):
+            return 2
+
+    # Grouped by dtype: the bf16 gradient (widened to f32 on the host) in
+    # one bucket, the two f32 gradients (40 bytes) in the other.
     grads = [torch.arange(6, dtype=torch.float32).reshape(2, 3), torch.ones(4),
              torch.full((5,), 3.0, dtype=torch.bfloat16)]
     want = [g.float() * 0.5 for g in grads]

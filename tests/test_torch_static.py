@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package,
-imports without CUDA, and its card entry points raise instead of silently
-running on the CPU."""
+nor ``ml_dtypes`` (absent on the card's machine; the bf16 wire casts
+through torch), imports without CUDA, and its card entry points raise
+instead of silently running on the CPU."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "torchft_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "torchft_tpu", "ml_dtypes"}
 
 
 def _port_files():

@@ -9,10 +9,11 @@ Requests and responses cross the ABI as proto3 bytes built by
 every native call.
 
 The library is built (``_build.native_lib_path``) and loaded at first use,
-not at import.  This slice binds what the fault-tolerant training loop
+not at import.  The port binds what the fault-tolerant training loop
 needs: the lighthouse server (with its evict), a lighthouse client for
 evicts, the manager server and client (quorum, checkpoint metadata, commit
-vote) and the rendezvous store.
+vote), the rendezvous store, and the GIL-free ring data plane
+(:class:`RingEngine`, ``native/src/ring.h``) on the flat ring.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ STORE_DELETE = 23
 
 _lib_handle: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
+# Why the loaded library cannot run the ring engine ("" when it can).
+_ring_unavailable = ""
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -100,15 +103,71 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tf_client_free.restype = None
 
 
+def _declare_ring(lib: ctypes.CDLL) -> str:
+    """Declares the ``tf_ring_*`` symbols the port binds (the flat ring:
+    no shm, shaper or hop-recorder calls); returns why they are missing,
+    or "" when every one is there."""
+    vp, i32, u32, u64, dbl = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint32,
+                              ctypes.c_uint64, ctypes.c_double)
+    errp = ctypes.POINTER(ctypes.c_char_p)
+    i32p, u32p, u64p = ctypes.POINTER(i32), ctypes.POINTER(u32), ctypes.POINTER(u64)
+    sigs = {
+        "tf_ring_new": (vp, [i32, dbl, dbl]),
+        "tf_ring_set_tier": (ctypes.c_int, [vp, i32, i32, i32p, i32p, errp]),
+        "tf_ring_exchange": (ctypes.c_int, [
+            vp, i32, i32, u32, ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_size_t),
+            dbl, errp,
+        ]),
+        "tf_ring_pass": (ctypes.c_int, [
+            vp, i32, i32, i32, i32, u32, u32, u32, i32, i32, i32, u64p, u64p, dbl, errp,
+        ]),
+        "tf_ring_pass_multi": (ctypes.c_int, [
+            vp, i32, i32, i32, i32, i32p, u32p, u32, u32, i32, i32, i32, u64p, u64p, dbl,
+            errp,
+        ]),
+        "tf_ring_counters": (ctypes.c_int, [vp, i32, u64p, u64p, i32]),
+        "tf_ring_link_bytes": (u64, [vp, i32, i32, i32]),
+        "tf_ring_open_fds": (ctypes.c_int, [vp]),
+        "tf_ring_close": (None, [vp]),
+        "tf_ring_detach": (ctypes.c_int, [vp, errp]),
+        "tf_ring_free": (None, [vp]),
+    }
+    for name, (restype, argtypes) in sigs.items():
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:
+            return f"{native_lib_path()} lacks {name}"
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return ""
+
+
 def _lib() -> ctypes.CDLL:
     """The loaded native core, built on first use."""
-    global _lib_handle
+    global _lib_handle, _ring_unavailable
     with _lib_lock:
         if _lib_handle is None:
             lib = ctypes.CDLL(native_lib_path())
             _declare(lib)
+            _ring_unavailable = _declare_ring(lib)
             _lib_handle = lib
         return _lib_handle
+
+
+def ring_engine_unavailable_reason() -> str:
+    """Why the native ring engine cannot run here ("" when it can): the
+    library failed to build or load, or lacks the ring symbols."""
+    try:
+        _lib()
+    except Exception as e:  # noqa: BLE001 - reported to the caller
+        return f"native library unavailable: {e}"
+    return _ring_unavailable
+
+
+def ring_engine_available() -> bool:
+    """True when the native library exports the GIL-free ring engine."""
+    return not ring_engine_unavailable_reason()
 
 
 def _take_string(ptr: int) -> str:
@@ -419,3 +478,158 @@ class StoreClient:
 
     def close(self) -> None:
         self._client.close()
+
+
+class RingEngine:
+    """GIL-free ring data plane (``native/src/ring.h``) over the flat ring.
+
+    Owns dup()'d copies of :class:`~torchft_tpu_torch.collectives.TCPCollective`'s
+    lane sockets and runs the per-hop hot loop natively: scatter-gather
+    socket I/O over the caller's f32 buffers, the tag demux, and the bf16
+    wire codec, with the same frames, codec bytes and combine order as the
+    Python engine (the two interoperate on one ring, and with the JAX
+    package's engines).  Every call releases the GIL for its whole duration
+    (ctypes), which is the point: a striped allreduce does no interpreter
+    work on the wire path.  Direction 0 is next (sends), 1 prev (receives).
+    """
+
+    TIER_FLAT = 0
+    # Ring-pass modes, ops and wires (native/src/ring.h enums).
+    PASS_FULL = 0
+    OP_SUM = 0
+    WIRE_RAW = 0
+    WIRE_BF16 = 1
+
+    def __init__(self, lanes: int) -> None:
+        reason = ring_engine_unavailable_reason()
+        if reason:
+            raise RuntimeError(reason)
+        self._lib = _lib()
+        self._ptr = self._lib.tf_ring_new(int(lanes), 0.0, 0.0)
+        self._lanes = int(lanes)
+        # Python -> native crossings on the data path (ring_pass and
+        # ring_pass_multi calls): one per allreduce with the batched entry.
+        self.pass_calls = 0
+
+    def set_tier(self, tier: int, next_fds: List[int], prev_fds: List[int]) -> None:
+        """Registers the flat ring's lane sockets, one per lane and
+        direction (the engine dup()s them; the Python sockets stay owned,
+        and closed, by the collective)."""
+        if tier != self.TIER_FLAT:
+            raise ValueError("the port's ring engine runs the flat ring only")
+        n = len(next_fds)
+        if len(prev_fds) != n:
+            raise ValueError("next and prev need one fd per lane each")
+        nxt = (ctypes.c_int32 * n)(*next_fds)
+        prv = (ctypes.c_int32 * n)(*prev_fds)
+        err = ctypes.c_char_p()
+        if self._lib.tf_ring_set_tier(self._ptr, tier, n, nxt, prv, ctypes.byref(err)) != 0:
+            raise RuntimeError(_take_error(err))
+
+    @staticmethod
+    def _raise(rc: int, err: "ctypes.c_char_p") -> None:
+        msg = _take_error(err)
+        if rc == 1:
+            raise TimeoutError(msg)
+        if rc == 2:
+            raise ConnectionError(msg)
+        raise RuntimeError(msg)
+
+    def exchange(self, tier: int, lane: int, tag: int, payload: bytes, timeout_s: float) -> bytes:
+        """Full-duplex framed exchange on ``lane``: sends ``payload`` under
+        ``tag`` to the next rank while receiving the same tag from the
+        previous one, through the engine's demux (the path Python-run hops
+        take while an engine owns the lanes)."""
+        out = ctypes.POINTER(ctypes.c_uint8)()
+        out_len = ctypes.c_size_t()
+        err = ctypes.c_char_p()
+        rc = self._lib.tf_ring_exchange(
+            self._ptr, tier, lane, tag & 0xFFFFFFFF, payload, len(payload),
+            ctypes.byref(out), ctypes.byref(out_len), float(timeout_s), ctypes.byref(err),
+        )
+        if rc != 0:
+            self._raise(rc, err)
+        data = ctypes.string_at(out, out_len.value)
+        self._lib.tf_free(ctypes.cast(out, ctypes.c_void_p))
+        return data
+
+    def ring_pass(self, tier: int, lane: int, n: int, rank: int, tag_base: int, rs_sub: int,
+                  ag_sub: int, mode: int, op: int, wire: int, chunk_ptrs: List[int],
+                  chunk_elems: List[int], timeout_s: float) -> None:
+        """One ring pass IN PLACE over ``n`` chunk views (addresses and
+        element counts into the caller's contiguous f32 buffer, cut by
+        ``np.array_split`` on every rank); the buffer must outlive the call,
+        which blocks."""
+        ptrs = (ctypes.c_uint64 * n)(*chunk_ptrs)
+        elems = (ctypes.c_uint64 * n)(*chunk_elems)
+        err = ctypes.c_char_p()
+        self.pass_calls += 1
+        rc = self._lib.tf_ring_pass(
+            self._ptr, tier, lane, n, rank, tag_base & 0xFFFFFFFF, rs_sub, ag_sub,
+            mode, op, wire, ptrs, elems, float(timeout_s), ctypes.byref(err),
+        )
+        if rc != 0:
+            self._raise(rc, err)
+
+    def ring_pass_multi(self, tier: int, nstripes: int, n: int, rank: int, lanes: List[int],
+                        tag_bases: List[int], rs_sub: int, ag_sub: int, mode: int, op: int,
+                        wire: int, chunk_ptrs: List[int], chunk_elems: List[int],
+                        timeout_s: float) -> None:
+        """``nstripes`` independent ring passes in one call: stripe ``s`` on
+        lane ``lanes[s]`` under ``tag_bases[s]``, over the chunk views
+        ``[s * n, s * n + n)`` of ``chunk_ptrs``/``chunk_elems``.  The engine
+        fans the stripes out on its own workers; a failure on any stripe
+        fails them all and the first error is raised."""
+        total = nstripes * n
+        if len(chunk_ptrs) != total or len(chunk_elems) != total:
+            raise ValueError("ring_pass_multi: one pointer and count per stripe and chunk")
+        if len(lanes) != nstripes or len(tag_bases) != nstripes:
+            raise ValueError("ring_pass_multi: one lane and tag base per stripe")
+        lanes_a = (ctypes.c_int32 * nstripes)(*lanes)
+        tags_a = (ctypes.c_uint32 * nstripes)(*(t & 0xFFFFFFFF for t in tag_bases))
+        ptrs = (ctypes.c_uint64 * total)(*chunk_ptrs)
+        elems = (ctypes.c_uint64 * total)(*chunk_elems)
+        err = ctypes.c_char_p()
+        self.pass_calls += 1
+        rc = self._lib.tf_ring_pass_multi(
+            self._ptr, tier, nstripes, n, rank, lanes_a, tags_a, rs_sub, ag_sub, mode, op, wire,
+            ptrs, elems, float(timeout_s), ctypes.byref(err),
+        )
+        if rc != 0:
+            self._raise(rc, err)
+
+    def counters(self, tier: int) -> "tuple[List[int], List[int]]":
+        """(sent, received) wire bytes per lane of ``tier``, headers
+        included."""
+        sent = (ctypes.c_uint64 * self._lanes)()
+        recv = (ctypes.c_uint64 * self._lanes)()
+        got = self._lib.tf_ring_counters(self._ptr, tier, sent, recv, self._lanes)
+        return list(sent[:got]), list(recv[:got])
+
+    def link_bytes(self, tier: int, direction: int, lane: int) -> int:
+        return int(self._lib.tf_ring_link_bytes(self._ptr, tier, direction, lane))
+
+    def open_fd_count(self) -> int:
+        """Dup'd lane fds still open: 0 after :meth:`close`."""
+        return int(self._lib.tf_ring_open_fds(self._ptr)) if self._ptr else 0
+
+    def close(self) -> None:
+        """Shuts down and closes every dup'd lane fd and joins the sender
+        threads; idempotent and safe mid-op (blocked ops fail fast)."""
+        if self._ptr:
+            self._lib.tf_ring_close(self._ptr)
+
+    def detach(self) -> None:
+        """Releases the dup'd fds WITHOUT shutting the connections down, so
+        the collective's sockets stay usable; raises if ops were in flight
+        (the lanes are then dead)."""
+        if self._ptr:
+            err = ctypes.c_char_p()
+            if self._lib.tf_ring_detach(self._ptr, ctypes.byref(err)) != 0:
+                raise RuntimeError(_take_error(err))
+
+    def __del__(self) -> None:
+        ptr, self._ptr = getattr(self, "_ptr", None), None
+        if ptr:
+            self._lib.tf_ring_close(ptr)
+            self._lib.tf_ring_free(ptr)

@@ -6,7 +6,8 @@ on the wrapped future instead of hanging the train loop.  The JAX package's
 device watchdog (a materializer thread that fetches device arrays) becomes
 :func:`device_get`: a copy from the card into pinned host memory, enqueued
 on the current stream, that the caller waits on with a deadline by polling
-a CUDA event.
+a CUDA event (:func:`event_wait`, which the gradient averager's pipelined
+copies wait through too).
 """
 
 from __future__ import annotations
@@ -144,6 +145,16 @@ def then(fut: Future, fn: Callable[[Any], T]) -> Future:
     return out
 
 
+def event_wait(event: "torch.cuda.Event", timeout: float, what: str = "device work") -> None:
+    """Waits for ``event`` by polling it, raising ``TimeoutError`` after
+    ``timeout`` seconds: the deadline a blocking synchronize cannot give."""
+    deadline = time.monotonic() + timeout
+    while not event.query():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what} did not complete within {timeout}s")
+        time.sleep(5e-5)
+
+
 def device_get(tensor: torch.Tensor, timeout: float, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A host copy of ``tensor``, raising ``TimeoutError`` if the card has not
     produced it within ``timeout`` seconds (a wedged kernel surfaces as an
@@ -160,9 +171,5 @@ def device_get(tensor: torch.Tensor, timeout: float, out: Optional[torch.Tensor]
     out.copy_(tensor, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
-    deadline = time.monotonic() + timeout
-    while not done.query():
-        if time.monotonic() > deadline:
-            raise TimeoutError(f"device copy did not complete within {timeout}s")
-        time.sleep(5e-5)
+    event_wait(done, timeout, "device copy")
     return out

@@ -15,9 +15,11 @@ training loop needs:
   - commit protocol: an optimizer step lands only when every local rank of
     the group voted success.
 
-Gradients are torch tensors: :meth:`Manager.allreduce` copies one to host
-memory, rings it across groups, divides by the number of participating
-groups and returns the result on the input's device.
+:meth:`Manager.allreduce` takes a CUDA tensor (copied to pinned host memory
+under the timeout) or a host buffer (a CPU tensor or numpy array, handed
+to the collective with no copy), rings it across groups, divides by the
+number of participating groups and returns the result as the input's
+type, on its device.
 """
 
 from __future__ import annotations
@@ -51,6 +53,20 @@ class ExceededMaxRetriesError(RuntimeError):
 
 def _ms(t: timedelta) -> int:
     return int(t.total_seconds() * 1000)
+
+
+def _divide(out: Any, num: int, in_place: bool) -> Any:
+    """``out / num`` in ``out``'s dtype, as the JAX Manager's
+    ``(out / num).astype(dtype)`` (for bf16: the f32 quotient rounded to
+    nearest even, as ``ml_dtypes`` does); in place when the caller owns
+    ``out``."""
+    if isinstance(out, torch.Tensor):
+        if out.dtype == torch.bfloat16:
+            return out.div_(num) if in_place else out / num
+        return torch.from_numpy(_divide(out.numpy(), num, in_place))
+    if in_place and out.flags.writeable and np.issubdtype(out.dtype, np.floating):
+        return np.divide(out, num, out=out)
+    return (out / num).astype(out.dtype, copy=False)
 
 
 class Manager:
@@ -295,32 +311,58 @@ class Manager:
 
     # -- allreduce ----------------------------------------------------------
 
-    def allreduce(self, tensor: torch.Tensor) -> Future:
-        """Fault-tolerant average across replica groups.
+    def allreduce(
+        self,
+        tensor: Any,
+        should_average: bool = True,
+        allow_wire_compression: bool = True,
+        donate: bool = False,
+    ) -> Future:
+        """Fault-tolerant sum (average by default) across replica groups.
 
-        Returns a future resolving to the participants' sum divided by the
-        number of participating groups, as a tensor on ``tensor``'s device.  A group that is not participating (healing)
-        contributes zeros.  Never raises: a failure resolves to ``tensor``
-        unchanged and latches the step's error."""
+        ``tensor`` is a CUDA tensor, which is copied to pinned host memory
+        under the timeout, or a host buffer (a CPU tensor, pinned or not, or
+        a numpy array), which goes to the collective as it is.  The future
+        resolves to the participants' sum, divided by the number of
+        participating groups when ``should_average``, of the input's type,
+        device and dtype.  A group that is not participating (healing)
+        contributes zeros.
+
+        ``allow_wire_compression=False`` keeps the call full width under a
+        bf16 wire.  ``donate=True`` hands a host buffer to the collective:
+        it may reduce (and average) in place and return the same storage;
+        the caller must not read it again except through the result.
+
+        Never raises: a failure resolves to ``tensor`` itself and latches
+        the step's error (so a caller that donated tells a failure by
+        identity, and must not trust the buffer's contents)."""
         if self.errored() is not None:
             return completed_future(tensor)
         self.wait_quorum()
         if self._collective.size() == 1 and self.is_participating():
             return completed_future(tensor)
-        try:
-            host = device_get(tensor, self._timeout.total_seconds()).numpy()
-        except TimeoutError as e:
-            logger.exception("allreduce input copy: %s", e)
-            self.report_error(e)
-            return completed_future(tensor)
+        on_card = isinstance(tensor, torch.Tensor) and tensor.device.type == "cuda"
+        host, owned = tensor, donate
+        if on_card:
+            try:
+                host, owned = device_get(tensor, self._timeout.total_seconds()), True
+            except TimeoutError as e:
+                logger.exception("allreduce input copy: %s", e)
+                self.report_error(e)
+                return completed_future(tensor)
         if not self.is_participating():
-            host = np.zeros_like(host)
+            host = torch.zeros_like(host) if isinstance(host, torch.Tensor) else np.zeros_like(host)
+            owned = True
         try:
-            work = self._collective.allreduce([host], op="sum")
+            work = self._collective.allreduce(
+                [host], op="sum", allow_wire_compression=allow_wire_compression, donate=owned
+            )
 
-            def normalize(results: List[np.ndarray]) -> torch.Tensor:
-                out = (results[0] / max(1, self.num_participants())).astype(host.dtype, copy=False)
-                return torch.from_numpy(out).to(tensor.device)
+            def normalize(results: List[Any]) -> Any:
+                out = results[0]
+                if should_average:
+                    out = _divide(out, max(1, self.num_participants()), in_place=owned)
+                return out.to(tensor.device) if on_card else out
 
             return self.wrap_future(then(work.future(), normalize), default=tensor)
         except Exception as e:  # noqa: BLE001 - latched, never raised
@@ -398,6 +440,15 @@ class Manager:
 
     def state_dict(self) -> Dict[str, int]:
         return {"step": self._step, "batches_committed": self._batches_committed}
+
+    def collective(self) -> Collective:
+        """The cross-group collective (the averager reads its wire)."""
+        return self._collective
+
+    @property
+    def timeout(self) -> timedelta:
+        """The deadline of every data-plane wait."""
+        return self._timeout
 
     def current_step(self) -> int:
         return self._step

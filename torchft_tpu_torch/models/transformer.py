@@ -3,9 +3,12 @@ subset of ``torchft_tpu/models/transformer.py`` with its math exactly:
 half-split rotary embedding, pre-norm blocks, a SwiGLU MLP, parameters in
 float32 and compute in ``cfg.dtype`` (bf16 on the card).
 
-The loss takes the fused lm-head cross-entropy (the Hopper kernels) when
-the activations are on CUDA, as the JAX model does on a single TPU, and the
-plain materialized-logits cross-entropy on the CPU.
+Attention takes the flash kernels and the loss the fused lm-head
+cross-entropy kernels where their shape gates hold (``flash_applicable``,
+``fused_ce_applicable``: bf16 on CUDA at shapes the kernels are built
+for), as the JAX model takes its Pallas kernels where ``_use_pallas`` and
+``fused_ce_applicable`` hold; everywhere else (the CPU, head dims other
+than 128, ragged widths) the same math runs as plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,7 +20,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torchft_tpu_torch.ops import flash_attention, fused_linear_cross_entropy, rms_norm
+from torchft_tpu_torch.ops import (
+    flash_applicable,
+    flash_attention,
+    fused_ce_applicable,
+    fused_linear_cross_entropy,
+    plain_attention,
+    rms_norm,
+)
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -113,7 +123,9 @@ class Block(nn.Module):
         q = _rope(proj(self.wq, h).reshape(B, S, H, Dh), positions, cfg.rope_theta)
         k = _rope(proj(self.wk, h).reshape(B, S, KV, Dh), positions, cfg.rope_theta)
         v = proj(self.wv, h).reshape(B, S, KV, Dh)
-        attn = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        attend = flash_attention if flash_applicable(q, k) else plain_attention
+        attn = attend(q, k, v, causal=True)
         x = x + proj(self.wo, attn.transpose(1, 2).reshape(B, S, H * Dh))
 
         h = rms_norm(x, self.mlp_norm)
@@ -161,14 +173,15 @@ class Transformer(nn.Module):
 
     def lm_head_loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Mean next-token CE from decoder output x [B, S, E]: the fused
-        kernels on CUDA, the materialized logits on the CPU."""
+        kernels where ``fused_ce_applicable`` holds, else the materialized
+        logits."""
         B, S, E = x.shape
-        if x.device.type == "cuda":
-            h = rms_norm(x, self.final_norm)
-            return fused_linear_cross_entropy(
-                h.reshape(B * S, E), self.lm_head.to(self.cfg.dtype), targets.reshape(B * S)
-            )
-        return token_cross_entropy(self.head(x), targets)
+        h = rms_norm(x, self.final_norm).reshape(B * S, E)
+        w = self.lm_head.to(self.cfg.dtype)
+        if fused_ce_applicable(h, w):
+            return fused_linear_cross_entropy(h, w, targets.reshape(B * S))
+        logits = torch.matmul(h.float(), w.float()).reshape(B, S, -1)  # as head()
+        return token_cross_entropy(logits, targets)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Next-token CE; batch: {"tokens": [B, S], "targets": [B, S]}."""

@@ -4,8 +4,11 @@ The counterpart of ``torchft_tpu/ops/attention.py``.  On a CUDA tensor the
 forward runs ``csrc/flash_fwd.cu`` and the backward
 ``csrc/flash_bwd.cu`` (a dK/dV kernel and a dQ kernel); on a CPU tensor the
 same math runs as plain PyTorch with the scores materialized
-(``_fa_reference``, ``_fa_bwd_reference``).  The plain path is taken only
-for CPU tensors: a CUDA tensor the kernels do not take raises.
+(``_fa_reference``, ``_fa_bwd_reference``).  The wrappers take the plain
+path only for CPU tensors: a CUDA tensor the kernels do not take raises.
+A caller that must run every shape (the model) asks :func:`flash_applicable`
+first and takes :func:`plain_attention` where it is false, as the JAX
+model's ``_use_pallas`` gate falls back to its XLA formulation.
 
 Shapes: ``[BH, S, D]`` inside, ``[B, H, S, D]`` at :func:`flash_attention`,
 which repeats grouped kv heads (GQA) outside the kernels.
@@ -43,6 +46,28 @@ FLASH_BWD_DQ = Kernel(
 # The kernels are instantiated for the head dim the port's configurations
 # run; another one is added with the configuration that needs it.
 _HEAD_DIMS = (128,)
+
+
+def flash_shapes_supported(seq_q: int, seq_k: int, head_dim: int) -> bool:
+    """The kernels' shape terms: a built head dim, and one sequence length
+    for q and k/v (the kernels take a single S; any S >= 1, ragged tiles
+    are masked)."""
+    return head_dim in _HEAD_DIMS and seq_q == seq_k and seq_q >= 1
+
+
+def flash_applicable(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """True when :func:`flash_attention` can run the kernels on ``q``
+    ``[B, Hq, S, D]`` and ``k`` ``[B, Hkv, S, D]``: both bf16 on one CUDA
+    device, with :func:`flash_shapes_supported` shapes.  A pure shape and
+    placement test, evaluated before any launch."""
+    return (
+        q.device.type == "cuda"
+        and k.device == q.device
+        and q.dtype == k.dtype == torch.bfloat16
+        and q.dim() == k.dim() == 4
+        and k.shape[-1] == q.shape[-1]
+        and flash_shapes_supported(q.shape[2], k.shape[2], q.shape[-1])
+    )
 
 
 def _check_shapes(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
@@ -123,18 +148,22 @@ def flash_bwd(q, k, v, o, lse, g, scale: float, causal: bool):
 
 
 class _Flash(torch.autograd.Function):
+    """Attention with the saved (O, lse) backward; ``plain`` runs the plain
+    twins on any device, else the kernel wrappers."""
+
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool):
-        o, lse = flash_fwd(q, k, v, scale, causal)
+    def forward(ctx, q, k, v, scale: float, causal: bool, plain: bool):
+        o, lse = (_fa_reference if plain else flash_fwd)(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.plain = scale, causal, plain
         return o
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, g.contiguous(), ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+        bwd = _fa_bwd_reference if ctx.plain else flash_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, g.contiguous(), ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -145,7 +174,25 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Multi-head attention; q: [B, Hq, S, D], k/v: [B, Hkv, S, D] with Hkv
-    dividing Hq (kv heads are repeated to the query groups)."""
+    dividing Hq (kv heads are repeated to the query groups).  The kernels on
+    CUDA (raising for what they do not take), plain on the CPU."""
+    return _attention(q, k, v, causal, scale, plain=False)
+
+
+def plain_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention`'s math as plain PyTorch on any device, the
+    scores materialized: the path for shapes :func:`flash_applicable`
+    rejects."""
+    return _attention(q, k, v, causal, scale, plain=True)
+
+
+def _attention(q, k, v, causal: bool, scale: Optional[float], plain: bool) -> torch.Tensor:
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     if hkv != hq:
@@ -160,5 +207,6 @@ def flash_attention(
         v.reshape(b * hq, v.shape[2], d).contiguous(),
         scale,
         causal,
+        plain,
     )
     return out.reshape(b, hq, sq, d)

@@ -9,7 +9,9 @@ matrix products (``torch.matmul``, as the JAX package leaves them to XLA).
 
 On a CPU tensor every step runs as plain PyTorch over the materialized
 logits (``_ce_lse_reference``, ``_ce_dlogits_reference``); a CUDA tensor
-the kernels do not take raises.
+the kernels do not take raises.  A caller that must run every shape (the
+model) asks :func:`fused_ce_applicable` first, as the JAX model asks its
+``fused_ce_applicable``, and otherwise takes the materialized logits.
 """
 
 from __future__ import annotations
@@ -32,6 +34,28 @@ CE_DLOGITS = Kernel(
     [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i],
     replaces="torchft_tpu/ops/cross_entropy.py:147",
 )
+
+
+def fused_ce_shapes_supported(n: int, e: int, v: int) -> bool:
+    """The kernels' shape terms: 16-element rows of x and 8-column rows of
+    w (16-byte TMA strides in bf16), any N >= 1 (ragged tiles are
+    clipped)."""
+    return n >= 1 and e >= 1 and e % 16 == 0 and v % 8 == 0
+
+
+def fused_ce_applicable(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True when :func:`fused_linear_cross_entropy` can run the kernels on
+    ``x`` ``[N, E]`` and ``w`` ``[E, V]``: both bf16 on one CUDA device with
+    :func:`fused_ce_shapes_supported` shapes.  A pure shape and placement
+    test, evaluated before any launch."""
+    return (
+        x.device.type == "cuda"
+        and w.device == x.device
+        and x.dtype == w.dtype == torch.bfloat16
+        and x.dim() == w.dim() == 2
+        and x.shape[1] == w.shape[0]
+        and fused_ce_shapes_supported(x.shape[0], x.shape[1], w.shape[1])
+    )
 
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor) -> None:

@@ -43,6 +43,12 @@ class TrainStep:
     def __post_init__(self) -> None:
         self._averager: Optional[GradientAverager] = None
 
+    @property
+    def averager(self) -> Optional[GradientAverager]:
+        """The gradient averager of ``ft_step`` (its ``last_stats`` split the
+        last exchange), or None before the first fault-tolerant step."""
+        return self._averager
+
     def grads(self, batch: Any) -> torch.Tensor:
         """Forward and backward; leaves the gradients in ``param.grad``."""
         self.optimizer.zero_grad(set_to_none=True)
