@@ -49,6 +49,18 @@ result):
    the copies back, and params_sha256 beside the previous tree's
    (PREVIOUS_PARAMS_SHA256; two groups on the f32 wire reduce each element
    by one IEEE sum and one division by 2 on any engine, lanes or stripes).
+   Each group writes a metrics stream (``TPUFT_METRICS_PATH``) and dumps
+   its ring's sampled hops; the port's own consumers then read them:
+   asserted, every committed step has a ``step_summary``, group 1's heal a
+   ``heal`` span and group 0's snapshot a ``snapshot`` span, each merged
+   step's ``allreduce_d2h`` / ``allreduce_merge`` / ``allreduce_h2d`` span
+   sums equal the averager's ``last_stats`` waits within SPAN_TOL_MS, and
+   ``obs.trace.validate_trace(build_trace(...))`` of both streams and the
+   hops is clean; printed, each group's per-step phase table (wall, busy,
+   quorum, heal, the three averager phases, commit vote, snapshot and the
+   train thread's wait for it), ``obs.report.attribute`` per group, and
+   ``report.data_plane`` / ``report.link_attribution`` (the hop stall
+   split).
 6. Kill and heal: ``torchft_tpu_torch.launch``'s Launcher runs two groups
    of ``python -m torchft_tpu_torch.examples.train_ddp`` on the card with
    an embedded lighthouse; after group 0 has KILL_MERGED merged commits,
@@ -56,7 +68,10 @@ result):
    Asserted: exactly one restart, a heal in the new incarnation, both FINAL
    lines at one step with one params_sha256, every loss finite.  Printed:
    the seconds from the kill to the restarted group's first merged commit,
-   the survivor's uncommitted steps, its step ms alone and merged.
+   the survivor's uncommitted steps, its step ms alone and merged.  Both
+   groups write one metrics stream, into which the drive writes a
+   ``fault`` record at the kill (asserted); ``obs.report.deadwindow``'s
+   dead time is printed beside ``recovery_s``.
 7. Bare ring on the card's host: two in-process ranks allreduce the
    flagship's gradient payload (its parameter count in f32, 537 MB)
    BARE_RING_REPEATS times in each of three configurations: the Python
@@ -64,7 +79,12 @@ result):
    lanes, and the native engine on 2 lanes with the bf16 wire.  Asserted:
    the Python and native f32 results are bitwise equal, and both ranks
    hold the same bits.  Printed: seconds and GB/s of payload per op.
-8. The kernels line, ``{"kernels": [...]}``, then the last line,
+8. Raw-step profile: ``torchft_tpu_torch.tools.profile_step`` runs
+   ``torch.profiler`` over PROFILE_STEPS chained flagship ``full_step``s.
+   Printed: wall and device ms a step, the device busy share, the top 20
+   ops and the op classes.  Asserted: the trace holds device events, and
+   K1-K5 launch 12, 12, 12, 1 and 1 times a step.
+9. The kernels line, ``{"kernels": [...]}``, then the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,6 +122,12 @@ BARE_RING_TIMEOUT_S = 300.0
 # params_sha256 of phase 5 on the previous tree (the single-lane Python
 # ring), printed beside this run's.
 PREVIOUS_PARAMS_SHA256 = "a6708cb8b8f7ca7d788b7e4aec47ebe288e95de86bd675e5311f02544f344981"
+# The averager's span sums per merged step against its last_stats waits:
+# one clock measures both, so they differ by rounding (1 us a span) and by
+# the Manager's own allreduce_merge span at the vote (the drain of futures
+# the averager already resolved).
+SPAN_TOL_MS = 1.0
+PROFILE_STEPS = 3         # chained raw steps in the profile phase
 # The kernels built on wgmma, whose ptxas report must show no spill.
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                  "ce_lse_kernel", "ce_dlogits_kernel")
@@ -684,8 +710,10 @@ def run_group(args: argparse.Namespace) -> None:
                "ring": collective.size(), "healed": jumped, "step_s": dt}
         if collective.size() == 2:
             # The averager's last exchange: this step's (alone it returns
-            # before any copy and keeps the previous step's stats).
+            # before any copy and keeps the previous step's stats), under
+            # the step its spans carry.
             rec["exchange"] = dict(trainer.averager.last_stats)
+            rec["span_step"] = before
             ring_seen = {"ring_engine": collective.ring_engine, "lanes": collective.lanes,
                          "wire": collective.wire_dtype}
         steps.append(rec)
@@ -701,6 +729,11 @@ def run_group(args: argparse.Namespace) -> None:
             wait_for(os.path.join(run_dir, "g1_up"))
 
     counts = launch_counts()
+    # The ring's sampled hop timeline, for the trace and the data-plane
+    # rollup of the stream.
+    with open(os.path.join(run_dir, f"hops_g{group}.json"), "w") as f:
+        json.dump({"replica_id": f"smoke_g{group}", "records": collective.hop_records(),
+                   "lane_totals": collective.lane_totals()}, f)
     h = hashlib.sha256()
     for name, p in model.state_dict().items():
         h.update(name.encode())
@@ -716,6 +749,8 @@ def run_group(args: argparse.Namespace) -> None:
         "group": group,
         **ring_seen,
         "exchange_last_stats": merged_recs[-1]["exchange"],
+        # Each merged step's waits, keyed by the step its spans carry.
+        "exchange_by_step": {str(r["span_step"]): r["exchange"] for r in merged_recs},
         # Mean over the merged steps of the train thread's waits in the
         # averager: for the copies off the card, for the ring, for the
         # copies back.
@@ -764,10 +799,11 @@ def main_path(card: str) -> dict:
     procs, readers, results, errors = {}, {}, {}, []
 
     def start(group: int) -> None:
+        env = {**os.environ, "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_g{group}.jsonl")}
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--group", str(group),
              "--lighthouse", lighthouse.address(), "--run-dir", run_dir],
-            stdout=subprocess.PIPE, text=True, cwd=HERE,
+            stdout=subprocess.PIPE, text=True, cwd=HERE, env=env,
         )
         procs[group] = proc
 
@@ -810,12 +846,10 @@ def main_path(card: str) -> dict:
                 p.kill()
                 p.wait()
         lighthouse.shutdown()
-        for f in ("g0_ready", "g1_up"):
-            try:
-                os.unlink(os.path.join(run_dir, f))
-            except FileNotFoundError:
-                pass
-        os.rmdir(run_dir)
+    try:
+        stream = stream_phase(run_dir, results, card)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
 
     r0, r1 = results[0], results[1]
     if r0["final_step"] != r1["final_step"]:
@@ -865,7 +899,91 @@ def main_path(card: str) -> dict:
               f"thread waited {split['d2h_wait_s']:.1f} ms for the copies off the card, "
               f"{split['ring_wait_s']:.1f} ms for the ring, {split['h2d_s']:.1f} ms for the "
               f"copies back (mean of {MERGED_STEPS} merged steps; {card})", flush=True)
-    return {name: r0["launches"][name] + r1["launches"][name] for name in per_step}
+    return {name: r0["launches"][name] + r1["launches"][name] for name in per_step}, stream
+
+
+def stream_phase(run_dir: str, results: dict, card: str) -> dict:
+    """Phase 5's metrics streams, read by the port's own consumers: every
+    committed step has a step_summary, the heal a ``heal`` span, the donor
+    a ``snapshot`` span; each merged step's averager spans sum to its
+    ``last_stats`` waits within SPAN_TOL_MS; the merged trace validates;
+    then the per-step phase table of each group, ``obs.report.attribute``
+    per group, and the data-plane rollups of the stream and of the hops."""
+    from torchft_tpu_torch.obs import report, trace
+
+    paths = {g: os.path.join(run_dir, f"metrics_g{g}.jsonl") for g in (0, 1)}
+    by_group = {g: report.read_events([p]) for g, p in paths.items()}
+    events = report.read_events(list(paths.values()))
+    hop_events = []
+    for g in (0, 1):
+        with open(os.path.join(run_dir, f"hops_g{g}.json")) as f:
+            dump = json.load(f)
+        hop_events += trace.hops_to_stream(dump)
+        totals = dump["lane_totals"]["hops"].get("flat", {})
+        print(f"  group {g}: {len(dump['records'])} sampled hops kept; lane_totals "
+              f"{json.dumps(dump['lane_totals'])}", flush=True)
+        if not dump["records"] or not totals.get("hops"):
+            raise AssertionError(f"group {g}: the ring recorded no hops")
+    for g, evs in by_group.items():
+        commits = sorted(e["step"] for e in evs if e["event"] == "commit" and e["committed"])
+        summaries = sorted(e["step"] for e in evs
+                           if e["event"] == "step_summary" and e["committed"])
+        if commits != summaries or len(commits) != results[g]["steps_run"]:
+            raise AssertionError(f"group {g}: committed steps {commits} but step_summary "
+                                 f"for {summaries} ({results[g]['steps_run']} steps run)")
+        phases = {e["phase"] for e in evs if e["event"] == "span"}
+        want = {"quorum", "allreduce_d2h", "allreduce_merge", "allreduce_h2d", "commit_vote",
+                "heal" if g == 1 else "snapshot"}
+        if not want <= phases:
+            raise AssertionError(f"group {g}: spans {sorted(phases)} lack {sorted(want - phases)}")
+        for step, st in results[g]["exchange_by_step"].items():
+            got = {k: 0.0 for k in ("allreduce_d2h", "allreduce_merge", "allreduce_h2d")}
+            for e in evs:
+                if e["event"] == "span" and e["step"] == int(step) and e["phase"] in got:
+                    got[e["phase"]] += e["duration_ms"]
+            stats = {"allreduce_d2h": st["d2h_wait_s"], "allreduce_merge": st["ring_wait_s"],
+                     "allreduce_h2d": st["h2d_s"]}
+            diff = {k: got[k] - 1e3 * stats[k] for k in got}
+            print(f"  group {g} step {step}: spans d2h / merge / h2d "
+                  f"{got['allreduce_d2h']:.3f} / {got['allreduce_merge']:.3f} / "
+                  f"{got['allreduce_h2d']:.3f} ms, last_stats "
+                  f"{1e3 * stats['allreduce_d2h']:.3f} / {1e3 * stats['allreduce_merge']:.3f} / "
+                  f"{1e3 * stats['allreduce_h2d']:.3f} ms", flush=True)
+            if any(abs(d) > SPAN_TOL_MS for d in diff.values()):
+                raise AssertionError(f"group {g} step {step}: span sums differ from last_stats "
+                                     f"by {diff} ms (> {SPAN_TOL_MS})")
+    problems = trace.validate_trace(trace.build_trace(sorted(events + hop_events,
+                                                             key=lambda e: e["ts"])))
+    if problems:
+        raise AssertionError(f"the merged trace does not validate: {problems}")
+    print(f"  trace of {len(events)} records + {len(hop_events)} hops: validates clean",
+          flush=True)
+    cols = ("quorum", "heal", "allreduce_d2h", "allreduce_merge", "allreduce_h2d",
+            "commit_vote", "snapshot", "snapshot_wait")
+    table = {}
+    for g, evs in by_group.items():
+        print(f"  group {g} per step, ms ({card}): step, wall, busy, " + ", ".join(cols),
+              flush=True)
+        rows = []
+        for e in evs:
+            if e["event"] != "step_summary":
+                continue
+            ph = e["phases"]
+            row = {"step": e["step"], "committed": e["committed"],
+                   "wall": e.get("step_wall_ms"), "busy": e.get("step_time_ms"),
+                   **{c: ph.get(c, 0.0) for c in cols}}
+            rows.append(row)
+            print("    " + "  ".join(str(row[k]) for k in ("step", "wall", "busy", *cols)),
+                  flush=True)
+        table[g] = rows
+        attribution = report.attribute(evs)
+        print(f"  group {g}: obs.report.attribute", flush=True)
+        report.render(attribution)
+    plane = report.data_plane(events)
+    links = report.link_attribution(events)
+    print(f"  data_plane {json.dumps(plane)}", flush=True)
+    print(f"  link_attribution (hop stall split) {json.dumps(links)}", flush=True)
+    return {"steps": table, "data_plane": plane, "link_attribution": links}
 
 
 # -- phase 6: kill and heal ---------------------------------------------------
@@ -877,7 +995,7 @@ def _ms(x) -> str:
 
 
 def kill_heal_phase(card: str) -> dict:
-    from torchft_tpu_torch.examples.kill_heal import kill_and_heal
+    from torchft_tpu_torch.examples.kill_heal import LOG_POLL_S, kill_and_heal
 
     # The floor of a restart: a bare process importing torch and reaching
     # the card.
@@ -885,12 +1003,44 @@ def kill_heal_phase(card: str) -> dict:
     subprocess.run([sys.executable, "-c", "import torch; torch.zeros(1, device='cuda')"],
                    check=True, timeout=300)
     cold_start_s = time.monotonic() - t0
+    from torchft_tpu_torch.obs import report
+
     log_dir = tempfile.mkdtemp(prefix="tpuft_kill_")
     try:
         r = kill_and_heal("cuda", log_dir, steps=KILL_STEPS, merged_before_kill=KILL_MERGED,
                           timeout_s=KILL_TIMEOUT_S)
+        events = report.read_events([r["metrics_path"]])
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
+    faults = report.fault_times(events)
+    if [g for _, g in faults] != ["1"]:
+        raise AssertionError(f"the stream's fault records name {faults}, expected one kill of 1")
+    commits = report.commit_timelines(events)
+    dw = report.deadwindow(commits, faults)
+    if not dw["victims_recovered"] or dw["dead_time_s"] is None:
+        raise AssertionError(f"the stream's dead window did not close: {dw}")
+    # The stream's dead time is group 1's commit gap over the kill less one
+    # median step; recovery_s ends at its first MERGED commit as a 20 ms log
+    # poll reads it.  The gap starts at the last commit before the kill and
+    # ends at the first commit after it (the heal step's).
+    t_fault = faults[0][0]
+    steps = sorted(commits["1"])
+    k = next(i for i, t in enumerate(steps) if t > t_fault)
+    merged = min(float(e["ts"]) for e in events
+                 if e["event"] == "commit" and e["committed"] and e["participants"] == 2
+                 and str(e["replica_id"]).startswith("1:") and float(e["ts"]) > t_fault)
+    r["stream_dead_time_s"] = dw["dead_time_s"]
+    r["stream_gap_s"] = steps[k] - steps[k - 1]
+    r["stream_fault_to_first_commit_s"] = steps[k] - t_fault
+    r["stream_fault_to_first_merged_commit_s"] = merged - t_fault
+    print(f"  stream: fault record at the kill; obs.report.deadwindow dead time "
+          f"{dw['dead_time_s']:.3f} s (group 1's commit gap {r['stream_gap_s']:.3f} s less a "
+          f"median step; dead-window goodput fraction {dw['fraction']}) beside recovery_s "
+          f"{r['recovery_s']:.3f} s: {dw['dead_time_s'] - r['recovery_s']:+.3f} s; fault -> "
+          f"group 1's first commit {r['stream_fault_to_first_commit_s']:.3f} s, first merged "
+          f"commit {merged - t_fault:.3f} s ({merged - t_fault - r['recovery_s']:+.3f} s "
+          f"against recovery_s, which a {1e3 * LOG_POLL_S:.0f} ms log poll stamps) ({card})",
+          flush=True)
     print(f"  restarts {r['restarts']}; both groups FINAL at step {r['final_step']} with "
           f"params_sha256 {r['params_sha256']}; {r['steps_logged']} finite losses", flush=True)
     print(f"  kill -> restarted group's first merged commit: {r['recovery_s']:.3f} s "
@@ -993,6 +1143,46 @@ def bare_ring(card: str) -> dict:
     return report
 
 
+# -- phase 8: the raw-step profile ---------------------------------------------
+
+
+def profile_phase(card: str) -> dict:
+    """``tools/profile_step`` over PROFILE_STEPS chained flagship raw steps:
+    fails without device events, and unless K1-K5 launch 12 / 12 / 12 / 1 /
+    1 times a step."""
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.tools import profile_step
+
+    cfg, _, _ = flagship_config()
+    out_dir = tempfile.mkdtemp(prefix="tpuft_profile_")
+    try:
+        path = profile_step.capture(os.path.join(out_dir, "trace.json"), PROFILE_STEPS)
+        rep = profile_step.build_report(path, PROFILE_STEPS)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if rep["device_total_ms_per_step"] is None:
+        raise AssertionError(f"profile: {rep['device_absent']}")
+    print(f"  {PROFILE_STEPS} chained full_steps: wall {rep['wall_ms_per_step']:.3f} ms/step, "
+          f"device ops {rep['device_total_ms_per_step']:.3f} ms/step, device busy share "
+          f"{rep['device_busy_share']}, {rep['device_events']} device events, "
+          f"{rep['distinct_ops']} distinct ops ({card})", flush=True)
+    for op in rep["ops"]:
+        print(f"    {op['ms_per_step']:9.4f} ms/step {op['launches_per_step']:6.1f}/step "
+              f"[{op['category']}] {op['name'][:100]}", flush=True)
+    print("  by op class:", flush=True)
+    for c in rep["by_class"]:
+        print(f"    {c['ms_per_step']:9.4f} ms/step  {c['op_class']}", flush=True)
+    want = {"flash_fwd_kernel": cfg.n_layers, "flash_bwd_dkdv_kernel": cfg.n_layers,
+            "flash_bwd_dq_kernel": cfg.n_layers, "ce_lse_kernel": 1, "ce_dlogits_kernel": 1}
+    got = {k: profile_step.launches_per_step(rep, k) for k in want}
+    print(f"  K1-K5 launches a step in the trace: {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"profile: kernel launches a step {got}, expected {want}")
+    print("PROFILE " + json.dumps({k: v for k, v in rep.items() if k != "launches"}),
+          flush=True)
+    return rep
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--group", type=int, help=argparse.SUPPRESS)
@@ -1041,7 +1231,8 @@ def main() -> int:
 
     # 5. Flagship training.
     print("main path: lighthouse + 2 replica groups, flagship config", flush=True)
-    launches.update(main_path(card))
+    main_launches, _ = main_path(card)
+    launches.update(main_launches)
     missing = [n for n in KERNELS if launches.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
@@ -1056,7 +1247,12 @@ def main() -> int:
           f"{BARE_RING_REPEATS} allreduces a configuration", flush=True)
     bare_ring(card)
 
-    # 8. The kernels line, then the last line.
+    # 8. The raw-step profile.
+    print(f"raw-step profile: torch.profiler over {PROFILE_STEPS} chained flagship full_steps",
+          flush=True)
+    profile_phase(card)
+
+    # 9. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]

@@ -33,6 +33,8 @@ from torchft_tpu_torch.collectives import TCPCollective
 from torchft_tpu_torch.ddp import GradientAverager
 from torchft_tpu_torch.futures import completed_future
 from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.metrics import MetricsLogger
+from torchft_tpu_torch.obs.spans import SpanTracker
 
 HOST = "127.0.0.1"
 TIMEOUT = timedelta(seconds=30)
@@ -166,6 +168,16 @@ class _StandIn:
         self.timeout = TIMEOUT
         self._col = TCPCollective(wire_dtype=wire, host=HOST)
         self._col._world_size = 2  # a ring of two, never configured
+        self.spans = SpanTracker(MetricsLogger(None))
+
+    def current_step(self):
+        return 0
+
+    def note_d2h(self, nbytes):
+        pass
+
+    def note_h2d(self, nbytes):
+        pass
 
     def allreduce(self, buf, allow_wire_compression=True, donate=False):
         self.calls.append((buf.clone(), allow_wire_compression, donate))

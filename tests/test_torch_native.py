@@ -17,6 +17,8 @@ from torchft_tpu_torch import _build, _native
 from torchft_tpu_torch.checkpointing import HTTPTransport
 from torchft_tpu_torch.collectives import TCPCollective
 from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.metrics import MetricsLogger
+from torchft_tpu_torch.obs.spans import SpanTracker
 
 HOST = "127.0.0.1"
 TIMEOUT = timedelta(seconds=30)
@@ -277,6 +279,16 @@ def test_gradient_averager_packs_and_unpacks_buckets() -> None:
     class HalvingManager:
         calls = 0
         timeout = TIMEOUT
+        spans = SpanTracker(MetricsLogger(None))
+
+        def current_step(self):
+            return 0
+
+        def note_d2h(self, nbytes):
+            pass
+
+        def note_h2d(self, nbytes):
+            pass
 
         def allreduce(self, flat, allow_wire_compression=True, donate=False):
             HalvingManager.calls += 1

@@ -12,13 +12,16 @@ The library is built (``_build.native_lib_path``) and loaded at first use,
 not at import.  The port binds what the fault-tolerant training loop
 needs: the lighthouse server (with its evict), a lighthouse client for
 evicts, the manager server and client (quorum, checkpoint metadata, commit
-vote), the rendezvous store, and the GIL-free ring data plane
-(:class:`RingEngine`, ``native/src/ring.h``) on the flat ring.
+vote, heartbeat telemetry and goodput ledger), the servers' flight
+recorders, the rendezvous store, and the GIL-free ring data plane
+(:class:`RingEngine`, ``native/src/ring.h``) on the flat ring with its hop
+recorder.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import threading
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -79,6 +82,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tf_manager_new.argtypes = [cp, cp, cp, cp, u64, u64, u64, errp]
     lib.tf_manager_address.restype = vp
     lib.tf_manager_address.argtypes = [vp]
+    f64, i64 = ctypes.c_double, ctypes.c_int64
+    lib.tf_manager_set_status.restype = None
+    lib.tf_manager_set_status.argtypes = [vp, i64, cp, f64, f64, f64, i64, i64, i64, f64, f64,
+                                          f64]
+    lib.tf_manager_set_ledger.restype = None
+    lib.tf_manager_set_ledger.argtypes = [vp, f64, f64, ctypes.POINTER(f64), ctypes.c_int32]
+    lib.tf_manager_flight_json.restype = vp
+    lib.tf_manager_flight_json.argtypes = [vp, u64]
+    lib.tf_lighthouse_flight_json.restype = vp
+    lib.tf_lighthouse_flight_json.argtypes = [vp, u64]
     lib.tf_manager_shutdown.argtypes = [vp]
     lib.tf_manager_shutdown.restype = None
     lib.tf_manager_free.argtypes = [vp]
@@ -104,9 +117,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _declare_ring(lib: ctypes.CDLL) -> str:
-    """Declares the ``tf_ring_*`` symbols the port binds (the flat ring:
-    no shm, shaper or hop-recorder calls); returns why they are missing,
-    or "" when every one is there."""
+    """Declares the ``tf_ring_*`` symbols the port binds (the flat ring
+    and its hop recorder: no shm or shaper calls); returns why they are
+    missing, or "" when every one is there."""
     vp, i32, u32, u64, dbl = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint32,
                               ctypes.c_uint64, ctypes.c_double)
     errp = ctypes.POINTER(ctypes.c_char_p)
@@ -128,6 +141,9 @@ def _declare_ring(lib: ctypes.CDLL) -> str:
         ]),
         "tf_ring_counters": (ctypes.c_int, [vp, i32, u64p, u64p, i32]),
         "tf_ring_link_bytes": (u64, [vp, i32, i32, i32]),
+        "tf_ring_set_hop": (None, [vp, i32, i32]),
+        "tf_ring_hop_stats": (ctypes.c_int, [vp, i32, ctypes.POINTER(dbl)]),
+        "tf_ring_hop_records": (ctypes.c_int, [vp, ctypes.POINTER(dbl), i32]),
         "tf_ring_open_fds": (ctypes.c_int, [vp]),
         "tf_ring_close": (None, [vp]),
         "tf_ring_detach": (ctypes.c_int, [vp, errp]),
@@ -285,6 +301,20 @@ class LighthouseServer:
         dropped."""
         return int(_lib().tf_lighthouse_evict(self._ptr, replica_prefix.encode()))
 
+    def flight_json(self, limit: int = 0) -> str:
+        """The flight recorder as a JSON document (newest event first;
+        ``limit`` 0 keeps every retained one): the payload of this
+        lighthouse's ``GET /debug/flight.json``."""
+        if not self._ptr:
+            return "{}"
+        return _take_string(_lib().tf_lighthouse_flight_json(self._ptr, int(limit)))
+
+    def flight(self, limit: int = 0) -> dict:
+        """Parsed :meth:`flight_json` (``{"server", "id", "capacity",
+        "recorded", "dropped", "events"}``); :mod:`torchft_tpu_torch.obs.flight`
+        reads it."""
+        return json.loads(self.flight_json(limit) or "{}")
+
     def shutdown(self) -> None:
         if self._ptr:
             lib = _lib()
@@ -335,6 +365,56 @@ class ManagerServer:
 
     def address(self) -> str:
         return _take_string(_lib().tf_manager_address(self._ptr))
+
+    def set_status(
+        self,
+        step: int,
+        state: str,
+        step_time_ms_ewma: float = 0.0,
+        step_time_ms_last: float = 0.0,
+        allreduce_gb_per_s: float = -1.0,
+        ec_shards_held: int = -1,
+        ec_shard_step: int = -1,
+        ec_k: int = -1,
+        link_recv_gbps: float = -1.0,
+        link_send_gbps: float = -1.0,
+        link_hop_rtt_ms: float = -1.0,
+    ) -> None:
+        """Puts (step, state) and the step-time telemetry on this group's
+        lighthouse heartbeats (proto ``LighthouseHeartbeatRequest`` fields
+        4-13), with the JAX package's conventions: step times of 0 keep the
+        previous values; for the GB/s, EC and link gauges 0 is a reading
+        and a negative value keeps the previous one."""
+        if self._ptr:
+            _lib().tf_manager_set_status(
+                self._ptr, int(step), state.encode(), float(step_time_ms_ewma),
+                float(step_time_ms_last), float(allreduce_gb_per_s), int(ec_shards_held),
+                int(ec_shard_step), int(ec_k), float(link_recv_gbps), float(link_send_gbps),
+                float(link_hop_rtt_ms),
+            )
+
+    def set_ledger(self, goodput_ratio: float, compute_seconds: float,
+                   lost_seconds: List[float]) -> None:
+        """Puts the goodput ledger's cumulative counters on heartbeat
+        fields 14-16: the productive share, productive seconds, and lost
+        seconds per cause in :data:`torchft_tpu_torch.obs.ledger.LOST_CAUSES`
+        order (the lighthouse's ``/goodput.json`` sums them)."""
+        if not self._ptr:
+            return
+        arr = (ctypes.c_double * len(lost_seconds))(*lost_seconds)
+        _lib().tf_manager_set_ledger(self._ptr, float(goodput_ratio), float(compute_seconds),
+                                     arr, len(lost_seconds))
+
+    def flight_json(self, limit: int = 0) -> str:
+        """The manager server's flight recorder as a JSON document (newest
+        event first; ``limit`` 0 keeps every retained one)."""
+        if not self._ptr:
+            return "{}"
+        return _take_string(_lib().tf_manager_flight_json(self._ptr, int(limit)))
+
+    def flight(self, limit: int = 0) -> dict:
+        """Parsed :meth:`flight_json`."""
+        return json.loads(self.flight_json(limit) or "{}")
 
     def shutdown(self) -> None:
         if self._ptr:
@@ -608,6 +688,33 @@ class RingEngine:
 
     def link_bytes(self, tier: int, direction: int, lane: int) -> int:
         return int(self._lib.tf_ring_link_bytes(self._ptr, tier, direction, lane))
+
+    def set_hop(self, sample: int, cap: int = 0) -> None:
+        """Configures the engine's hop recorder: every ``sample``-th hop
+        goes into the bounded timeline (0 keeps only the per-tier
+        aggregates); ``cap`` > 0 resizes (and clears) the timeline."""
+        self._lib.tf_ring_set_hop(self._ptr, int(sample), int(cap))
+
+    def hop_stats(self, tier: int) -> dict:
+        """Per-tier stall aggregates: ``{"hops", "send_block_s",
+        "recv_wait_s", "combine_s"}``."""
+        out = (ctypes.c_double * 4)()
+        self._lib.tf_ring_hop_stats(self._ptr, int(tier), out)
+        return {"hops": int(out[0]), "send_block_s": float(out[1]),
+                "recv_wait_s": float(out[2]), "combine_s": float(out[3])}
+
+    def hop_records(self, cap: int = 4096) -> List[dict]:
+        """The retained hop timeline, oldest first, as dicts with exactly
+        the keys of :data:`torchft_tpu_torch.collectives.HOP_RECORD_FIELDS`."""
+        buf = (ctypes.c_double * (8 * max(1, cap)))()
+        n = self._lib.tf_ring_hop_records(self._ptr, buf, int(cap))
+        out = []
+        for i in range(n):
+            o = buf[i * 8:i * 8 + 8]
+            out.append({"ts": float(o[0]), "tier": int(o[1]), "lane": int(o[2]),
+                        "tag": int(o[3]), "send_s": float(o[4]), "recv_s": float(o[5]),
+                        "comb_s": float(o[6]), "nbytes": int(o[7])})
+        return out
 
     def open_fd_count(self) -> int:
         """Dup'd lane fds still open: 0 after :meth:`close`."""

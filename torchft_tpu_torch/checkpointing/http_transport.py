@@ -12,6 +12,13 @@ weights under this step's number.  ``disallow_checkpoint`` drops the copy.
 A request for a step whose snapshot is not up yet waits for it (bounded by
 the timeout) instead of failing: the donor's and the healer's quorum
 threads race by design.
+
+With a span tracker set (the Manager sets its own), the copy runs inside a
+``snapshot`` span, the JAX transport's phase name.  The JAX transport
+flattens on a background thread, so the phase is an overlapped one there;
+here the copy runs on the Manager's quorum thread, and the Manager spans
+the train thread's wait for it as ``snapshot_wait``.  ``last_fetch`` holds
+the last fetch's bytes and seconds.
 """
 
 from __future__ import annotations
@@ -72,6 +79,8 @@ class HTTPTransport(CheckpointTransport):
         self._host = host or ""
         self._cond = threading.Condition()
         self._snapshot: Optional[tuple] = None  # (step, meta, buffers)
+        self._spans: Any = None  # a SpanTracker, or None
+        self.last_fetch: dict = {}
         transport = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -124,9 +133,19 @@ class HTTPTransport(CheckpointTransport):
     def metadata(self) -> str:
         return f"http://{self._host or socket.gethostname()}:{self._port}"
 
+    def set_span_tracker(self, spans: Any) -> None:
+        """Spans each snapshot copy on ``spans``
+        (:class:`~torchft_tpu_torch.obs.spans.SpanTracker`)."""
+        self._spans = spans
+
     def send_checkpoint(self, dst_ranks: List[int], step: int, state_dict: Any, timeout: float) -> None:
         """Takes a host copy of ``state_dict`` and serves it as ``step``."""
-        meta, buffers = flatten_state_dict(state_dict, step)
+        if self._spans is None:
+            meta, buffers = flatten_state_dict(state_dict, step)
+        else:
+            with self._spans.span("snapshot", step=step) as sp:
+                meta, buffers = flatten_state_dict(state_dict, step)
+                sp.fields["bytes"] = sum(b.nbytes for b in buffers)
         with self._cond:
             self._snapshot = (step, meta, buffers)
             self._cond.notify_all()
@@ -139,8 +158,11 @@ class HTTPTransport(CheckpointTransport):
         self, src_rank: int, metadata: Union[str, Sequence[str]], step: int, timeout: float
     ) -> Any:
         base = metadata if isinstance(metadata, str) else metadata[0]
+        t0 = time.monotonic()
         with urllib.request.urlopen(f"{base}/checkpoint/{step}/full", timeout=timeout) as resp:
             meta, buffers = read_state_dict(resp)
+        self.last_fetch = {"bytes": sum(len(b) for b in buffers),
+                           "fetch_s": round(time.monotonic() - t0, 6)}
         return unflatten_state_dict(meta, buffers)
 
     def shutdown(self, wait: bool = True) -> None:

@@ -28,13 +28,21 @@ engine:
   allgather owner encodes its chunk once, so every rank decodes the same
   bits.
 
+Both engines record every hop into the JAX package's data-plane flight
+recorder: per-tier stall aggregates, and a sampled, bounded timeline of
+records with exactly :data:`HOP_RECORD_FIELDS` (``TPUFT_HOP_SAMPLE``,
+default 1; ``TPUFT_HOP_RING``, default 2048).  :meth:`TCPCollective.lane_stats`
+reads the current configuration's counters (they restart at every
+``configure``) and :meth:`TCPCollective.lane_totals` the monotonic totals
+across reconfigures.
+
 Not ported yet: the 2-D topology, shm lanes, the int8/int4 codecs, link
-shaping, hop telemetry, incremental reconfiguration, and the ops other
-than allreduce.
+shaping, incremental reconfiguration, and the ops other than allreduce.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import socket
@@ -52,8 +60,8 @@ from torchft_tpu_torch import _native
 from torchft_tpu_torch._native import StoreClient
 from torchft_tpu_torch.futures import completed_future, failed_future
 
-__all__ = ["Work", "Collective", "DummyCollective", "TCPCollective", "bf16_encode",
-           "bf16_decode"]
+__all__ = ["Work", "Collective", "DummyCollective", "TCPCollective", "HopRecorder",
+           "HOP_RECORD_FIELDS", "bf16_encode", "bf16_decode"]
 
 logger = logging.getLogger("torchft_tpu_torch.collectives")
 
@@ -101,6 +109,90 @@ def _warn_native_fallback(reason: str) -> None:
         _native_fallback_warned = True
         logger.warning("the native ring engine is unavailable; running the PYTHON ring "
                        "engine instead: %s", reason)
+
+
+# -- the data-plane flight recorder (the JAX package's HopRecorder) ----------
+TPUFT_HOP_SAMPLE_ENV = "TPUFT_HOP_SAMPLE"
+TPUFT_HOP_RING_ENV = "TPUFT_HOP_RING"
+_HOP_RING_DEFAULT = 2048
+
+# The hop record, shared with the native engine and the JAX package: ts =
+# wall-clock seconds at the hop's start; tier 0 (the flat ring); send_s =
+# blocked joining the lane's sender; recv_s = blocked on the matching
+# inbound frame; comb_s = decode + sum of the received chunk (0 on
+# allgather forwards); nbytes = payload bytes sent.
+HOP_RECORD_FIELDS = ("ts", "tier", "lane", "tag", "send_s", "recv_s", "comb_s", "nbytes")
+_HOP_TOTAL_KEYS = ("hops", "send_block_s", "recv_wait_s", "combine_s", "shape_s")
+
+
+def _hop_sample_from_env() -> int:
+    try:
+        return max(0, int(os.environ.get(TPUFT_HOP_SAMPLE_ENV, "1")))
+    except ValueError:
+        return 1
+
+
+def _hop_ring_from_env() -> int:
+    try:
+        return max(16, int(os.environ.get(TPUFT_HOP_RING_ENV, str(_HOP_RING_DEFAULT))))
+    except ValueError:
+        return _HOP_RING_DEFAULT
+
+
+class HopRecorder:
+    """The Python engine's hop recorder: per-tier aggregate stall counters
+    (always on) and a timeline of every ``sample``-th hop (0 keeps none)
+    in a ring of ``cap`` records, as the native engine's."""
+
+    def __init__(self, sample: Optional[int] = None, cap: Optional[int] = None) -> None:
+        self.sample = sample if sample is not None else _hop_sample_from_env()
+        self.cap = cap if cap is not None else _hop_ring_from_env()
+        self._lock = threading.Lock()
+        self._ring: "collections.deque[dict]" = collections.deque(maxlen=self.cap)
+        self._count = 0
+        self._agg: Dict[int, List[float]] = {}  # tier -> [hops, send_s, recv_s, comb_s]
+
+    def record(self, tier: int, lane: int, tag: int, send_s: float, recv_s: float,
+               comb_s: float, nbytes: int, ts: float) -> None:
+        with self._lock:
+            agg = self._agg.setdefault(tier, [0, 0.0, 0.0, 0.0])
+            agg[0] += 1
+            agg[1] += send_s
+            agg[2] += recv_s
+            agg[3] += comb_s
+            if self.sample <= 0:
+                return
+            n = self._count
+            self._count = n + 1
+            if n % self.sample:
+                return
+            self._ring.append({"ts": ts, "tier": tier, "lane": lane, "tag": tag,
+                               "send_s": send_s, "recv_s": recv_s, "comb_s": comb_s,
+                               "nbytes": nbytes})
+
+    def stats(self, tier: int) -> dict:
+        """Aggregate stall counters of one tier (the native engine's
+        ``hop_stats`` keys)."""
+        with self._lock:
+            agg = self._agg.get(tier, [0, 0.0, 0.0, 0.0])
+            return {"hops": int(agg[0]), "send_block_s": agg[1], "recv_wait_s": agg[2],
+                    "combine_s": agg[3]}
+
+    def records(self) -> List[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def keep(self, rec: dict) -> None:
+        """Appends a hop recorded elsewhere (a closing native engine's
+        timeline) without touching the aggregates."""
+        with self._lock:
+            self._ring.append(rec)
+
+    def reset_aggregates(self) -> None:
+        """Zeroes the aggregates (banked by the caller) and keeps the
+        timeline, which is what explains a fault after an abort."""
+        with self._lock:
+            self._agg = {}
 
 
 def bf16_encode(x: np.ndarray) -> np.ndarray:
@@ -216,11 +308,15 @@ class _Peer:
         self.recv_cond = threading.Condition()
         self._reading = False
         self._stash: Dict[int, List[bytearray]] = {}
+        # Frame bytes (headers included) the Python engine moved.
+        self.bytes_out = 0
+        self.bytes_in = 0
 
     def send_msg(self, tag: int, payload) -> None:
         with self.send_lock:
             self.sock.sendall(_HDR.pack(tag, len(payload)))
             self.sock.sendall(payload)
+            self.bytes_out += _HDR.size + len(payload)
 
     def recv_msg(self, tag: int) -> bytearray:
         with self.recv_cond:
@@ -241,6 +337,7 @@ class _Peer:
             while True:
                 got_tag, nbytes = _HDR.unpack(self.recv_exact(_HDR.size))
                 payload = self.recv_exact(nbytes)
+                self.bytes_in += _HDR.size + nbytes
                 if got_tag == tag:
                     return payload
                 with self.recv_cond:
@@ -417,6 +514,13 @@ class TCPCollective(Collective):
         self._op_seq = 0
         self._op_error: Optional[Exception] = None
         self._inflight: set = set()
+        # The Python hops' recorder; native ring passes record inside the
+        # engine and are merged in hop_records / lane_stats.
+        self._hops = HopRecorder()
+        # Counters of every closed configuration, banked at abort, so
+        # lane_totals never goes backwards across a reconfigure.
+        self._lifetime: Dict[str, Any] = {}
+        self.last_configure: Dict[str, Any] = {}
 
     # -- properties -----------------------------------------------------------
 
@@ -451,13 +555,20 @@ class TCPCollective(Collective):
     # -- lifecycle ------------------------------------------------------------
 
     def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        t0 = time.monotonic()
         self.abort()
         with self._lock:
             self._op_error = None
             self._rank = rank
             self._world_size = world_size
             self._op_seq = 0
+            # How the configure went, in the JAX package's record (the port
+            # always rendezvouses in full); the Manager's reconfigure event
+            # reads it.
+            self.last_configure = {"mode": "full", "reused_lanes": 0, "opened_lanes": 0,
+                                   "configure_s": 0.0}
             if world_size == 1:
+                self.last_configure["configure_s"] = time.monotonic() - t0
                 return
             self._store = StoreClient(store_addr)
             self._rendezvous()
@@ -471,6 +582,11 @@ class TCPCollective(Collective):
                 self._lane_executor = ThreadPoolExecutor(
                     max_workers=2 * self._lanes, thread_name_prefix="tpuft_lane"
                 )
+            self.last_configure = {
+                "mode": "full", "reused_lanes": 0,
+                "opened_lanes": len(self._next_lanes) + len(self._prev_lanes),
+                "configure_s": time.monotonic() - t0,
+            }
 
     def _create_engine(self) -> Optional[_native.RingEngine]:
         """The native engine over this generation's lane sockets, or None
@@ -482,6 +598,7 @@ class TCPCollective(Collective):
             engine.set_tier(_native.RingEngine.TIER_FLAT,
                             [p.sock.fileno() for p in self._next_lanes],
                             [p.sock.fileno() for p in self._prev_lanes])
+            engine.set_hop(self._hops.sample, self._hops.cap)
         except Exception as e:  # noqa: BLE001 - "auto" falls back, "native" raises
             if self._engine_mode == "native":
                 raise RuntimeError(f"engine='native': the ring engine cannot run: {e}") from e
@@ -542,6 +659,7 @@ class TCPCollective(Collective):
 
     def abort(self) -> None:
         with self._lock:
+            self._bank_locked()
             self._generation += 1
             engine, self._engine = self._engine, None
             peers = self._next_lanes + self._prev_lanes
@@ -589,6 +707,111 @@ class TCPCollective(Collective):
 
     def rank(self) -> int:
         return self._rank
+
+    # -- the data-plane flight recorder ---------------------------------------
+
+    def _lane_bytes(self) -> Tuple[List[int], List[int]]:
+        """(sent, received) frame bytes per lane of this configuration:
+        the Python hops' plus, under the native engine, its own."""
+        sent = [p.bytes_out for p in self._next_lanes]
+        recv = [p.bytes_in for p in self._prev_lanes]
+        engine = self._engine
+        if engine is not None and sent:
+            flat = _native.RingEngine.TIER_FLAT
+            sent = [b + engine.link_bytes(flat, 0, lane) for lane, b in enumerate(sent)]
+            recv = [b + engine.link_bytes(flat, 1, lane) for lane, b in enumerate(recv)]
+        return sent, recv
+
+    def _hop_stats(self) -> dict:
+        """The flat ring's hop aggregates, both engines merged, with the
+        JAX package's ``shape_s`` (0: the port shapes no link)."""
+        s = self._hops.stats(0)
+        engine = self._engine
+        if engine is not None:
+            ns = engine.hop_stats(_native.RingEngine.TIER_FLAT)
+            s = {k: s[k] + ns[k] for k in s}
+        s["shape_s"] = 0.0
+        return s
+
+    def hop_records(self) -> List[dict]:
+        """The retained hop timeline of both engines, oldest first, each a
+        dict with exactly :data:`HOP_RECORD_FIELDS`."""
+        recs = self._hops.records()
+        engine = self._engine
+        if engine is not None:
+            recs += engine.hop_records(self._hops.cap)
+        recs.sort(key=lambda r: r["ts"])
+        return recs
+
+    def _live_counters(self) -> dict:
+        sent, recv = self._lane_bytes()
+        return {"sent_bytes": sum(sent), "recv_bytes": sum(recv),
+                "tiers": {"flat": {"sent_bytes": sum(sent), "recv_bytes": sum(recv)}},
+                "hops": {"flat": self._hop_stats()}}
+
+    def _bank_locked(self) -> None:
+        """Folds the closing configuration's counters into the lifetime
+        bank and keeps the closing engine's hop timeline (the caller holds
+        ``_lock``; abort calls it before the lanes go)."""
+        if not self._next_lanes:
+            return
+        live = self._live_counters()
+        bank = self._lifetime
+        bank["reconfigures"] = bank.get("reconfigures", 0) + 1
+        for key in ("sent_bytes", "recv_bytes"):
+            bank[key] = bank.get(key, 0) + live[key]
+        tier = bank.setdefault("tiers", {}).setdefault("flat", {"sent_bytes": 0, "recv_bytes": 0})
+        for key in ("sent_bytes", "recv_bytes"):
+            tier[key] += live["tiers"]["flat"][key]
+        hops = bank.setdefault("hops", {}).setdefault("flat", dict.fromkeys(_HOP_TOTAL_KEYS, 0))
+        for key in _HOP_TOTAL_KEYS:
+            hops[key] += live["hops"]["flat"][key]
+        if self._engine is not None:
+            for rec in self._engine.hop_records(self._hops.cap):
+                self._hops.keep(rec)
+        # The aggregates are in the bank now; the timeline stays.
+        self._hops.reset_aggregates()
+
+    def lane_totals(self) -> dict:
+        """Wire bytes and hop aggregates summed over every configuration
+        so far (the bank) and the live one: monotonic across reconfigures,
+        unlike :meth:`lane_stats`.  A configure holding the lock past 0.5 s
+        (a rendezvous) reads the bank alone."""
+        acquired = self._lock.acquire(timeout=0.5)
+        try:
+            live = (self._live_counters() if acquired else
+                    {"sent_bytes": 0, "recv_bytes": 0, "tiers": {}, "hops": {}})
+            bank = self._lifetime
+            out: Dict[str, Any] = {
+                "reconfigures": int(bank.get("reconfigures", 0)),
+                "sent_bytes": int(bank.get("sent_bytes", 0)) + live["sent_bytes"],
+                "recv_bytes": int(bank.get("recv_bytes", 0)) + live["recv_bytes"],
+                "tiers": {},
+                "hops": {},
+            }
+            for name in set(live["tiers"]) | set(bank.get("tiers", {})):
+                b = bank.get("tiers", {}).get(name, {})
+                lv = live["tiers"].get(name, {})
+                out["tiers"][name] = {k: int(b.get(k, 0)) + int(lv.get(k, 0))
+                                      for k in ("sent_bytes", "recv_bytes")}
+            for name in set(live["hops"]) | set(bank.get("hops", {})):
+                b = bank.get("hops", {}).get(name, {})
+                lv = live["hops"].get(name, {})
+                out["hops"][name] = {k: b.get(k, 0) + lv.get(k, 0) for k in _HOP_TOTAL_KEYS}
+            return out
+        finally:
+            if acquired:
+                self._lock.release()
+
+    def lane_stats(self) -> dict:
+        """This configuration's per-lane wire bytes and hop aggregates (the
+        JAX package's layout: ``lanes``, ``topology``, ``engine``,
+        ``sent``, ``recv``, ``hops``); they restart at every configure.
+        The Manager puts it on ``step_summary`` and the goodput ledger
+        splits the step's data-plane waits by its hop deltas."""
+        sent, recv = self._lane_bytes()
+        return {"lanes": self._lanes, "topology": "ring", "engine": self.ring_engine,
+                "sent": sent, "recv": recv, "hops": {"flat": self._hop_stats()}}
 
     # -- allreduce ------------------------------------------------------------
 
@@ -835,22 +1058,38 @@ class TCPCollective(Collective):
 
     # -- the Python hops -------------------------------------------------------
 
-    def _exchange(self, tag: int, payload: memoryview, lane: int) -> bytes:
+    def _exchange(self, tag: int, payload: memoryview, lane: int, hop: dict) -> bytes:
         """Sends to the next rank while receiving from the previous one on
         ``lane`` (full duplex: send-then-receive deadlocks once payloads
         outgrow the socket buffers).  Over the native engine's demux when
-        an engine owns the lanes."""
+        an engine owns the lanes.  Fills ``hop`` with the hop's ``ts``,
+        ``recv_s``, ``send_s`` (the further wait for the send after the
+        receive) and ``nbytes``; through the engine's exchange, which waits
+        for both at once, the whole wait is ``recv_s``, as in the JAX
+        package."""
+        hop["ts"] = time.time()
+        hop["nbytes"] = len(payload)
         engine = self._engine
         if engine is not None:
-            return engine.exchange(_native.RingEngine.TIER_FLAT, lane, tag, bytes(payload),
-                                   self._timeout)
+            t0 = time.monotonic()
+            out = engine.exchange(_native.RingEngine.TIER_FLAT, lane, tag, bytes(payload),
+                                  self._timeout)
+            hop["recv_s"], hop["send_s"] = time.monotonic() - t0, 0.0
+            return out
         pools = self._send_pools
         if not pools or not self._next_lanes:
             raise RuntimeError("collective aborted")
         sent = pools[lane].submit(self._next_lanes[lane].send_msg, tag, payload)
+        t0 = time.monotonic()
         received = self._prev_lanes[lane].recv_msg(tag)
+        t1 = time.monotonic()
         sent.result(timeout=self._timeout)
+        hop["recv_s"], hop["send_s"] = t1 - t0, time.monotonic() - t1
         return received
+
+    def _record_hop(self, lane: int, tag: int, hop: dict, comb_s: float = 0.0) -> None:
+        self._hops.record(0, lane, tag, hop["send_s"], hop["recv_s"], comb_s, hop["nbytes"],
+                          hop["ts"])
 
     def _ring_rs_ag(self, chunks: List[np.ndarray], bf16_wire: bool, lane: int,
                     tag_base: int) -> List[np.ndarray]:
@@ -875,8 +1114,11 @@ class TCPCollective(Collective):
         # Reduce-scatter: after n-1 steps chunk (rank+1) % n is fully summed.
         for step in range(n - 1):
             send_idx, recv_idx = (rank - step) % n, (rank - step - 1) % n
-            raw = self._exchange(tag_base + _SUB_RS, encode(chunks[send_idx]), lane)
+            hop: dict = {}
+            raw = self._exchange(tag_base + _SUB_RS, encode(chunks[send_idx]), lane, hop)
+            t_comb = time.monotonic()
             chunks[recv_idx] = np.add(chunks[recv_idx], decode(raw))
+            self._record_hop(lane, tag_base + _SUB_RS, hop, time.monotonic() - t_comb)
         # Allgather: the owned chunks circulate until every rank has all n.
         tag = tag_base + _SUB_AG
         if bf16_wire:
@@ -885,9 +1127,13 @@ class TCPCollective(Collective):
             raws[own] = bytes(encode(chunks[own]))
             for step in range(n - 1):
                 send_idx, recv_idx = (rank - step + 1) % n, (rank - step) % n
-                raws[recv_idx] = self._exchange(tag, memoryview(raws[send_idx]), lane)
+                hop = {}
+                raws[recv_idx] = self._exchange(tag, memoryview(raws[send_idx]), lane, hop)
+                self._record_hop(lane, tag, hop)
             return [decode(r) for r in raws]
         for step in range(n - 1):
             send_idx, recv_idx = (rank - step + 1) % n, (rank - step) % n
-            chunks[recv_idx] = decode(self._exchange(tag, encode(chunks[send_idx]), lane))
+            hop = {}
+            chunks[recv_idx] = decode(self._exchange(tag, encode(chunks[send_idx]), lane, hop))
+            self._record_hop(lane, tag, hop)
         return chunks

@@ -27,12 +27,17 @@ host buffers as the staging tensors and no streams.
 bf16 gradients (which numpy cannot hold) are widened to float32 in their
 host buffers and summed there; float32 gradients, the models' case, ride
 as the JAX package's do, bit for bit.
+
+Each of the train thread's waits runs inside a span of the Manager's step
+spans, as in the JAX averager: ``allreduce_d2h`` (a bucket's copy off the
+card), ``allreduce_merge`` (its ring) and ``allreduce_h2d`` (its copy back,
+and the final wait for the uploads), with the bytes noted onto the step in
+flight.  ``last_stats``' three waits are the sums of those spans' durations.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -193,6 +198,7 @@ class GradientAverager:
                 and manager.is_participating()):
             return  # alone in the ring: the average is the gradient itself
         plan = self._plan_for(grads)
+        spans, step = manager.spans, manager.current_step()
         timeout = manager.timeout.total_seconds()
         wire_nbytes = getattr(manager.collective(), "wire_nbytes", None)
         stats: Dict[str, Any] = {"buckets": len(plan.buckets), "d2h_bytes": 0, "h2d_bytes": 0,
@@ -217,16 +223,17 @@ class GradientAverager:
         # 2. Each bucket goes on the wire as soon as it is on the host.
         pending = []
         for b in plan.buckets:
-            if stream is not None:
-                t0 = time.perf_counter()
-                try:
-                    event_wait(b.fetched, timeout, "gradient copy off the card")
-                except TimeoutError as e:
-                    manager.report_error(e)
-                    return
-                stats["d2h_wait_s"] += time.perf_counter() - t0
             host_nbytes = b.numel * b.host.element_size()
+            with spans.span("allreduce_d2h", step=step, bytes=host_nbytes) as sp:
+                if stream is not None:
+                    try:
+                        event_wait(b.fetched, timeout, "gradient copy off the card")
+                    except TimeoutError as e:
+                        manager.report_error(e)
+                        return
+            stats["d2h_wait_s"] += sp.duration_ms / 1e3
             stats["d2h_bytes"] += host_nbytes
+            manager.note_d2h(host_nbytes)
             stats["wire_bytes"] += (int(wire_nbytes(b.host[:1], not b.wire_bypass)) * b.numel
                                     if callable(wire_nbytes) else host_nbytes)
             pending.append((b, manager.allreduce(
@@ -234,30 +241,33 @@ class GradientAverager:
 
         # 3. Drain in order; each average goes back as soon as it lands.
         for b, fut in pending:
-            t0 = time.perf_counter()
-            res = fut.result()
-            t1 = time.perf_counter()
-            stats["ring_wait_s"] += t1 - t0
+            with spans.span("allreduce_merge", step=step) as sp:
+                res = fut.result()
+            stats["ring_wait_s"] += sp.duration_ms / 1e3
             if res is b.host:
                 continue  # latched failure: these gradients stay as they were
-            if stream is None:
-                for i, view in b.views(res):
-                    grads[i].copy_(view)
-            else:
-                if res.data_ptr() != b.host.data_ptr():
-                    b.host.copy_(res)  # uploads always leave from the pinned buffer
-                b.stage.copy_(b.host, non_blocking=True)
-                b.uploaded.record()
-                for i, view in b.views(b.stage):
-                    grads[i].copy_(view)
-                stats["h2d_bytes"] += b.numel * b.host.element_size()
-            stats["h2d_s"] += time.perf_counter() - t1
+            up_nbytes = 0 if stream is None else b.numel * b.host.element_size()
+            with spans.span("allreduce_h2d", step=step, bytes=up_nbytes) as sp:
+                if stream is None:
+                    for i, view in b.views(res):
+                        grads[i].copy_(view)
+                else:
+                    if res.data_ptr() != b.host.data_ptr():
+                        b.host.copy_(res)  # uploads always leave from the pinned buffer
+                    b.stage.copy_(b.host, non_blocking=True)
+                    b.uploaded.record()
+                    for i, view in b.views(b.stage):
+                        grads[i].copy_(view)
+            stats["h2d_s"] += sp.duration_ms / 1e3
+            if up_nbytes:
+                stats["h2d_bytes"] += up_nbytes
+                manager.note_h2d(up_nbytes)
         if stream is not None:
-            t0 = time.perf_counter()
-            done = torch.cuda.Event()
-            done.record()
-            try:
-                event_wait(done, timeout, "gradient copy onto the card")
-            except TimeoutError as e:
-                manager.report_error(e)
-            stats["h2d_s"] += time.perf_counter() - t0
+            with spans.span("allreduce_h2d", step=step, bytes=0) as sp:
+                done = torch.cuda.Event()
+                done.record()
+                try:
+                    event_wait(done, timeout, "gradient copy onto the card")
+                except TimeoutError as e:
+                    manager.report_error(e)
+            stats["h2d_s"] += sp.duration_ms / 1e3

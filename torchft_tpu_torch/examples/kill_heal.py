@@ -7,6 +7,12 @@ one restart, a heal after the kill, both groups ending at the same step
 with the same ``params_sha256``, every loss finite) and returns what it
 measured.  Times come from the host clock: each log line is stamped when a
 poll every 20 ms reads it.
+
+Both groups write one metrics stream, ``metrics.jsonl`` in the log
+directory (``TPUFT_METRICS_PATH``), and the drive writes a ``fault`` record
+(kind ``kill``, the victim group, the wall time) into it as it sends the
+SIGKILL, as the JAX package's benchmark does, so
+:func:`torchft_tpu_torch.obs.report.deadwindow` charges the same fault.
 """
 
 from __future__ import annotations
@@ -19,11 +25,12 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from torchft_tpu_torch.launch import Launcher
+from torchft_tpu_torch.metrics import METRICS_PATH_ENV, MetricsLogger
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _STEP = re.compile(r"\[group \d+\] step=(\d+) loss=(\S+) participants=(\d+) committed=(\w+)")
 _FINAL = re.compile(r"FINAL step=(\d+) params_sha256=([0-9a-f]+)")
-_POLL_S = 0.02
+LOG_POLL_S = 0.02
 
 
 class _Tail:
@@ -98,7 +105,10 @@ def kill_and_heal(
 ) -> dict:
     """Runs the drive; raises AssertionError or TimeoutError on a failed
     recovery.  ``merged_before_kill``: group 0's merged commits (2
-    participants) before the kill; ``steps`` must exceed it."""
+    participants) before the kill; ``steps`` must exceed it.  The result's
+    ``metrics_path`` is the run's stream."""
+    metrics_path = os.path.join(log_dir, "metrics.jsonl")
+    env = {**(env or {}), METRICS_PATH_ENV: metrics_path}
     cmd = [sys.executable, "-m", "torchft_tpu_torch.examples.train_ddp", "--device", device,
            "--steps", str(steps), "--require-merged-final", "2", "--steps-cap", str(steps_cap)]
     tails = {g: _Tail(os.path.join(log_dir, f"g{g}.log")) for g in (0, 1)}
@@ -115,13 +125,16 @@ def kill_and_heal(
                     return
                 if time.monotonic() > deadline:
                     raise TimeoutError(f"kill_and_heal: {what} not reached in {timeout_s} s")
-                time.sleep(_POLL_S)
+                time.sleep(LOG_POLL_S)
 
         def merged(g: int) -> int:
             return sum(p == 2 and c for *_, p, c in tails[g].steps())
 
         wait("merged steps before the kill", lambda: merged(0) >= merged_before_kill
              and merged(1) >= 3)
+        faults = MetricsLogger(metrics_path, replica_id="kill_heal")
+        faults.emit("fault", ts=time.time(), kind="kill", group="1", plan="kill")
+        faults.close()
         t_kill = time.monotonic()
         launcher.kill(1, hold=False)
         # kill() returns once the process is dead, so the log holds all of
@@ -151,6 +164,7 @@ def kill_and_heal(
         raise AssertionError("the restarted group never logged a merged commit")
     after_kill = tails[0].steps(after=t_kill)
     return {
+        "metrics_path": metrics_path,
         "final_step": step0,
         "params_sha256": sha0,
         "restarts": restarts,
