@@ -60,7 +60,9 @@ result):
    quorum, heal, the three averager phases, commit vote, snapshot and the
    train thread's wait for it), ``obs.report.attribute`` per group, and
    ``report.data_plane`` / ``report.link_attribution`` (the hop stall
-   split).
+   split).  The donor's snapshot: asserted, it was flattened on the HTTP
+   transport's background thread, and the train thread's
+   ``snapshot_wait`` is under 10% of the ``snapshot`` span; printed, both.
 6. Kill and heal: ``torchft_tpu_torch.launch``'s Launcher runs two groups
    of ``python -m torchft_tpu_torch.examples.train_ddp`` on the card with
    an embedded lighthouse; after group 0 has KILL_MERGED merged commits,
@@ -74,18 +76,44 @@ result):
    dead time is printed beside ``recovery_s``.
 7. Bare ring on the card's host: two in-process ranks allreduce the
    flagship's gradient payload (its parameter count in f32, 537 MB)
-   BARE_RING_REPEATS times in each of three configurations: the Python
-   engine on 1 lane (the earlier port's ring), the native engine on 2
-   lanes, and the native engine on 2 lanes with the bf16 wire.  Asserted:
-   the Python and native f32 results are bitwise equal, and both ranks
-   hold the same bits.  Printed: seconds and GB/s of payload per op.
+   BARE_RING_REPEATS times in each of BARE_RING_CONFIGS: the Python engine
+   on 1 lane (the earlier port's ring), the native engine on 2 lanes, the
+   native engine on 2 lanes with the bf16 wire, and the int8 and int4 wire
+   codecs on 2 lanes on each engine.  Asserted: the Python and native
+   results are bitwise equal on the f32 wire and under each codec, both
+   ranks hold the same bits, and the codecs' sums lie within two
+   quantization steps.  Printed: seconds and GB/s of payload per op, and
+   the bytes a hop.
 8. Raw-step profile: ``torchft_tpu_torch.tools.profile_step`` runs
    ``torch.profiler`` over PROFILE_STEPS chained flagship ``full_step``s.
    Printed: wall and device ms a step, the device busy share, the top 20
    ops and the op classes.  Asserted: the trace holds device events, and
    K1-K5 launch 12, 12, 12, 1 and 1 times a step.
-9. The kernels line, ``{"kernels": [...]}``, then the last line,
-   ``{"ok": true, "device": {...}}``.
+9. Semisync codec: the int8 and int4 error-feedback encoders' device
+   path (torch ops on the card) against the host quantizers, bit for bit,
+   over two rounds with the residual carried: at one 4 MB fragment, at
+   the flagship's whole f32 vector, and at 4 MB with NaN and infinities.
+   Asserted also: the device path fetches q and the scale only (int8
+   bytes + 4), and two planted faults are rejected (a residual not
+   carried, the scale one ulp up).  Printed: CUDA-event ms of the device
+   encode beside its bound, and the host encode's ms.
+10. DiLoCo: a lighthouse and two groups as processes on the card, each
+   training the flagship with AdamW inner steps through ``TrainStep``
+   under ``StreamingDiLoCo(sync_every=8, codec="int8")`` with the default
+   4 MB fragments and a synchronous quorum; group 0 runs one round alone,
+   group 1 joins, heals the weights, the AdamW state and the outer state,
+   and both run two merged rounds.  Asserted: every round commits, every
+   loss is finite, both groups end with one params_sha256 and one backup
+   hash, K1-K5 launch 12 / 12 / 12 / 1 / 1 times an inner step (counts set
+   to 0 before the rounds and read after), the device codec path ran (int8
+   bytes + 4 a fragment off the card), each round's wire bytes are at most
+   0.27 of f32, the streams hold ``outer_sync`` spans and
+   ``obs.trace.validate_trace`` is clean.  Printed: inner-step ms with a
+   round in flight and in the solo round, the round boundary's and the
+   outer apply's ms, the drain waits, wire and D2H bytes a round.
+11. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
+   the phase 5 run, and on the DiLoCo run as ``launches_diloco``), then
+   the last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -662,6 +690,7 @@ def run_group(args: argparse.Namespace) -> None:
 
     timeout = timedelta(seconds=180)
     collective = TCPCollective(timeout=180.0, host="127.0.0.1")
+    transport = HTTPTransport(timeout=180.0, host="127.0.0.1")
     manager = Manager(
         collective=collective,
         load_state_dict=load_state_dict,
@@ -673,7 +702,7 @@ def run_group(args: argparse.Namespace) -> None:
         lighthouse_addr=args.lighthouse,
         store_addr="127.0.0.1",
         manager_bind="127.0.0.1:0",
-        checkpoint_transport=HTTPTransport(timeout=180.0, host="127.0.0.1"),
+        checkpoint_transport=transport,
         timeout=timeout,
         quorum_timeout=timeout,
     )
@@ -773,6 +802,9 @@ def run_group(args: argparse.Namespace) -> None:
         # 6 L S d (the JAX bench's model-FLOP count).
         "model_flops_per_step": (6 * n_params + 6 * cfg.n_layers * seq * cfg.d_model) * tokens,
     }
+    # The donor's snapshot, flattened on the transport's background thread.
+    transport.wait_snapshot(timeout=GROUP_TIMEOUT_S)
+    result["snapshot"] = dict(transport.last_snapshot)
     manager.shutdown()
     if group == 0:
         # The compute alone: TrainStep.full_step (forward, backward, AdamW;
@@ -865,6 +897,21 @@ def main_path(card: str) -> dict:
         if ring != ("native", 2, "f32"):
             raise AssertionError(f"group {r['group']} ran the ring {ring}, expected the "
                                  f"defaults ('native', 2, 'f32')")
+    # The donor's snapshot runs on the transport's background thread; the
+    # train thread waits only for the device copy to be queued.
+    snap = r0["snapshot"]
+    rows = stream["steps"][0]
+    snap_ms = sum(row["snapshot"] for row in rows)
+    wait_ms = sum(row["snapshot_wait"] for row in rows)
+    print(f"group 0 (donor): snapshot {snap_ms:.1f} ms of {snap.get('bytes', 0) / 1e9:.3f} GB "
+          f"on thread {snap.get('thread')!r} (step {snap.get('step')}); the train thread's "
+          f"snapshot_wait {wait_ms:.3f} ms ({card})", flush=True)
+    if snap.get("thread") != "tpuft_torch_http_snapshot":
+        raise AssertionError(f"the donor's snapshot ran on {snap.get('thread')!r}, not the "
+                             f"background snapshotter")
+    if not (snap_ms > 0 and wait_ms < 0.1 * snap_ms):
+        raise AssertionError(f"snapshot_wait {wait_ms:.3f} ms is not under 10% of the "
+                             f"snapshot span {snap_ms:.3f} ms")
     same = r0["params_sha256"] == PREVIOUS_PARAMS_SHA256
     print(f"params_sha256 {r0['params_sha256']}; previous tree's {PREVIOUS_PARAMS_SHA256}: "
           f"{'equal' if same else 'DIFFERENT'}", flush=True)
@@ -1058,9 +1105,13 @@ def kill_heal_phase(card: str) -> dict:
 
 # -- phase 7: the bare ring ---------------------------------------------------
 
-# (engine, lanes, wire): the earlier port's ring, then the defaults, then the
-# defaults on the bf16 wire.
-BARE_RING_CONFIGS = (("py", 1, "f32"), ("native", 2, "f32"), ("native", 2, "bf16"))
+# (engine, lanes, wire, codec): the earlier port's ring, then the defaults,
+# then the defaults on the bf16 wire, then the int8 and int4 wire codecs on
+# 2 lanes, each on the Python engine and the native one.
+BARE_RING_CONFIGS = (("py", 1, "f32", None), ("native", 2, "f32", None),
+                     ("native", 2, "bf16", None), ("py", 2, "f32", "int8"),
+                     ("native", 2, "f32", "int8"), ("py", 2, "f32", "int4"),
+                     ("native", 2, "f32", "int4"))
 
 
 def flagship_param_count() -> int:
@@ -1077,7 +1128,9 @@ def flagship_param_count() -> int:
 def bare_ring(card: str) -> dict:
     """Two in-process ranks allreduce the flagship's gradient payload over
     127.0.0.1 in each of BARE_RING_CONFIGS, each op on a fresh copy handed
-    over with ``donate=True`` (as the averager hands its pinned buffers)."""
+    over with ``donate=True`` (as the averager hands its pinned buffers).
+    The Python and native engines' results must be bitwise equal on the f32
+    wire and under each codec."""
     import numpy as np
 
     from torchft_tpu_torch._native import StoreServer
@@ -1090,22 +1143,24 @@ def bare_ring(card: str) -> dict:
     report = {"payload_bytes": 4 * n, "ops": {}}
     outs = {}
     try:
-        for i, (engine, lanes, wire) in enumerate(BARE_RING_CONFIGS):
+        for i, (engine, lanes, wire, codec) in enumerate(BARE_RING_CONFIGS):
             cols = [TCPCollective(timeout=BARE_RING_TIMEOUT_S, wire_dtype=wire, lanes=lanes,
                                   engine=engine, host="127.0.0.1") for _ in range(2)]
             barrier = threading.Barrier(2)
 
-            def rank(r: int, cols=cols, barrier=barrier, engine=engine, i=i):
+            def rank(r: int, cols=cols, barrier=barrier, engine=engine, i=i, codec=codec):
                 c = cols[r]
                 c.configure(f"{store.address()}/bare/{i}", r, 2)
                 if c.ring_engine != engine:
                     raise AssertionError(f"bare ring: asked for {engine}, ran {c.ring_engine}")
+                kwargs = {} if codec is None else {"wire_codec": codec}
                 secs, out = [], None
                 for _ in range(BARE_RING_REPEATS):
                     buf = data[r].copy()
                     barrier.wait(timeout=BARE_RING_TIMEOUT_S)
                     t0 = time.perf_counter()
-                    (out,) = c.allreduce([buf], donate=True).wait(timeout=BARE_RING_TIMEOUT_S)
+                    (out,) = c.allreduce([buf], donate=True, **kwargs).wait(
+                        timeout=BARE_RING_TIMEOUT_S)
                     secs.append(time.perf_counter() - t0)
                 return secs, out
 
@@ -1119,12 +1174,27 @@ def bare_ring(card: str) -> dict:
             if got[0][1].view(np.uint32).tobytes() != got[1][1].view(np.uint32).tobytes():
                 raise AssertionError(f"bare ring {engine}/{lanes}/{wire}: the ranks differ")
             secs = [max(a, b) for a, b in zip(got[0][0], got[1][0])]
-            key = f"{engine}, {lanes} lane{'s' if lanes > 1 else ''}, {wire} wire"
-            report["ops"][key] = {"s": secs, "gb_per_s": [4 * n / s / 1e9 for s in secs]}
+            key = (f"{engine}, {lanes} lane{'s' if lanes > 1 else ''}, "
+                   + (f"{codec} codec" if codec else f"{wire} wire"))
+            wire_bytes = cols[0].wire_nbytes(data[0], True, codec) if codec else 4 * n
+            report["ops"][key] = {"s": secs, "gb_per_s": [4 * n / s / 1e9 for s in secs],
+                                  "wire_bytes_per_hop": wire_bytes}
             print(f"  {key}: " + ", ".join(f"{s:.3f} s ({4 * n / s / 1e9:.2f} GB/s)" for s in secs)
-                  + f" for {4 * n / 1e6:.1f} MB of f32 ({card})", flush=True)
-            if wire == "f32":
-                outs[engine] = got[0][1]
+                  + f" for {4 * n / 1e6:.1f} MB of f32, {wire_bytes / 1e6:.1f} MB a hop "
+                  f"({card})", flush=True)
+            if codec:
+                # Two quantizations at most per element (the reduce-scatter
+                # hop and the allgather owner), each within half a step.
+                a, b = data
+                qmax = 127.0 if codec == "int8" else 7.0
+                tol = (np.abs(a).max() + np.abs(exact).max()) / qmax
+                err = float(np.abs(got[0][1] - exact).max())
+                print(f"    max |sum - a - b| {err:.4g} (allowed {tol:.4g})", flush=True)
+                if not err <= tol:
+                    raise AssertionError(f"bare ring {key}: the sum is off by {err} > {tol}")
+                outs[(engine, codec)] = got[0][1]
+            elif wire == "f32":
+                outs[(engine, None)] = got[0][1]
                 if not np.array_equal(got[0][1].view(np.uint32), exact.view(np.uint32)):
                     raise AssertionError(f"bare ring {key}: the sum is not a + b bit for bit")
             else:
@@ -1135,10 +1205,15 @@ def bare_ring(card: str) -> dict:
             del got
     finally:
         store.shutdown()
-    same = np.array_equal(outs["py"].view(np.uint32), outs["native"].view(np.uint32))
-    print(f"  py and native f32 results bitwise equal: {same}", flush=True)
-    if not same:
-        raise AssertionError("bare ring: the Python and native engines' f32 results differ")
+    for codec in (None, "int8", "int4"):
+        same = np.array_equal(outs[("py", codec)].view(np.uint32),
+                              outs[("native", codec)].view(np.uint32))
+        what = f"{codec} codec" if codec else "f32"
+        print(f"  py and native {what} results bitwise equal: {same}", flush=True)
+        report.setdefault("py_native_bitwise", {})[what] = same
+        if not same:
+            raise AssertionError(f"bare ring: the Python and native engines' {what} results "
+                                 f"differ")
     print("BARE_RING " + json.dumps(report), flush=True)
     return report
 
@@ -1183,11 +1258,432 @@ def profile_phase(card: str) -> dict:
     return rep
 
 
+# -- phase 9: the semisync codec's device encoders -------------------------------
+
+CODEC_FRAGMENT_ELEMS = 1 << 20  # one default 4 MB fragment of f32
+CODEC_REPS = 5                  # CUDA-event repeats of each device encode
+
+
+def _bits_equal(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def codec_case(name: str, n: int, device: str, seed: int, special: bool) -> dict:
+    """One fragment of ``n`` f32 elements through two rounds (commit, then
+    an encode with the residual carried) of the ``name`` codec twice: host
+    leaves (the numpy path) and device leaves (the torch-op path).  Each
+    round's payload and residual must be bitwise equal, the device path
+    must fetch q and the scale only (n + 4 bytes), and its q must be the
+    host quantizer's.  Planted faults (finite inputs): a device encode
+    whose residual was not carried, and the payload dequantized with the
+    scale one ulp up, must both differ from the host's bits."""
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.collectives import quantize_int4, quantize_int8
+    from torchft_tpu_torch.semisync import FragmentPlan, make_codec
+    from torchft_tpu_torch.semisync.codec import ef_quantize
+
+    qmax = 127 if name == "int8" else 7
+    host_quantize = quantize_int8 if name == "int8" else quantize_int4
+    frag = FragmentPlan([((n,), torch.float32)], 4 * n).fragments[0]
+    host, dev, nocarry = (make_codec(name, frag) for _ in range(3))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rec = {"name": name, "elements": n, "special": special}
+    for rnd in range(2):
+        backup = torch.randn(n, generator=gen, device=device)
+        local = backup + 0.01 * torch.randn(n, generator=gen, device=device)
+        if special and rnd == 1:
+            local[::97] = float("nan")
+            local[1::101] = float("inf")
+            local[2::103] = float("-inf")
+        backup_h, local_h = backup.cpu(), local.cpu()
+        for c in (host, dev, nocarry):
+            c.set_backup(backup_h)
+        res_dev = dev._residual_on(local.device).clone()
+        t0 = time.perf_counter()
+        want, d2h_h = host.encode([local_h])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, d2h = dev.encode([local])
+        full_ms = (time.perf_counter() - t0) * 1e3
+        fault, _ = nocarry.encode([local])
+        if not _bits_equal(got, want):
+            raise AssertionError(f"codec {name} n={n} round {rnd}: device payload differs")
+        got_res = (dev._pending_residual.cpu().numpy() if dev._pending_on_device
+                   else dev._pending_residual)
+        if not _bits_equal(got_res, host._pending_residual):
+            raise AssertionError(f"codec {name} n={n} round {rnd}: residuals differ")
+        if device == "cuda" and d2h != n + 4:
+            raise AssertionError(f"codec {name}: the device path fetched {d2h} bytes, not "
+                                 f"q + scale ({n + 4})")
+        # q itself against the host quantizer on the same x.
+        q, scale, _ = ef_quantize(local, backup, res_dev, qmax)
+        x_h = (backup_h.numpy() - local_h.numpy()) + res_dev.cpu().numpy()
+        s_h, q_h = host_quantize(x_h)
+        if not (_bits_equal(q.cpu().numpy(), q_h) and float(scale) == np.float32(s_h)):
+            raise AssertionError(f"codec {name} n={n} round {rnd}: q or the scale differs "
+                                 f"from the host quantizer")
+        up = torch.nextafter(scale, torch.tensor(float("inf"), device=scale.device))
+        scale_fault = _bits_equal((q.to(torch.float32) * up).cpu().numpy(), want)
+        residual_fault = _bits_equal(fault, want)
+        if rnd == 1 and not special:
+            print(f"    planted faults: residual not carried rejected {not residual_fault}, "
+                  f"scale one ulp up rejected {not scale_fault}", flush=True)
+            if residual_fault or scale_fault:
+                raise AssertionError(f"codec {name} n={n}: a planted fault was accepted")
+        for c in (host, dev):
+            c.on_commit()
+        nocarry.on_abort()
+        rec[f"round{rnd}"] = {"host_encode_ms": host_ms, "device_encode_d2h_ms": full_ms,
+                              "d2h_bytes": d2h, "nonzero_q": int((q != 0).sum())}
+    if device == "cuda":
+        res = dev._residual_on(local.device)
+        rec["device_encode_ms"] = cuda_ms(lambda: ef_quantize(local, backup, res, qmax),
+                                          CODEC_REPS)
+        # Read local, backup and the residual, write q and the new residual.
+        rec.update(bound(0, n * (4 * 4 + 1)))
+    return rec
+
+
+def codec_phase(card: str, device: str = "cuda") -> dict:
+    """The int8 and int4 device encoders against the host quantizers,
+    bitwise, at one 4 MB fragment and at the flagship's whole f32 vector,
+    and a NaN / inf case; prints each encode's times."""
+    out = []
+    sizes = ((CODEC_FRAGMENT_ELEMS, False), (CODEC_FRAGMENT_ELEMS, True),
+             (flagship_param_count(), False))
+    for name in ("int8", "int4"):
+        for n, special in sizes:
+            rec = codec_case(name, n, device, seed=31 + n % 97, special=special)
+            r1 = rec["round1"]
+            print(f"  {name}, {n} f32 elements{' with NaN / inf' if special else ''}: device "
+                  f"and host payloads and residuals bitwise equal over 2 rounds; device "
+                  f"encode {rec.get('device_encode_ms', float('nan')):.4f} ms (CUDA events; "
+                  f"bound {rec.get('bound_ms', float('nan')):.4f} ms by bytes), encode + "
+                  f"copy off {r1['device_encode_d2h_ms']:.3f} ms, host encode "
+                  f"{r1['host_encode_ms']:.1f} ms, {r1['d2h_bytes']} bytes fetched ({card})",
+                  flush=True)
+            out.append(rec)
+    print("CODEC " + json.dumps(out), flush=True)
+    return {"cases": out}
+
+
+# -- phase 10: Streaming DiLoCo on the flagship ----------------------------------
+
+DILOCO_SYNC_EVERY = 8   # inner steps a round
+DILOCO_SOLO_ROUNDS = 1  # rounds group 0 commits before group 1 starts
+DILOCO_ROUNDS = 3       # group 0's rounds in all; group 1 heals into the second
+
+
+def run_diloco_group(args: argparse.Namespace) -> None:
+    """One replica group of the DiLoCo phase: the flagship trained by
+    AdamW inner steps through TrainStep under StreamingDiLoCo (int8 codec,
+    default 4 MB fragments, synchronous quorum)."""
+    import logging
+    from datetime import timedelta
+
+    import torch
+
+    from torchft_tpu_torch.checkpointing import HTTPTransport
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep
+    from torchft_tpu_torch.semisync import StreamingDiLoCo, outer
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"[d{args.diloco_group}] %(message)s")
+    group, run_dir = args.diloco_group, args.run_dir
+    cfg, batch, seq = flagship_config()
+    dev = resolve_device(args.device)
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2000 + group))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    params = list(model.parameters())
+    timeout = timedelta(seconds=180)
+    collective = TCPCollective(timeout=180.0, host="127.0.0.1")
+    transport = HTTPTransport(timeout=180.0, host="127.0.0.1")
+    manager = Manager(
+        collective=collective,
+        load_state_dict=lambda sd: (model.load_state_dict(sd["model"]),
+                                    opt.load_state_dict(sd["optim"])),
+        state_dict=lambda: {"model": model.state_dict(), "optim": opt.state_dict()},
+        min_replica_size=1, use_async_quorum=False, rank=0, world_size=1,
+        replica_id=f"diloco_g{group}", lighthouse_addr=args.lighthouse, store_addr="127.0.0.1",
+        manager_bind="127.0.0.1:0", checkpoint_transport=transport, timeout=timeout,
+        quorum_timeout=timeout,
+    )
+
+    def set_params(src) -> None:
+        with torch.no_grad():
+            for p, s in zip(params, src):
+                p.copy_(s)
+
+    algo = StreamingDiLoCo(manager, lambda: params, set_params,
+                           outer.sgd(0.7, momentum=0.9, nesterov=True),
+                           sync_every=DILOCO_SYNC_EVERY, codec="int8")
+    # The outer step's time (CPU), read around the method the round calls.
+    apply_ms: list = []
+    inner_apply = algo._apply
+
+    def timed_apply(results):
+        t0 = time.perf_counter()
+        try:
+            return inner_apply(results)
+        finally:
+            apply_ms.append((time.perf_counter() - t0) * 1e3)
+
+    algo._apply = timed_apply
+    trainer = TrainStep(model, opt, loss_fn)
+    data = torch.Generator(device=dev).manual_seed(70 + group)
+
+    def wait_for(path: str) -> None:
+        deadline = time.monotonic() + GROUP_TIMEOUT_S
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"group {group}: {path} never appeared")
+            time.sleep(0.05)
+
+    rounds, inner_ms, boundary_ms = [], [], []
+    healed = False
+    reset_launch_counts()
+    inner_steps = 0
+    with algo:
+        while manager.current_step() < DILOCO_ROUNDS:
+            if len(rounds) > 2 * DILOCO_ROUNDS:
+                raise RuntimeError("the DiLoCo groups never finished their rounds")
+            before = manager.current_step()
+            losses = []
+            for k in range(DILOCO_SYNC_EVERY):
+                tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=data,
+                                       device=dev)
+                b = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+                t0 = time.perf_counter()
+                loss = trainer.full_step(b)
+                losses.append(float(loss))  # waits for the step's kernels
+                t1 = time.perf_counter()
+                if group == 1 and inner_steps == 0:
+                    # This step's quorum request must reach the lighthouse
+                    # before group 0's next one (a quorum of group 0's
+                    # previous members forms at once); it blocks until both
+                    # have asked, so group 0 goes on a grace after it.
+                    threading.Timer(JOIN_GRACE_S, lambda: open(
+                        os.path.join(run_dir, "g1_up"), "w").close()).start()
+                algo.step()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                inner_steps += 1
+                if k == DILOCO_SYNC_EVERY - 1:
+                    boundary_ms.append((t2 - t1) * 1e3)
+                elif k > 0:
+                    inner_ms.append({"round": len(rounds), "ms": (t2 - t0) * 1e3,
+                                     "participants": manager.num_participants()})
+            jumped = manager.current_step() - before > 1
+            healed |= jumped
+            rec = {"group": group, "step": manager.current_step(),
+                   "committed": manager.current_step() > before, "healed": jumped,
+                   "participants": manager.num_participants(), "losses": losses,
+                   "fragments": algo.metrics.fragments_total,
+                   "wire_bytes_total": algo.metrics.wire_bytes_total,
+                   "d2h_bytes_total": algo.metrics.d2h_bytes_total}
+            rounds.append(rec)
+            print("ROUND " + json.dumps(rec), flush=True)
+            if not rec["committed"]:
+                raise RuntimeError(f"group {group}: the round from step {before} did not commit")
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"group {group}: a loss is not finite: {losses}")
+            if group == 0 and manager.current_step() == DILOCO_SOLO_ROUNDS:
+                open(os.path.join(run_dir, "g0_ready"), "w").close()
+                wait_for(os.path.join(run_dir, "g1_up"))
+        counts = launch_counts()
+
+    def sha(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+                     .tobytes())
+        return h.hexdigest()
+
+    plan = algo.plan
+    params_sha, backup_sha = sha(params), sha(algo.backup_params)
+    # The compute alone (no round in flight), timed after the rounds.
+    raw = []
+    for _ in range(RAW_STEPS):
+        t0 = time.perf_counter()
+        float(trainer.full_step(b))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        raw.append((time.perf_counter() - t0) * 1e3)
+    result = {
+        "group": group, "rounds": rounds, "final_step": manager.current_step(),
+        "healed": healed, "inner_steps": inner_steps, "launches": counts,
+        "params_sha256": params_sha, "backup_sha256": backup_sha,
+        "fragments": len(plan), "fragment_f32_bytes": plan.total_bytes,
+        "fragment_elements": sum(f.numel for f in plan.fragments),
+        "inner_ms": inner_ms, "boundary_ms": boundary_ms, "outer_apply_ms": apply_ms,
+        "raw_full_step_ms": raw,
+        "engine": collective.ring_engine, "lanes": collective.lanes,
+        "codec_paths": sorted({type(c).__name__ for c in algo._codecs}),
+        "losses_final": rounds[-1]["losses"][-1],
+    }
+    manager.shutdown()
+    print("RESULT " + json.dumps(result), flush=True)
+
+
+def diloco_phase(card: str, device: str = "cuda") -> dict:
+    """A lighthouse and two DiLoCo groups as processes on the card: group 0
+    runs DILOCO_SOLO_ROUNDS alone, group 1 joins and heals the weights, the
+    AdamW state and the outer state, and both run to DILOCO_ROUNDS.
+    Returns the K1-K5 launch counts of both groups' runs."""
+    from torchft_tpu_torch._native import LighthouseServer
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.obs import report, trace
+
+    lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
+                                  min_replicas=1, join_timeout_ms=100)
+    run_dir = tempfile.mkdtemp(prefix="tpuft_diloco_")
+    procs, readers, results = {}, {}, {}
+
+    def start(group: int) -> None:
+        env = {**os.environ,
+               "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_d{group}.jsonl")}
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--diloco-group", str(group),
+             "--lighthouse", lighthouse.address(), "--run-dir", run_dir, "--device", device],
+            stdout=subprocess.PIPE, text=True, cwd=HERE, env=env)
+        procs[group] = proc
+
+        def read() -> None:
+            assert proc.stdout is not None
+            for line in proc.stdout:
+                line = line.rstrip("\n")
+                print(f"  [d{group}] {line}", flush=True)
+                if line.startswith("RESULT "):
+                    results[group] = json.loads(line[len("RESULT "):])
+
+        readers[group] = threading.Thread(target=read, daemon=True)
+        readers[group].start()
+
+    try:
+        t_start = time.monotonic()
+        start(0)
+        while not os.path.exists(os.path.join(run_dir, "g0_ready")):
+            for g, p in procs.items():
+                if p.poll() not in (None, 0):
+                    raise RuntimeError(f"DiLoCo group {g} exited with {p.returncode}")
+            if time.monotonic() - t_start > GROUP_TIMEOUT_S:
+                raise TimeoutError("DiLoCo group 0 never committed its solo round")
+            time.sleep(0.1)
+        start(1)
+        for g, p in procs.items():
+            rc = p.wait(timeout=GROUP_TIMEOUT_S)
+            readers[g].join(timeout=30)
+            if rc != 0:
+                raise RuntimeError(f"DiLoCo group {g} exited with {rc}")
+        paths = [os.path.join(run_dir, f"metrics_d{g}.jsonl") for g in (0, 1)]
+        streams = {g: report.read_events([p]) for g, p in zip((0, 1), paths)}
+        events = report.read_events(paths)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        lighthouse.shutdown()
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    r0, r1 = results[0], results[1]
+    if not (r0["final_step"] == r1["final_step"] == DILOCO_ROUNDS):
+        raise AssertionError(f"final steps {r0['final_step']}, {r1['final_step']}")
+    if not r1["healed"] or r0["healed"]:
+        raise AssertionError("expected group 1, and only group 1, to heal")
+    want = {0: [1] * DILOCO_SOLO_ROUNDS + [2] * (DILOCO_ROUNDS - DILOCO_SOLO_ROUNDS),
+            1: [2] * (DILOCO_ROUNDS - DILOCO_SOLO_ROUNDS)}
+    for r in (r0, r1):
+        got = [x["participants"] for x in r["rounds"]]
+        if got != want[r["group"]]:
+            raise AssertionError(f"DiLoCo group {r['group']}: participants a round {got}, "
+                                 f"expected {want[r['group']]}")
+    if r0["params_sha256"] != r1["params_sha256"] or r0["backup_sha256"] != r1["backup_sha256"]:
+        raise AssertionError("the DiLoCo groups' final parameters or backups differ")
+    cfg, _, _ = flagship_config()
+    per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
+    for r in (r0, r1):
+        if device == "cuda":
+            for name, k in per_step.items():
+                if r["launches"].get(name) != k * r["inner_steps"]:
+                    raise AssertionError(f"DiLoCo group {r['group']}: {name} launched "
+                                         f"{r['launches'].get(name)} times, expected "
+                                         f"{k * r['inner_steps']}")
+        if (r["engine"], r["lanes"]) != ("native", 2) or r["codec_paths"] != ["_Int8EFCodec"]:
+            raise AssertionError(f"DiLoCo group {r['group']}: ring {r['engine']}/{r['lanes']}, "
+                                 f"codecs {r['codec_paths']}")
+    f32_bytes = r0["fragment_f32_bytes"]
+    for g, evs in streams.items():
+        phases = {e["phase"] for e in evs if e["event"] == "span"}
+        if "outer_sync" not in phases:
+            raise AssertionError(f"DiLoCo group {g}: no outer_sync spans in {sorted(phases)}")
+        rnds = [e for e in evs if e["event"] == "semisync_round"]
+        if len(rnds) != len(results[g]["rounds"]) or not all(e["committed"] for e in rnds):
+            raise AssertionError(f"DiLoCo group {g}: semisync_round events {rnds}")
+        for e in rnds:
+            ratio = e["wire_bytes"] / f32_bytes
+            d2h_want = results[g]["fragment_elements"] + 4 * results[g]["fragments"]
+            print(f"  group {g} round at step {e['step']}: {e['fragments']} fragments, wire "
+                  f"{e['wire_bytes'] / 1e6:.2f} MB a hop ({ratio:.4f} of f32), copied off the "
+                  f"card {e['d2h_bytes'] / 1e6:.2f} MB ({e['d2h_bytes'] / f32_bytes:.4f} of "
+                  f"f32), residual l2 {e['residual_l2']}", flush=True)
+            if not ratio <= 0.27:
+                raise AssertionError(f"DiLoCo group {g}: wire {ratio:.4f} of f32 > 0.27")
+            if device == "cuda" and e["d2h_bytes"] not in (0, d2h_want):
+                raise AssertionError(f"DiLoCo group {g}: {e['d2h_bytes']} bytes copied off the "
+                                     f"card, not int8 + 4 a fragment ({d2h_want})")
+        if device == "cuda" and not any(e["d2h_bytes"] == d2h_want for e in rnds):
+            raise AssertionError(f"DiLoCo group {g}: the device codec path never ran")
+        merges = [e["duration_ms"] for e in evs if e["event"] == "span"
+                  and e["phase"] == "allreduce_merge"]
+        syncs = [e["duration_ms"] for e in evs if e["event"] == "span"
+                 and e["phase"] == "outer_sync"]
+        print(f"  group {g}: drain waits (allreduce_merge) "
+              + ", ".join(f"{m:.1f}" for m in merges) + f" ms; {len(syncs)} outer_sync spans, "
+              f"{sum(syncs):.1f} ms in all on the worker ({card})", flush=True)
+    problems = trace.validate_trace(trace.build_trace(sorted(events, key=lambda e: e["ts"])))
+    if problems:
+        raise AssertionError(f"the DiLoCo trace does not validate: {problems}")
+    for r in (r0, r1):
+        merged = [x["ms"] for x in r["inner_ms"] if x["participants"] == 2]
+        alone = [x["ms"] for x in r["inner_ms"] if x["participants"] == 1]
+        mean = lambda xs: sum(xs) / len(xs) if xs else float("nan")  # noqa: E731
+        print(f"  group {r['group']}: inner step {mean(merged):.1f} ms with a merged round in "
+              f"flight ({len(merged)} steps), {mean(alone):.1f} ms in a solo round "
+              f"({len(alone)}), raw full_step {mean(r['raw_full_step_ms']):.1f} ms after the "
+              f"run; round boundary (drain, vote, outer step, write-back) "
+              + ", ".join(f"{x:.1f}" for x in r["boundary_ms"]) + " ms; outer apply "
+              + ", ".join(f"{x:.1f}" for x in r["outer_apply_ms"]) + f" ms ({card})",
+              flush=True)
+    print(f"  both groups: params_sha256 {r0['params_sha256']}, backup {r0['backup_sha256']}; "
+          f"{r0['fragments']} fragments of {f32_bytes / 1e6:.1f} MB f32", flush=True)
+    print("DILOCO " + json.dumps({"groups": [r0, r1]}), flush=True)
+    return {name: r0["launches"].get(name, 0) + r1["launches"].get(name, 0)
+            for name in per_step}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--lighthouse", help=argparse.SUPPRESS)
     parser.add_argument("--run-dir", help=argparse.SUPPRESS)
+    parser.add_argument("--diloco-group", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -1200,6 +1696,9 @@ def main() -> int:
 
     if args.group is not None:
         run_group(args)
+        return 0
+    if args.diloco_group is not None:
+        run_diloco_group(args)
         return 0
 
     # 1. Card.
@@ -1252,7 +1751,18 @@ def main() -> int:
           flush=True)
     profile_phase(card)
 
-    # 9. The kernels line, then the last line.
+    # 9. The semisync codec's device encoders.
+    print("semisync codec: device int8 / int4 encoders against the host quantizers",
+          flush=True)
+    codec_phase(card)
+
+    # 10. Streaming DiLoCo on the flagship.
+    print(f"DiLoCo: lighthouse + 2 groups, flagship config, StreamingDiLoCo(sync_every="
+          f"{DILOCO_SYNC_EVERY}, codec='int8'), group 1 heals into round "
+          f"{DILOCO_SOLO_ROUNDS + 1}", flush=True)
+    diloco_launches = diloco_phase(card)
+
+    # 11. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -1264,6 +1774,7 @@ def main() -> int:
             "launches": launches[name],
             "launches_on": "rms_norm_pallas entry point" if name == "rms_norm"
                            else "flagship FT training",
+            "launches_diloco": diloco_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

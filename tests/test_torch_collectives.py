@@ -12,6 +12,14 @@
   of the native engine closes, and a reconfigure runs a fresh ring.
 - Engine selection: ``engine="native"`` raises where the engine cannot be
   built; ``"auto"`` warns once and runs the Python engine.
+- The int8 / int4 wire codecs: the quantizers and the nibble packing
+  bitwise equal to the JAX package's (NaN, infinities and all-zero inputs
+  included); codec allreduces in mixed rings on every engine pair at 1, 2
+  and 4 lanes, and port-only rings on either engine, bitwise equal to an
+  all-JAX Python-engine ring; ``wire_nbytes`` at most 0.27x (int8) and
+  0.13x (int4) the f32 wire; integer payloads and unknown codecs refused.
+  bf16 tensors off the bf16 wire sum in bf16 as the JAX engine's
+  ``ml_dtypes`` arrays do.
 
 Payloads are small with ``chunk_bytes=4 << 10``, so the striped paths run
 several stripes.
@@ -72,9 +80,10 @@ def _make(kind: str, engine: str, lanes: int, wire: str, jax_collectives, timeou
                          engine=engine, host=HOST)
 
 
-def _run_ring(store, cols) -> Dict[int, dict]:
+def _run_ring(store, cols, codec=None) -> Dict[int, dict]:
     """Configures ``cols`` as one ring and runs sum and avg over every
-    payload on each rank; returns {rank: {"out": [...], "engine": ...}}."""
+    payload on each rank (under ``codec`` when given); returns {rank:
+    {"out": [...], "engine": ...}}."""
     prefix = f"mixed/{next(_PREFIX)}"
     world = len(cols)
     out: Dict[int, dict] = {}
@@ -83,9 +92,11 @@ def _run_ring(store, cols) -> Dict[int, dict]:
         c = cols[rank]
         c.configure(f"{store.address()}/{prefix}", rank, world)
         got: List[np.ndarray] = []
+        kwargs = {} if codec is None else {"wire_codec": codec}
         for arrays in _payloads(rank):
             for op in ("sum", "avg"):
-                got += [np.asarray(a) for a in c.allreduce(arrays, op=op).wait(timeout=30)]
+                got += [np.asarray(a) for a in
+                        c.allreduce(arrays, op=op, **kwargs).wait(timeout=30)]
         out[rank] = {"out": got, "engine": c.ring_engine}
 
     try:
@@ -353,3 +364,152 @@ def test_ring_engine_counters_and_detach(store) -> None:
     finally:
         for c in cols:
             c.shutdown()
+
+
+# -- the int8 / int4 wire codecs ---------------------------------------------------
+
+
+def _codec_inputs() -> List[np.ndarray]:
+    """Seeded normals at several scales, an odd length, the non-finite
+    values the quantizers special-case, and an all-zero chunk."""
+    rng = np.random.default_rng(7)
+    out = [(rng.standard_normal(n) * s).astype(np.float32)
+           for n, s in ((1, 1.0), (7, 1e-3), (4097, 3.0), (10_000, 1e4))]
+    special = rng.standard_normal(64).astype(np.float32)
+    special[[3, 17, 40]] = [np.nan, np.inf, -np.inf]
+    out += [special, np.array([np.nan, 1.0, -2.0], np.float32),
+            np.array([np.inf, 5.0], np.float32), np.zeros(33, np.float32),
+            np.array([], np.float32), rng.standard_normal(300)]  # the last one f64
+    return out
+
+
+@pytest.mark.parametrize("which", ["int8", "int4"])
+def test_quantizers_and_nibble_packing_bitwise_equal_the_jax_package(jax_collectives,
+                                                                     which) -> None:
+    port_q = C.quantize_int8 if which == "int8" else C.quantize_int4
+    ref_q = (jax_collectives.quantize_int8 if which == "int8"
+             else jax_collectives.quantize_int4)
+    for x in _codec_inputs():
+        with np.errstate(invalid="ignore"):
+            s_port, q_port = port_q(x)
+            s_ref, q_ref = ref_q(x)
+        assert s_port == s_ref and np.float32(s_port) == np.float32(s_ref)
+        assert q_port.dtype == q_ref.dtype == np.int8
+        np.testing.assert_array_equal(q_port, q_ref)
+        packed = C.pack_int4(np.clip(q_port, -7, 7))
+        np.testing.assert_array_equal(packed, jax_collectives.pack_int4(np.clip(q_ref, -7, 7)))
+        np.testing.assert_array_equal(C.unpack_int4(packed.tobytes(), q_port.size),
+                                      jax_collectives.unpack_int4(packed.tobytes(), q_ref.size))
+        np.testing.assert_array_equal(C.unpack_int4(packed.tobytes(), q_port.size),
+                                      np.clip(q_port, -7, 7))
+
+
+_CODEC_REFERENCE: Dict[tuple, Dict[int, dict]] = {}
+
+
+def _all_jax_py_codec(store, lanes: int, codec: str, jax_collectives) -> Dict[int, dict]:
+    key = (lanes, codec)
+    if key not in _CODEC_REFERENCE:
+        _CODEC_REFERENCE[key] = _run_ring(
+            store, [_make("jax", "py", lanes, "f32", jax_collectives) for _ in range(2)],
+            codec=codec)
+    return _CODEC_REFERENCE[key]
+
+
+@pytest.mark.parametrize("port_rank", [0, 1])
+@pytest.mark.parametrize("jax_engine, port_engine",
+                         [("py", "py"), ("py", "native"), ("native", "py"), ("native", "native")])
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_mixed_jax_and_port_ring_codec_bitwise(store, jax_collectives, lanes, codec, jax_engine,
+                                               port_engine, port_rank) -> None:
+    ref = _all_jax_py_codec(store, lanes, codec, jax_collectives)
+    cols = [_make("jax", jax_engine, lanes, "f32", jax_collectives) for _ in range(2)]
+    cols[port_rank] = _make("port", port_engine, lanes, "f32", jax_collectives)
+    got = _run_ring(store, cols, codec=codec)
+    assert got[port_rank]["engine"] == port_engine
+    for rank in range(2):
+        _assert_bitwise(ref[rank]["out"], got[rank]["out"],
+                        f"lanes={lanes} codec={codec} jax={jax_engine} port={port_engine} "
+                        f"port_rank={port_rank} rank={rank}")
+
+
+@pytest.mark.parametrize("world, lanes", [(2, 1), (2, 2), (2, 4), (3, 2)])
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+def test_port_codec_native_engine_bitwise_equals_python_engine(store, world, lanes,
+                                                               codec) -> None:
+    outs = {}
+    for engine in ("py", "native"):
+        got = _run_ring(store, [_make("port", engine, lanes, "bf16", None) for _ in range(world)],
+                        codec=codec)
+        assert {r["engine"] for r in got.values()} == {engine}
+        outs[engine] = got
+    for rank in range(world):
+        _assert_bitwise(outs["py"][rank]["out"], outs["native"][rank]["out"],
+                        f"world={world} lanes={lanes} codec={codec} rank={rank}")
+        _assert_bitwise(outs["native"][0]["out"], outs["native"][rank]["out"], f"rank={rank}")
+    # The codec supersedes the bf16 wire, and the sums stay near the exact ones.
+    exact = [sum(_payloads(r)[0][0].astype(np.float64) for r in range(world))]
+    err = np.abs(outs["native"][0]["out"][0] - exact[0])
+    tol = (2 ** -6 if codec == "int8" else 0.5) * world * np.abs(exact[0]).max()
+    assert err.max() <= tol, (err.max(), tol)
+
+
+def test_codec_wire_nbytes_contract_and_integer_refusal(jax_collectives) -> None:
+    port = TCPCollective(host=HOST)
+    ref = jax_collectives.TCPCollective()
+    assert tuple(port.wire_codecs) == tuple(ref.wire_codecs) == ("int8", "int4")
+    for n in (1, 2, 4097, 1 << 20):
+        x = np.zeros(n, np.float32)
+        for codec in ("int8", "int4"):
+            assert port.wire_nbytes(x, True, codec) == ref.wire_nbytes(x, True, codec)
+            assert port.wire_nbytes(torch.from_numpy(x), True, codec) == \
+                ref.wire_nbytes(x, True, codec)
+        assert port.wire_nbytes(np.zeros(5, np.int32), True, "int8") == 20  # integers: raw
+    big = np.zeros(1 << 20, np.float32)
+    assert port.wire_nbytes(big, True, "int8") <= 0.27 * big.nbytes
+    assert port.wire_nbytes(big, True, "int4") <= 0.13 * big.nbytes
+    for bad, match in (([np.arange(4, dtype=np.int64)], "floating"),
+                       ([torch.arange(4)], "floating"),
+                       ([np.zeros(4, np.float32), np.arange(4, dtype=np.int32)], "floating")):
+        exc = port.allreduce(bad, wire_codec="int8").exception(timeout=5)
+        assert isinstance(exc, ValueError) and match in str(exc)
+    exc = port.allreduce([np.zeros(4, np.float32)], wire_codec="fp8").exception(timeout=5)
+    assert isinstance(exc, ValueError) and "unsupported wire_codec" in str(exc)
+    assert C.DummyCollective().allreduce([np.ones(2, np.float32)], wire_codec="int4").wait()
+
+
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_bf16_tensors_off_the_bf16_wire_sum_in_bf16_as_ml_dtypes_arrays(store, jax_collectives,
+                                                                        codec) -> None:
+    """A bf16 payload on the f32 wire rides raw bf16 frames (or codec
+    frames) and sums in bf16 on both packages' engines."""
+    import ml_dtypes
+
+    base = [np.linspace(-3, 3, 5001, dtype=np.float32) * (r + 1) + 1e-3 * r for r in range(2)]
+    results = {}
+    for kind in ("jax", "port"):
+        cols = [_make(kind, "native", 2, "f32", jax_collectives) for _ in range(2)]
+        prefix = f"bf16acc/{next(_PREFIX)}"
+
+        def worker(rank: int, cols=cols, kind=kind, prefix=prefix) -> np.ndarray:
+            cols[rank].configure(f"{store.address()}/{prefix}", rank, 2)
+            bits = base[rank].astype(ml_dtypes.bfloat16)
+            arg = (bits if kind == "jax"
+                   else torch.from_numpy(bits.view(np.uint16).view(np.int16)).view(torch.bfloat16))
+            kwargs = {} if codec is None else {"wire_codec": codec}
+            (out,) = cols[rank].allreduce([arg], op="avg", **kwargs).wait(timeout=30)
+            if kind == "port":
+                assert out.dtype == torch.bfloat16
+                return out.view(torch.int16).numpy().view(np.uint16)
+            return np.asarray(out).view(np.uint16)
+
+        try:
+            with ThreadPoolExecutor(max_workers=2) as pool:
+                results[kind] = [f.result(timeout=60) for f in
+                                 [pool.submit(worker, r) for r in range(2)]]
+        finally:
+            for c in cols:
+                c.shutdown()
+    for rank in range(2):
+        np.testing.assert_array_equal(results["port"][rank], results["jax"][rank])

@@ -565,9 +565,9 @@ class RingEngine:
 
     Owns dup()'d copies of :class:`~torchft_tpu_torch.collectives.TCPCollective`'s
     lane sockets and runs the per-hop hot loop natively: scatter-gather
-    socket I/O over the caller's f32 buffers, the tag demux, and the bf16
-    wire codec, with the same frames, codec bytes and combine order as the
-    Python engine (the two interoperate on one ring, and with the JAX
+    socket I/O over the caller's f32 buffers, the tag demux, and the bf16,
+    int8 and int4 wire codecs, with the same frames, codec bytes and combine
+    order as the Python engine (the two interoperate on one ring, and with the JAX
     package's engines).  Every call releases the GIL for its whole duration
     (ctypes), which is the point: a striped allreduce does no interpreter
     work on the wire path.  Direction 0 is next (sends), 1 prev (receives).
@@ -579,6 +579,8 @@ class RingEngine:
     OP_SUM = 0
     WIRE_RAW = 0
     WIRE_BF16 = 1
+    WIRE_INT8 = 2
+    WIRE_INT4 = 3
 
     def __init__(self, lanes: int) -> None:
         reason = ring_engine_unavailable_reason()

@@ -26,7 +26,15 @@ engine:
 * the f32 wire sends the payload's bytes; the bf16 wire rounds each hop's
   chunk to bfloat16 (nearest even) and accumulates in float32, and each
   allgather owner encodes its chunk once, so every rank decodes the same
-  bits.
+  bits;
+* a per-call ``wire_codec`` (:data:`WIRE_CODECS`) frames each hop's chunk as
+  a 4-byte f32 scale and symmetric int8 values (scale = chunk amax / 127) or
+  packed signed nibbles (amax / 7), accumulating in the payload's dtype, on
+  either engine (``native/src/ring.cc``'s ``Int8Encode`` / ``Int4Encode``
+  emit the same bytes as :func:`quantize_int8` / :func:`pack_int4`);
+* bf16 payloads off the bf16 wire ride raw bf16 frames and accumulate in
+  bf16 (each sum rounded to nearest even), as ``ml_dtypes`` arrays do in
+  the JAX engine.
 
 Both engines record every hop into the JAX package's data-plane flight
 recorder: per-tier stall aggregates, and a sampled, bounded timeline of
@@ -36,14 +44,15 @@ reads the current configuration's counters (they restart at every
 ``configure``) and :meth:`TCPCollective.lane_totals` the monotonic totals
 across reconfigures.
 
-Not ported yet: the 2-D topology, shm lanes, the int8/int4 codecs, link
-shaping, incremental reconfiguration, and the ops other than allreduce.
+Not ported yet: the 2-D topology, shm lanes, link shaping, incremental
+reconfiguration, and the ops other than allreduce.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import math
 import os
 import socket
 import struct
@@ -61,12 +70,14 @@ from torchft_tpu_torch._native import StoreClient
 from torchft_tpu_torch.futures import completed_future, failed_future
 
 __all__ = ["Work", "Collective", "DummyCollective", "TCPCollective", "HopRecorder",
-           "HOP_RECORD_FIELDS", "bf16_encode", "bf16_decode"]
+           "HOP_RECORD_FIELDS", "WIRE_CODECS", "bf16_encode", "bf16_decode", "quantize_int8",
+           "quantize_int4", "pack_int4", "unpack_int4"]
 
 logger = logging.getLogger("torchft_tpu_torch.collectives")
 
 _HDR = struct.Struct("<IQ")  # tag, nbytes
 _PREAMBLE = struct.Struct("<III")  # rank, channel, lane
+_SCALE = struct.Struct("<f")  # the int8 / int4 frames' per-chunk scale
 _CH_RING = 0
 # Tag space: seq * _TAGS_PER_OP + stripe * _TAGS_PER_STRIPE + subtag, the
 # JAX engine's layout (its 2-D tiers' subtags 3-5 stay unused here).
@@ -220,6 +231,71 @@ def bf16_decode(bits: np.ndarray) -> np.ndarray:
     return (np.asarray(bits, dtype=np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16, kept as float32."""
+    return bf16_decode(bf16_encode(x))
+
+
+# Per-call wire codecs (TCPCollective.allreduce(wire_codec=...)), the JAX
+# package's: "int8" frames a chunk as its f32 scale (amax / 127) and int8
+# values, ~0.25x the f32 wire; "int4" as its scale (amax / 7) and signed
+# nibbles two to a byte, ~0.125x.  Lossy per hop like the bf16 wire; meant
+# for payloads with an error-feedback loop at the source (the semisync
+# pseudogradients), never for raw weights.
+WIRE_CODECS = ("int8", "int4")
+
+
+def _quantize(x: np.ndarray, qmax: int):
+    x = np.asarray(x)
+    if x.dtype != np.float32:
+        x = x.astype(np.float32)
+    amax = float(np.max(np.abs(x))) if x.size else 0.0
+    scale = amax / float(qmax) if (amax > 0.0 and math.isfinite(amax)) else 1.0
+    q = np.clip(np.rint(np.nan_to_num(x / scale, nan=0.0)), -qmax, qmax).astype(np.int8)
+    return scale, q
+
+
+def quantize_int8(x: np.ndarray):
+    """``(scale, q)``: the symmetric int8 quantizer, scale = amax / 127,
+    round to nearest even, clipped to [-127, 127].  A non-finite amax falls
+    back to scale 1; inf elements saturate to +/-127 and NaN elements encode
+    as 0 (the wire cannot carry NaN).  The JAX package's, bit for bit; the
+    semisync codec's device encoder is its torch twin."""
+    return _quantize(x, 127)
+
+
+def quantize_int4(x: np.ndarray):
+    """``(scale, q)``: the symmetric int4 quantizer, scale = amax / 7,
+    clipped to [-7, 7]; ``q`` is int8-typed and :func:`pack_int4` packs it.
+    The non-finite rules of :func:`quantize_int8`."""
+    return _quantize(x, 7)
+
+
+def pack_int4(q: np.ndarray) -> np.ndarray:
+    """Packs signed nibbles (int8 in [-7, 7]) two to a byte: element 2i in
+    the low nibble, 2i+1 in the high one, two's complement; an odd tail
+    leaves the last high nibble 0 (``native/src/ring.cc``'s layout)."""
+    u = (q.astype(np.int16) & 0xF).astype(np.uint8)
+    if u.size % 2:
+        u = np.concatenate([u, np.zeros(1, dtype=np.uint8)])
+    return (u[0::2] | (u[1::2] << 4)).astype(np.uint8)
+
+
+def unpack_int4(raw, n: int) -> np.ndarray:
+    """The first ``n`` signed int8 values of a packed nibble stream."""
+    b = np.frombuffer(raw, dtype=np.uint8)
+    nib = np.empty(b.size * 2, dtype=np.int16)
+    nib[0::2] = b & 0xF
+    nib[1::2] = b >> 4
+    return ((nib[:n] ^ 8) - 8).astype(np.int8)
+
+
+def _is_floating(a: Any) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.is_floating_point()
+    return np.issubdtype(np.asarray(a).dtype, np.floating)
+
+
 class Work:
     """Handle for an asynchronous collective operation."""
 
@@ -246,7 +322,8 @@ class Collective(ABC):
 
     @abstractmethod
     def allreduce(self, arrays: Sequence[Any], op: str = "sum",
-                  allow_wire_compression: bool = True, donate: bool = False) -> Work:
+                  allow_wire_compression: bool = True, donate: bool = False,
+                  wire_codec: Optional[str] = None) -> Work:
         """Elementwise sum (or average) across ranks; the Work resolves to
         the list of reduced arrays."""
 
@@ -270,6 +347,8 @@ class Collective(ABC):
 class DummyCollective(Collective):
     """World-size-1 collective: copies inputs to outputs at once."""
 
+    wire_codecs = WIRE_CODECS  # accepted, and moot at world size 1
+
     def __init__(self, rank: int = 0, world_size: int = 1) -> None:
         self._rank = rank
         self._world_size = world_size
@@ -279,7 +358,8 @@ class DummyCollective(Collective):
         self._world_size = world_size
 
     def allreduce(self, arrays: Sequence[Any], op: str = "sum",
-                  allow_wire_compression: bool = True, donate: bool = False) -> Work:
+                  allow_wire_compression: bool = True, donate: bool = False,
+                  wire_codec: Optional[str] = None) -> Work:
         return Work(completed_future([
             a.clone() if isinstance(a, torch.Tensor) else np.array(a, copy=True) for a in arrays
         ]))
@@ -379,8 +459,8 @@ def _listen(host: str) -> socket.socket:
 
 class _Payload:
     """One allreduce's inputs as numpy, and the way back to the caller's
-    types.  Inputs are numpy arrays or CPU torch tensors; a bf16 tensor is
-    carried as float32 (exact) and rides the bf16 wire only."""
+    types.  Inputs are numpy arrays or CPU torch tensors; bf16 tensors are
+    carried as float32 (exact)."""
 
     def __init__(self, arrays: Sequence[Any]) -> None:
         self.kinds: List[str] = []
@@ -539,15 +619,25 @@ class TCPCollective(Collective):
         """The resolved wire encoding, ``"f32"`` or ``"bf16"``."""
         return self._wire_dtype
 
-    def wire_nbytes(self, array: Any, allow_wire_compression: bool = True) -> int:
-        """Bytes ``array`` occupies per hop on the ring's wire."""
+    # The per-call wire codecs this collective's allreduce accepts.
+    wire_codecs = WIRE_CODECS
+
+    def wire_nbytes(self, array: Any, allow_wire_compression: bool = True,
+                    wire_codec: Optional[str] = None) -> int:
+        """Bytes ``array`` occupies per hop on the ring's wire: under
+        ``wire_codec="int8"`` a floating payload counts a byte an element
+        plus the 4-byte scale, under ``"int4"`` its packed nibbles plus the
+        scale."""
         if isinstance(array, torch.Tensor):
             size, itemsize = array.numel(), array.element_size()
-            floating = array.is_floating_point()
         else:
             array = np.asarray(array)
             size, itemsize = array.size, array.itemsize
-            floating = np.issubdtype(array.dtype, np.floating)
+        floating = _is_floating(array)
+        if floating and wire_codec == "int8":
+            return size + _SCALE.size
+        if floating and wire_codec == "int4":
+            return (size + 1) // 2 + _SCALE.size
         if floating and allow_wire_compression and self._wire_dtype == "bf16":
             return 2 * size
         return size * itemsize
@@ -816,19 +906,32 @@ class TCPCollective(Collective):
     # -- allreduce ------------------------------------------------------------
 
     def allreduce(self, arrays: Sequence[Any], op: str = "sum",
-                  allow_wire_compression: bool = True, donate: bool = False) -> Work:
+                  allow_wire_compression: bool = True, donate: bool = False,
+                  wire_codec: Optional[str] = None) -> Work:
         """Sum (or average) of ``arrays`` (numpy arrays or CPU tensors)
         across ranks; the Work resolves to the reduced arrays, of the
         inputs' types, dtypes and shapes.
 
         ``allow_wire_compression=False`` keeps this call on full width under
-        the bf16 wire.  ``donate=True`` hands the buffers to the op: the
-        native engine then reduces in place over them, so the results may
-        alias the inputs (the Python engine never mutates its inputs)."""
+        the bf16 wire.  ``wire_codec`` (one of :data:`WIRE_CODECS`, floating
+        inputs only) frames every hop as int8 or int4 with a per-chunk
+        scale, on either wire.  ``donate=True`` hands the buffers to the op:
+        the native engine then reduces in place over them, so the results
+        may alias the inputs (the Python engine never mutates its inputs)."""
         if op not in _REDUCE_OPS:
             return Work(failed_future(ValueError(
                 f"unsupported reduce op {op!r}; expected one of {_REDUCE_OPS}"
             )))
+        if wire_codec is not None:
+            if wire_codec not in WIRE_CODECS:
+                return Work(failed_future(ValueError(
+                    f"unsupported wire_codec {wire_codec!r}; expected one of {WIRE_CODECS}"
+                )))
+            # Quantizing integers would corrupt them: codecs are float-only.
+            if not all(_is_floating(a) for a in arrays):
+                return Work(failed_future(ValueError(
+                    f"wire_codec={wire_codec!r} requires floating inputs"
+                )))
         try:
             payload = _Payload(arrays)
         except ValueError as e:
@@ -838,38 +941,39 @@ class TCPCollective(Collective):
                 a if kind != "numpy" else arr
                 for a, arr, kind in zip(arrays, payload.arrays, payload.kinds)
             ]))
-        if payload.bf16 and not (allow_wire_compression and self._wire_dtype == "bf16"):
-            return Work(failed_future(ValueError(
-                "allreduce: bf16 tensors ride the bf16 wire only (wire_dtype='bf16', "
-                "allow_wire_compression=True)"
-            )))
         with self._lock:
             seq = self._op_seq
             self._op_seq += 1
+        wire = self._wire_for(payload, allow_wire_compression and wire_codec is None, wire_codec)
         if self._lanes > 1:
-            return self._striped_allreduce(payload, op, allow_wire_compression, seq, donate)
-        return self._submit(
-            lambda: self._ring_allreduce(payload, op, allow_wire_compression, seq, donate)
-        )
+            return self._striped_allreduce(payload, op, wire, seq, donate)
+        return self._submit(lambda: self._ring_allreduce(payload, op, wire, seq, donate))
 
     def _tag_base(self, seq: int, stripe: int = 0) -> int:
         return (seq * _TAGS_PER_OP + stripe * _TAGS_PER_STRIPE) & 0x7FFFFFFF
 
-    def _wire_for(self, payload: _Payload, allow_wire_compression: bool) -> bool:
-        """Whether this op rides the bf16 wire: compression allowed and
-        configured, and every input floating (an integer array in the call
-        must not be rounded)."""
-        if not (allow_wire_compression and self._wire_dtype == "bf16"):
-            return False
-        return payload.bf16 or all(np.issubdtype(a.dtype, np.floating) for a in payload.arrays)
+    def _wire_for(self, payload: _Payload, allow_wire_compression: bool,
+                  codec: Optional[str]) -> "_Wire":
+        """How this op's hops encode: under a codec, its frames; else the
+        bf16 wire when compression is allowed and configured and every
+        input is floating (an integer array in the call must not be
+        rounded), with float32 sums; else the payload's own bytes, with
+        sums in its dtype (bf16 payloads: rounded to bf16 after each)."""
+        bf16_wire = (allow_wire_compression and self._wire_dtype == "bf16"
+                     and (payload.bf16
+                          or all(np.issubdtype(a.dtype, np.floating) for a in payload.arrays)))
+        return _Wire(codec, bf16_wire, payload.bf16 and not bf16_wire)
 
-    def _native_wire_mode(self, flat: np.ndarray, bf16_wire: bool) -> Optional[int]:
+    def _native_wire_mode(self, flat: np.ndarray, wire: "_Wire") -> Optional[int]:
         """The native engine's wire mode for this op, or None where the
-        Python hops run it (no engine, or an accumulation dtype other than
+        Python hops run it (no engine, or sums in a dtype other than
         float32)."""
-        if self._engine is None or flat.dtype != np.float32:
+        if self._engine is None or flat.dtype != np.float32 or wire.bf16_acc:
             return None
-        return _native.RingEngine.WIRE_BF16 if bf16_wire else _native.RingEngine.WIRE_RAW
+        if wire.codec is not None:
+            return {"int8": _native.RingEngine.WIRE_INT8,
+                    "int4": _native.RingEngine.WIRE_INT4}[wire.codec]
+        return _native.RingEngine.WIRE_BF16 if wire.bf16_wire else _native.RingEngine.WIRE_RAW
 
     @staticmethod
     def _native_buffer(flat: np.ndarray, payload: _Payload, donate: bool) -> np.ndarray:
@@ -897,13 +1001,12 @@ class TCPCollective(Collective):
             self._latch(e)
             return Work(failed_future(e))
 
-    def _ring_allreduce(self, payload: _Payload, op: str, allow_wire_compression: bool,
-                        seq: int, donate: bool) -> List[Any]:
+    def _ring_allreduce(self, payload: _Payload, op: str, wire: "_Wire", seq: int,
+                        donate: bool) -> List[Any]:
         """The lanes == 1 path: one whole-chunk ring pass on lane 0."""
         n = self._world_size
         flat = payload.flat()
-        bf16_wire = self._wire_for(payload, allow_wire_compression)
-        mode = self._native_wire_mode(flat, bf16_wire)
+        mode = self._native_wire_mode(flat, wire)
         if mode is not None:
             buf = self._native_buffer(flat, payload, donate)
             views = np.array_split(buf, n)
@@ -916,7 +1019,7 @@ class TCPCollective(Collective):
                 [v.ctypes.data for v in views], [v.size for v in views], self._timeout,
             )
             return self._finish(buf, payload, op)
-        chunks = self._ring_rs_ag(np.array_split(flat, n), bf16_wire, 0, self._tag_base(seq))
+        chunks = self._ring_rs_ag(np.array_split(flat, n), wire, 0, self._tag_base(seq))
         return self._finish(np.concatenate(chunks), payload, op)
 
     def _finish(self, out_flat: np.ndarray, payload: _Payload, op: str) -> List[Any]:
@@ -934,17 +1037,16 @@ class TCPCollective(Collective):
         s = -(-s // self._lanes) * self._lanes
         return min(s, _MAX_STRIPES - _MAX_STRIPES % self._lanes)
 
-    def _striped_allreduce(self, payload: _Payload, op: str, allow_wire_compression: bool,
-                           seq: int, donate: bool) -> Work:
+    def _striped_allreduce(self, payload: _Payload, op: str, wire: "_Wire", seq: int,
+                           donate: bool) -> Work:
         n = self._world_size
         try:
             flat = payload.flat()
-            bf16_wire = self._wire_for(payload, allow_wire_compression)
             # From the caller's payload, not the working copy: every engine,
             # in either package, carves the same stripes.
             max_chunk = -(-flat.size // n) * payload.itemsize()
             nstripes = self._stripe_count(max_chunk)
-            mode = self._native_wire_mode(flat, bf16_wire)
+            mode = self._native_wire_mode(flat, wire)
             if mode is not None:
                 flat = buf = self._native_buffer(flat, payload, donate)
             sub = [np.array_split(c, nstripes) for c in np.array_split(flat, n)]
@@ -972,7 +1074,7 @@ class TCPCollective(Collective):
             return self._run_striped(1, native_body, lambda _r: self._finish(buf, payload, op))
 
         def py_body(s: int) -> List[np.ndarray]:
-            return self._ring_rs_ag([sub[i][s] for i in range(n)], bf16_wire, s % self._lanes,
+            return self._ring_rs_ag([sub[i][s] for i in range(n)], wire, s % self._lanes,
                                     self._tag_base(seq, s))
 
         def assemble(results: List[Any]) -> List[Any]:
@@ -1091,25 +1193,18 @@ class TCPCollective(Collective):
         self._hops.record(0, lane, tag, hop["send_s"], hop["recv_s"], comb_s, hop["nbytes"],
                           hop["ts"])
 
-    def _ring_rs_ag(self, chunks: List[np.ndarray], bf16_wire: bool, lane: int,
+    def _ring_rs_ag(self, chunks: List[np.ndarray], wire: "_Wire", lane: int,
                     tag_base: int) -> List[np.ndarray]:
         """One ring pass (reduce-scatter, then allgather) over one array per
         rank slot, in the JAX engine's hop order.  On the bf16 wire each
         reduce-scatter hop rounds the chunk it sends and the sum stays in
-        float32; in the allgather each owner encodes its chunk once and the
-        others forward those bytes, so every rank decodes the same bits."""
+        float32; under a codec each hop quantizes the chunk it sends with
+        its own scale and sums the decoded values.  On an encoding wire, in
+        the allgather each owner encodes its chunk once and the others
+        forward those bytes, so every rank decodes the same bits."""
         n, rank = self._world_size, self._rank
         chunks = list(chunks)
-        dtype = chunks[0].dtype
-
-        def encode(chunk: np.ndarray) -> memoryview:
-            raw = bf16_encode(chunk) if bf16_wire else np.ascontiguousarray(chunk)
-            return memoryview(raw.reshape(-1).view(np.uint8))
-
-        def decode(raw) -> np.ndarray:
-            if bf16_wire:
-                return bf16_decode(np.frombuffer(raw, dtype=np.uint16))
-            return np.frombuffer(raw, dtype=dtype)
+        encode, decode, combine = wire.codec_fns(chunks[0].dtype)
 
         # Reduce-scatter: after n-1 steps chunk (rank+1) % n is fully summed.
         for step in range(n - 1):
@@ -1117,11 +1212,11 @@ class TCPCollective(Collective):
             hop: dict = {}
             raw = self._exchange(tag_base + _SUB_RS, encode(chunks[send_idx]), lane, hop)
             t_comb = time.monotonic()
-            chunks[recv_idx] = np.add(chunks[recv_idx], decode(raw))
+            chunks[recv_idx] = combine(chunks[recv_idx], decode(raw, chunks[recv_idx].size))
             self._record_hop(lane, tag_base + _SUB_RS, hop, time.monotonic() - t_comb)
         # Allgather: the owned chunks circulate until every rank has all n.
         tag = tag_base + _SUB_AG
-        if bf16_wire:
+        if wire.encodes:
             own = (rank + 1) % n
             raws: List[Any] = [None] * n
             raws[own] = bytes(encode(chunks[own]))
@@ -1130,10 +1225,74 @@ class TCPCollective(Collective):
                 hop = {}
                 raws[recv_idx] = self._exchange(tag, memoryview(raws[send_idx]), lane, hop)
                 self._record_hop(lane, tag, hop)
-            return [decode(r) for r in raws]
+            return [decode(r, c.size) for r, c in zip(raws, chunks)]
         for step in range(n - 1):
             send_idx, recv_idx = (rank - step + 1) % n, (rank - step) % n
             hop = {}
-            chunks[recv_idx] = decode(self._exchange(tag, encode(chunks[send_idx]), lane, hop))
+            raw = self._exchange(tag, encode(chunks[send_idx]), lane, hop)
+            chunks[recv_idx] = decode(raw, chunks[recv_idx].size)
             self._record_hop(lane, tag, hop)
         return chunks
+
+
+class _Wire:
+    """One allreduce's hop encoding: a codec (``"int8"``/``"int4"``), the
+    bf16 wire (float32 sums), bf16 sums of raw bf16 frames (a bf16 payload
+    off the bf16 wire), or raw bytes in the payload's dtype."""
+
+    def __init__(self, codec: Optional[str], bf16_wire: bool, bf16_acc: bool) -> None:
+        self.codec = codec
+        self.bf16_wire = bf16_wire and codec is None
+        self.bf16_acc = bf16_acc
+
+    @property
+    def encodes(self) -> bool:
+        """Whether hops re-encode (so allgather owners encode once)."""
+        return self.codec is not None or self.bf16_wire
+
+    def codec_fns(self, dtype: np.dtype):
+        """(encode(chunk) -> bytes-like, decode(raw, n) -> array in the sum
+        dtype, combine(acc, incoming)) for chunks of ``dtype``."""
+        bf16_acc = self.bf16_acc
+
+        def cast(x: np.ndarray) -> np.ndarray:
+            # Into the sum dtype: bf16 sums hold bf16 values (as float32).
+            return _bf16_round(x) if bf16_acc else x.astype(dtype, copy=False)
+
+        def combine(acc: np.ndarray, incoming: np.ndarray) -> np.ndarray:
+            out = np.add(acc, incoming)
+            return _bf16_round(out) if bf16_acc else out
+
+        if self.codec is not None:
+            qmax = 127 if self.codec == "int8" else 7
+
+            def encode(chunk: np.ndarray) -> memoryview:
+                scale, q = _quantize(chunk, qmax)
+                body = q if qmax == 127 else pack_int4(q)
+                return memoryview(_SCALE.pack(scale) + body.tobytes())
+
+            def decode(raw, n: int) -> np.ndarray:
+                (scale,) = _SCALE.unpack_from(raw, 0)
+                body = memoryview(raw)[_SCALE.size:]
+                q = (np.frombuffer(body, dtype=np.int8) if qmax == 127
+                     else unpack_int4(body, n))
+                return cast(q.astype(np.float32) * np.float32(scale))
+
+            return encode, decode, combine
+
+        if self.bf16_wire or bf16_acc:
+            def encode(chunk: np.ndarray) -> memoryview:
+                return memoryview(bf16_encode(chunk).view(np.uint8))
+
+            def decode(raw, n: int) -> np.ndarray:
+                return bf16_decode(np.frombuffer(raw, dtype=np.uint16))
+
+            return encode, decode, combine
+
+        def encode(chunk: np.ndarray) -> memoryview:
+            return memoryview(np.ascontiguousarray(chunk).reshape(-1).view(np.uint8))
+
+        def decode(raw, n: int) -> np.ndarray:
+            return np.frombuffer(raw, dtype=dtype)
+
+        return encode, decode, combine

@@ -33,6 +33,10 @@ spans, as in the JAX averager: ``allreduce_d2h`` (a bucket's copy off the
 card), ``allreduce_merge`` (its ring) and ``allreduce_h2d`` (its copy back,
 and the final wait for the uploads), with the bytes noted onto the step in
 flight.  ``last_stats``' three waits are the sums of those spans' durations.
+
+:class:`PerLeafGradientAverager` is the JAX package's one-allreduce-per-
+tensor averager, and :func:`allreduce_pytree` the one-shot form of the
+bucket averager (on a list of tensors: torch has no pytrees).
 """
 
 from __future__ import annotations
@@ -271,3 +275,43 @@ class GradientAverager:
                 except TimeoutError as e:
                     manager.report_error(e)
             stats["h2d_s"] += sp.duration_ms / 1e3
+
+
+class PerLeafGradientAverager:
+    """One ``Manager.allreduce`` per tensor: simpler and slower than the
+    bucket averager, and functional (it returns new tensors).  LocalSGD
+    averages its parameters through it."""
+
+    def __init__(self, manager: Manager) -> None:
+        self._manager = manager
+
+    def allreduce(self, grads: Sequence[Any], allow_wire_compression: bool = True) -> List[Any]:
+        """The average across the participating groups of each tensor (or
+        numpy array) of ``grads``, each of its input's type and device; a
+        tensor whose allreduce failed comes back as itself (the error is
+        latched in the Manager)."""
+        leaves = list(grads)
+        if not leaves:
+            return leaves
+        manager = self._manager
+        # Settle the quorum once; alone in the ring the average is the input.
+        manager.wait_quorum()
+        if (manager.errored() is None and manager.collective().size() == 1
+                and manager.is_participating()):
+            return leaves
+        futs = [manager.allreduce(t, allow_wire_compression=allow_wire_compression)
+                for t in leaves]
+        with manager.spans.span("allreduce_merge", step=manager.current_step()):
+            results = [f.result() for f in futs]
+        # A stand-in manager may hand back host arrays: each result goes
+        # where its input was.
+        return [torch.as_tensor(r).to(t.device)
+                if isinstance(t, torch.Tensor) and not isinstance(r, torch.Tensor) else r
+                for t, r in zip(leaves, results)]
+
+
+def allreduce_pytree(manager: Manager, tensors: Sequence[torch.Tensor],
+                     bucket_bytes: int = 25 << 20,
+                     device_wire_prep: Optional[bool] = None) -> None:
+    """One-shot :meth:`GradientAverager.allreduce` of ``tensors``, in place."""
+    GradientAverager(manager, bucket_bytes, device_wire_prep=device_wire_prep).allreduce(tensors)

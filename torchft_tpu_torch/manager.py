@@ -29,10 +29,12 @@ lifecycle events (``quorum``, ``reconfigure``, ``membership_change``,
 and a ``step_summary`` follows each vote with the step's phases, its wall
 and busy time and its goodput-ledger causes.  The busy-time EWMA rides the
 lighthouse heartbeats (``set_status``) and the ledger's counters fields
-14-16 (``set_ledger``) whether or not a stream is written.  One difference
-from the JAX package: the port's HTTP transport takes the donor's snapshot
-synchronously on the quorum thread, so the train thread's wait for it is a
-``snapshot_wait`` span (charged, unlike the overlapped ``snapshot``).
+14-16 (``set_ledger``) whether or not a stream is written.  The donor's
+``send_checkpoint`` runs on the quorum thread under the train thread's CUDA
+stream (captured at ``start_quorum``), so the HTTP transport's device copy
+of the state is ordered before the step's optimizer update; the train
+thread's wait for that call is a ``snapshot_wait`` span (charged), the
+transport's background flatten the overlapped ``snapshot``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import threading
 import time
 import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import nullcontext
 from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, cast
 
@@ -82,7 +85,7 @@ def _divide(out: Any, num: int, in_place: bool) -> Any:
     if isinstance(out, torch.Tensor):
         if out.dtype == torch.bfloat16:
             return out.div_(num) if in_place else out / num
-        return torch.from_numpy(_divide(out.numpy(), num, in_place))
+        return torch.from_numpy(np.asarray(_divide(out.numpy(), num, in_place)))
     if in_place and out.flags.writeable and np.issubdtype(out.dtype, np.floating):
         return np.divide(out, num, out=out)
     return (out / num).astype(out.dtype, copy=False)
@@ -234,14 +237,24 @@ class Manager:
         self._link_prev: Optional[Dict[str, float]] = None
         self._link_ewma: Dict[str, float] = {}
         # The quorum thread's donor snapshot of the step in flight
-        # (monotonic start and end), which the train thread may wait for.
+        # (monotonic start and end), which the train thread may wait for,
+        # and the train thread's CUDA stream it is ordered on.
         self._snapshot_window: Optional[tuple] = None
+        self._train_stream: Optional[Any] = None
         if checkpoint_transport is not None and hasattr(checkpoint_transport,
                                                         "set_span_tracker"):
             checkpoint_transport.set_span_tracker(self._spans)
 
     def _log(self, level: int, msg: str) -> None:
         logger.log(level, f"[{self._replica_id}/{self._rank} - step {self._step}] {msg}")
+
+    def register_state_dict_fn(self, key: str, load: Callable[[Any], None],
+                               save: Callable[[], Any]) -> None:
+        """Registers a named state provider whose state travels with every
+        heal, saved on the donor and loaded on the healer (the semi-sync
+        wrappers register their outer state here)."""
+        self._load_state_dict_fns[key] = load
+        self._user_state_dicts[key] = save
 
     # -- quorum -------------------------------------------------------------
 
@@ -254,6 +267,9 @@ class Manager:
         self._healing = False
         self._pending_work = []
         self._snapshot_window = None
+        self._train_stream = (torch.cuda.current_stream()
+                              if torch.cuda.is_available() and torch.cuda.is_initialized()
+                              else None)
         with self._ar_lock:
             self._ar_bytes = 0
             self._ar_t_first = self._ar_t_last = None
@@ -356,11 +372,15 @@ class Manager:
                 self._log(logging.INFO, f"serving checkpoint at step {quorum.max_step} "
                           f"to replicas {serve_dsts}")
                 t_snap = time.monotonic()
-                transport.send_checkpoint(
-                    dst_ranks=serve_dsts, step=quorum.max_step,
-                    state_dict=self._manager_state_dict(),
-                    timeout=self._timeout.total_seconds(),
-                )
+                # On the train thread's stream: a transport's device copy of
+                # the state then precedes the step's in-place update.
+                stream = self._train_stream
+                with torch.cuda.stream(stream) if stream is not None else nullcontext():
+                    transport.send_checkpoint(
+                        dst_ranks=serve_dsts, step=quorum.max_step,
+                        state_dict=self._manager_state_dict(),
+                        timeout=self._timeout.total_seconds(),
+                    )
                 self._snapshot_window = (t_snap, time.monotonic())
             if quorum.heal:
                 self._healing = True
@@ -444,6 +464,7 @@ class Manager:
         tensor: Any,
         should_average: bool = True,
         allow_wire_compression: bool = True,
+        wire_codec: Optional[str] = None,
         donate: bool = False,
     ) -> Future:
         """Fault-tolerant sum (average by default) across replica groups.
@@ -457,7 +478,10 @@ class Manager:
         contributes zeros.
 
         ``allow_wire_compression=False`` keeps the call full width under a
-        bf16 wire.  ``donate=True`` hands a host buffer to the collective:
+        bf16 wire.  ``wire_codec`` (``"int8"`` or ``"int4"``, the
+        collective's ``wire_codecs``) quantizes every hop with a per-chunk
+        scale: the semisync pseudogradients' wire; it is passed on only
+        when set.  ``donate=True`` hands a host buffer to the collective:
         it may reduce (and average) in place and return the same storage;
         the caller must not read it again except through the result.
 
@@ -482,15 +506,17 @@ class Manager:
             host = torch.zeros_like(host) if isinstance(host, torch.Tensor) else np.zeros_like(host)
             owned = True
         wire_nbytes = getattr(self._collective, "wire_nbytes", None)
-        ar_nbytes = (int(wire_nbytes(host, allow_wire_compression)) if callable(wire_nbytes)
-                     else int(host.nbytes))
+        codec_arg = {} if wire_codec is None else {"wire_codec": wire_codec}
+        ar_nbytes = (int(wire_nbytes(host, allow_wire_compression, **codec_arg))
+                     if callable(wire_nbytes) else int(host.nbytes))
         with self._ar_lock:
             if self._ar_t_first is None:
                 self._ar_t_first = time.monotonic()
             self._ar_bytes += ar_nbytes
         try:
             work = self._collective.allreduce(
-                [host], op="sum", allow_wire_compression=allow_wire_compression, donate=owned
+                [host], op="sum", allow_wire_compression=allow_wire_compression, donate=owned,
+                **codec_arg,
             )
 
             def normalize(results: List[Any]) -> Any:
@@ -783,6 +809,10 @@ class Manager:
 
     def current_step(self) -> int:
         return self._step
+
+    def replica_id(self) -> str:
+        """This group's replica id (with its per-incarnation suffix)."""
+        return self._replica_id
 
     def batches_committed(self) -> int:
         return self._batches_committed
