@@ -63,6 +63,9 @@ result):
    split).  The donor's snapshot: asserted, it was flattened on the HTTP
    transport's background thread, and the train thread's
    ``snapshot_wait`` is under 10% of the ``snapshot`` span; printed, both.
+   The heal: asserted, a chunked fetch with every buffer checksum-verified
+   on a host with two cores or more; printed, its stripes, workers, GB/s
+   and checksum ms, and the donor's checksum stamp.
 6. Kill and heal: ``torchft_tpu_torch.launch``'s Launcher runs two groups
    of ``python -m torchft_tpu_torch.examples.train_ddp`` on the card with
    an embedded lighthouse; after group 0 has KILL_MERGED merged commits,
@@ -98,22 +101,45 @@ result):
    carried, the scale one ulp up).  Printed: CUDA-event ms of the device
    encode beside its bound, and the host encode's ms.
 10. DiLoCo: a lighthouse and two groups as processes on the card, each
-   training the flagship with AdamW inner steps through ``TrainStep``
+   training the flagship's width at DILOCO_LAYERS (6) of its 12 layers
+   with AdamW inner steps through ``TrainStep``
    under ``StreamingDiLoCo(sync_every=8, codec="int8")`` with the default
    4 MB fragments and a synchronous quorum; group 0 runs one round alone,
    group 1 joins, heals the weights, the AdamW state and the outer state,
    and both run two merged rounds.  Asserted: every round commits, every
    loss is finite, both groups end with one params_sha256 and one backup
-   hash, K1-K5 launch 12 / 12 / 12 / 1 / 1 times an inner step (counts set
+   hash, K1-K5 launch 6 / 6 / 6 / 1 / 1 times an inner step (counts set
    to 0 before the rounds and read after), the device codec path ran (int8
    bytes + 4 a fragment off the card), each round's wire bytes are at most
    0.27 of f32, the streams hold ``outer_sync`` spans and
    ``obs.trace.validate_trace`` is clean.  Printed: inner-step ms with a
    round in flight and in the solo round, the round boundary's and the
    outer apply's ms, the drain waits, wire and D2H bytes a round.
-11. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
-   the phase 5 run, and on the DiLoCo run as ``launches_diloco``), then
-   the last line, ``{"ok": true, "device": {...}}``.
+11. Healing: a lighthouse and three groups as processes on the card,
+   each training the flagship under the FT loop with the erasure-coded
+   plane (TPUFT_EC_K 2, TPUFT_EC_M 1: every committed state encoded on the
+   transports' snapshotters and placed over the groups).  (a) Groups 0 and
+   1 train merged; group 2 joins and heals striped from both; it then
+   fetches the same state once more as one /full stream, chunked from one
+   donor and striped from two, timed.  (b) Group 2 is SIGKILLed and
+   restarted with TPUFT_EC_MODE=prefer: it heals from the survivors'
+   shards.  (c) Group 2 is SIGKILLed and restarted on the donor path;
+   group 0's serving link is paced to HEAL_PACE_MBPS and group 0 is
+   SIGKILLed HEAL_KILL_DELAY_S after it began streaming a stripe.  Asserted: (a) two donors
+   each served stripes and every buffer's checksum was verified, with no
+   erasure fallback; (b) one ``ec_reconstruct``, no ``heal_start``, no
+   checkpoint request served by the donors; (c) the dead donor's stripes
+   failed over to the live one, with no erasure fallback; every merged
+   step ends with one params_sha256 on every group that committed it;
+   K1-K5 launch 12 / 12 / 12 / 1 / 1 times a step in every process.
+   Printed: the fetch modes' seconds and GB/s, the checksum stamp and
+   verify ms, the erasure encode and reconstruct ms, the failover heal's
+   seconds, each SIGKILL to group 2's first merged commit, each process's
+   peak device memory.
+12. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
+   the phase 5 run, on the DiLoCo run as ``launches_diloco`` and on the
+   healing run as ``launches_healing``), the run's seconds, then the last
+   line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -802,9 +828,12 @@ def run_group(args: argparse.Namespace) -> None:
         # 6 L S d (the JAX bench's model-FLOP count).
         "model_flops_per_step": (6 * n_params + 6 * cfg.n_layers * seq * cfg.d_model) * tokens,
     }
-    # The donor's snapshot, flattened on the transport's background thread.
+    # The donor's snapshot, flattened on the transport's background thread,
+    # and the healer's fetch.
     transport.wait_snapshot(timeout=GROUP_TIMEOUT_S)
     result["snapshot"] = dict(transport.last_snapshot)
+    result["fetch"] = dict(transport.last_fetch)
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     manager.shutdown()
     if group == 0:
         # The compute alone: TrainStep.full_step (forward, backward, AdamW;
@@ -912,6 +941,21 @@ def main_path(card: str) -> dict:
     if not (snap_ms > 0 and wait_ms < 0.1 * snap_ms):
         raise AssertionError(f"snapshot_wait {wait_ms:.3f} ms is not under 10% of the "
                              f"snapshot span {snap_ms:.3f} ms")
+    # The healer's fetch: one donor, chunked in parallel on a host with the
+    # cores (the receiver's choice), every buffer checksum-verified.
+    fetch = r1["fetch"]
+    n_bufs = fetch.get("crc_verified")
+    print(f"group 1 (healer): {fetch.get('mode')} fetch of {fetch.get('bytes', 0) / 1e9:.3f} GB "
+          f"from {fetch.get('n_donors')} donor in {fetch.get('fetch_s')} s = "
+          f"{fetch.get('bytes', 0) / 1e9 / max(fetch.get('fetch_s') or 1e-9, 1e-9):.3f} GB/s; "
+          f"{fetch.get('n_stripes')} stripes over {fetch.get('workers')} workers; "
+          f"{n_bufs} buffers checksum-verified in {fetch.get('crc_ms')} ms; the donor stamped "
+          f"them in {snap.get('crc_ms')} ms; peak device memory {r0['peak_mem_bytes'] / 2**30:.2f}"
+          f" / {r1['peak_mem_bytes'] / 2**30:.2f} GiB ({card})", flush=True)
+    if (os.cpu_count() or 1) >= 2 and (fetch.get("mode") != "chunked" or fetch.get("workers", 0) < 2
+                                       or not n_bufs):
+        raise AssertionError(f"the single-donor heal on a {os.cpu_count()}-core host was not a "
+                             f"checksummed chunked fetch: {fetch}")
     same = r0["params_sha256"] == PREVIOUS_PARAMS_SHA256
     print(f"params_sha256 {r0['params_sha256']}; previous tree's {PREVIOUS_PARAMS_SHA256}: "
           f"{'equal' if same else 'DIFFERENT'}", flush=True)
@@ -1377,6 +1421,19 @@ def codec_phase(card: str, device: str = "cuda") -> dict:
 # -- phase 10: Streaming DiLoCo on the flagship ----------------------------------
 
 DILOCO_SYNC_EVERY = 8   # inner steps a round
+# The DiLoCo path's depth: the flagship's width at half its 12 layers, cut
+# since PR 9 so the healing phase fits the run's time.
+DILOCO_LAYERS = 6
+
+
+def diloco_config():
+    """The flagship's (config, batch, seq) at DILOCO_LAYERS layers."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg, batch, seq = flagship_config()
+    return dataclasses.replace(cfg, n_layers=DILOCO_LAYERS), batch, seq
 DILOCO_SOLO_ROUNDS = 1  # rounds group 0 commits before group 1 starts
 DILOCO_ROUNDS = 3       # group 0's rounds in all; group 1 heals into the second
 
@@ -1393,7 +1450,7 @@ def run_diloco_group(args: argparse.Namespace) -> None:
     from torchft_tpu_torch.checkpointing import HTTPTransport
     from torchft_tpu_torch.collectives import TCPCollective
     from torchft_tpu_torch.manager import Manager
-    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.models import Transformer, loss_fn, resolve_device
     from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
     from torchft_tpu_torch.parallel import TrainStep
     from torchft_tpu_torch.semisync import StreamingDiLoCo, outer
@@ -1401,7 +1458,7 @@ def run_diloco_group(args: argparse.Namespace) -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format=f"[d{args.diloco_group}] %(message)s")
     group, run_dir = args.diloco_group, args.run_dir
-    cfg, batch, seq = flagship_config()
+    cfg, batch, seq = diloco_config()
     dev = resolve_device(args.device)
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(2000 + group))
@@ -1545,7 +1602,6 @@ def diloco_phase(card: str, device: str = "cuda") -> dict:
     AdamW state and the outer state, and both run to DILOCO_ROUNDS.
     Returns the K1-K5 launch counts of both groups' runs."""
     from torchft_tpu_torch._native import LighthouseServer
-    from torchft_tpu_torch.models import flagship_config
     from torchft_tpu_torch.obs import report, trace
 
     lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
@@ -1614,7 +1670,7 @@ def diloco_phase(card: str, device: str = "cuda") -> dict:
                                  f"expected {want[r['group']]}")
     if r0["params_sha256"] != r1["params_sha256"] or r0["backup_sha256"] != r1["backup_sha256"]:
         raise AssertionError("the DiLoCo groups' final parameters or backups differ")
-    cfg, _, _ = flagship_config()
+    cfg, _, _ = diloco_config()
     per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
     for r in (r0, r1):
@@ -1677,13 +1733,471 @@ def diloco_phase(card: str, device: str = "cuda") -> dict:
             for name in per_step}
 
 
+# -- phase 11: the healing plane on the flagship -----------------------------------
+
+HEAL_BATCH = 16          # per group; three groups share the card
+HEAL_MERGED = 2          # merged commits of every group between events
+HEAL_PACE_MBPS = 300.0   # group 0's serving link in the failover event
+HEAL_KILL_DELAY_S = 0.5  # from group 0's first paced stripe to its SIGKILL
+HEAL_TIMEOUT_S = 420.0
+HEAL_EC = {"TPUFT_EC_K": "2", "TPUFT_EC_M": "1"}
+
+
+def _read_int(path: str):
+    try:
+        with open(path) as f:
+            return int(f.read().strip())
+    except (OSError, ValueError):
+        return None
+
+
+def run_heal_group(args: argparse.Namespace) -> None:
+    """One replica group of the healing phase: the flagship under the FT
+    loop with the erasure-coded plane on (TPUFT_EC_K/M from the parent).
+    The parent steers it through files in the run directory: ``hold_<k>``
+    (hold at the top of that step until ``join_<k>``, groups 0 and 1),
+    ``pace_g0`` (group 0, held, paces its serving link to that many MB/s
+    and writes ``serving_g0`` once it starts streaming a stripe after that)
+    and ``stop`` (leave at that step).  A held group writes ``held_<k>_g<g>``;
+    group 2 waits for both before its first quorum request and writes
+    ``join_<incarnation>`` a grace after it.  Every step prints a STEP record with
+    the parameters' sha256 and the transport's counters."""
+    import logging
+    from datetime import timedelta
+
+    import torch
+
+    from torchft_tpu_torch.checkpointing import HTTPTransport
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep
+
+    group, inc, run_dir = args.heal_group, args.incarnation, args.run_dir
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"[h{group}.{inc}] %(message)s")
+    cfg, _, seq = flagship_config()
+    dev = resolve_device(args.device)
+    model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(3000))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    timeout = timedelta(seconds=180)
+    collective = TCPCollective(timeout=180.0, host="127.0.0.1")
+    transport = HTTPTransport(timeout=180.0, host="127.0.0.1")
+    manager = Manager(
+        collective=collective,
+        load_state_dict=lambda sd: (model.load_state_dict(sd["model"]),
+                                    opt.load_state_dict(sd["optim"])),
+        state_dict=lambda: {"model": model.state_dict(), "optim": opt.state_dict()},
+        min_replica_size=1, rank=0, world_size=1, replica_id=f"heal_g{group}",
+        lighthouse_addr=args.lighthouse, store_addr="127.0.0.1", manager_bind="127.0.0.1:0",
+        checkpoint_transport=transport, timeout=timeout, quorum_timeout=timeout,
+        init_sync=False,  # every group starts from the same seeded weights
+    )
+    trainer = TrainStep(model, opt, loss_fn, manager)
+    data = torch.Generator(device=dev).manual_seed(300 + 10 * group + inc)
+    path = lambda name: os.path.join(run_dir, name)  # noqa: E731
+    paced = False
+    steps_run = 0
+    # The last fetch seen, and the heal's own when the healer fetches again
+    # before its first record.
+    last_fetch = transport.last_fetch
+    heal_fetch = None
+    reset_launch_counts()
+
+    def pace() -> None:
+        """Group 0, held: paces its link once the parent asks, and signals
+        when it starts streaming a stripe after that."""
+        nonlocal paced
+        if paced or not os.path.exists(path("pace_g0")):
+            return
+        transport.set_shaped_mbps(float(_read_int(path("pace_g0"))))
+        paced = True
+        threading.Thread(target=signal_serving, args=(transport.served.get("chunk", 0),),
+                         daemon=True).start()
+
+    def signal_serving(chunks_before: int) -> None:
+        while transport.served.get("chunk", 0) <= chunks_before:
+            time.sleep(0.005)
+        open(path("serving_g0"), "w").close()
+
+    def wait_file(name: str, poll=None) -> None:
+        deadline = time.monotonic() + HEAL_TIMEOUT_S
+        while not os.path.exists(name):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"heal group {group}: {name} never appeared")
+            if poll is not None:
+                poll()
+            time.sleep(0.02)
+
+    def params_sha() -> str:
+        flat = torch.cat([p.detach().reshape(-1).view(torch.uint8)
+                          for p in model.parameters()])
+        return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+    while True:
+        step = manager.current_step()
+        stop = _read_int(path("stop"))
+        if stop is not None and step >= stop:
+            break
+        if steps_run > 400:
+            raise RuntimeError(f"heal group {group}: never reached the stop step")
+        if group != 2:
+            for k in (1, 2, 3):
+                if _read_int(path(f"hold_{k}")) == step:
+                    open(path(f"held_{k}_g{group}"), "w").close()
+                    wait_file(path(f"join_{k}"), poll=pace if group == 0 else None)
+        elif steps_run == 0:
+            for g in (0, 1):
+                wait_file(path(f"held_{inc}_g{g}"))
+        manager.start_quorum()
+        measured = None
+        if group == 2 and steps_run == 0:
+            # This request waits at the lighthouse for the held groups.
+            time.sleep(JOIN_GRACE_S)
+            open(path(f"join_{inc}"), "w").close()
+            manager.wait_quorum()
+            if transport.last_fetch is not last_fetch:
+                heal_fetch = dict(transport.last_fetch)
+            if inc == 1 and manager.current_step() > 0:
+                measured = heal_modes(transport, manager.current_step())
+                last_fetch = transport.last_fetch
+        tokens = torch.randint(0, cfg.vocab_size, (HEAL_BATCH, seq), generator=data, device=dev)
+        t0 = time.perf_counter()
+        loss, committed = trainer.ft_step({"tokens": tokens,
+                                           "targets": torch.roll(tokens, -1, dims=1)})
+        loss_v = float(loss)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        steps_run += 1
+        rec = {"group": group, "inc": inc, "before": step, "step": manager.current_step(),
+               "committed": committed, "participants": manager.num_participants(),
+               "loss": loss_v, "step_s": time.perf_counter() - t0, "t": time.time(),
+               "steps_run": steps_run, "launches": launch_counts(),
+               "served": dict(transport.served), "windows": transport.windows_opened,
+               "peak_mem": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0}
+        if transport.last_fetch is not last_fetch:
+            last_fetch = transport.last_fetch
+            rec["fetch"] = dict(last_fetch)
+        if heal_fetch is not None:
+            rec["fetch"], heal_fetch = heal_fetch, None
+        if measured is not None:
+            rec["modes"] = measured
+        if committed:
+            rec["sha"] = params_sha()
+        print("STEP " + json.dumps(rec), flush=True)
+        if committed and not math.isfinite(loss_v):
+            raise RuntimeError(f"heal group {group}: loss {loss_v} is not finite")
+    transport.wait_snapshot(timeout=GROUP_TIMEOUT_S)
+    manager.shutdown()
+
+
+def heal_modes(transport, step: int) -> dict:
+    """The healer's three fetches of the same state from the donors that
+    just served its heal (their windows stay open until the step they wait
+    on in the ring): one /full stream, one donor chunked, two donors
+    striped.  Seconds and GB/s of each."""
+    donors = transport.last_fetch["donors"]
+    out = {}
+    for name, meta, workers in (("full", donors[-1], "1"), ("chunked", donors[-1], None),
+                                ("striped", donors, None)):
+        if workers:
+            os.environ["TPUFT_HTTP_CHUNK_WORKERS"] = workers
+        try:
+            got = transport.recv_checkpoint(0, meta, step, timeout=180.0)
+        finally:
+            os.environ.pop("TPUFT_HTTP_CHUNK_WORKERS", None)
+        del got
+        f = transport.last_fetch
+        if f["mode"] != name:
+            raise AssertionError(f"the {name} fetch ran as {f['mode']}: {f}")
+        out[name] = {k: f[k] for k in ("bytes", "fetch_s", "n_donors", "n_stripes", "workers",
+                                      "crc_ms", "crc_verified", "by_donor")}
+        out[name]["gb_per_s"] = f["bytes"] / 1e9 / f["fetch_s"]
+    return out
+
+
+def healing_phase(card: str, device: str = "cuda") -> dict:
+    """A lighthouse and three flagship groups on the card with the
+    erasure-coded plane (k 2, m 1).  (a) Groups 0 and 1 train merged; group
+    2 joins and heals striped from both.  (b) Group 2 is SIGKILLed and
+    restarted with TPUFT_EC_MODE=prefer: it heals from the survivors'
+    shards.  (c) Group 2 is SIGKILLed and restarted on the donor path;
+    group 0's link is paced and group 0 is SIGKILLed in the middle of the
+    fetch: the stripes fail over to group 1.  Returns the K1-K5 launches of
+    every process."""
+    from torchft_tpu_torch._native import LighthouseServer
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.obs import report
+
+    # The join timeout covers the held groups' quorum requests, which
+    # follow the joiner's by a grace and each other by a file poll.
+    lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
+                                  min_replicas=2, join_timeout_ms=3000)
+    run_dir = tempfile.mkdtemp(prefix="tpuft_heal_")
+    procs, readers, recs = {}, {}, {}
+    lock = threading.Lock()
+    kills = []
+
+    def metrics_path(g: int, inc: int) -> str:
+        return os.path.join(run_dir, f"metrics_h{g}_{inc}.jsonl")
+
+    def start(g: int, inc: int, env_extra: dict) -> None:
+        env = {**os.environ, **HEAL_EC, **env_extra, "TPUFT_METRICS_PATH": metrics_path(g, inc)}
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--heal-group", str(g), "--incarnation",
+             str(inc), "--lighthouse", lighthouse.address(), "--run-dir", run_dir,
+             "--device", device], stdout=subprocess.PIPE, text=True, cwd=HERE, env=env)
+        procs[(g, inc)] = proc
+        recs[(g, inc)] = []
+
+        def read() -> None:
+            for line in proc.stdout:
+                line = line.rstrip("\n")
+                if line.startswith("STEP "):
+                    rec = json.loads(line[len("STEP "):])
+                    with lock:
+                        recs[(g, inc)].append(rec)
+                    short = {k: rec.get(k) for k in ("step", "committed", "participants",
+                                                     "loss", "step_s")}
+                    print(f"  [h{g}.{inc}] STEP {json.dumps(short)}", flush=True)
+                else:
+                    print(f"  [h{g}.{inc}] {line}", flush=True)
+
+        readers[(g, inc)] = threading.Thread(target=read, daemon=True)
+        readers[(g, inc)].start()
+
+    def write(name: str, value) -> None:
+        tmp = os.path.join(run_dir, name + ".tmp")
+        with open(tmp, "w") as f:
+            f.write(str(value))
+        os.replace(tmp, os.path.join(run_dir, name))
+
+    def merged_commits(key) -> list:
+        with lock:
+            return [r for r in recs[key] if r["committed"] and r["participants"] >= 2]
+
+    def wait(cond, what: str) -> None:
+        deadline = time.monotonic() + HEAL_TIMEOUT_S
+        while not cond():
+            for key, p in procs.items():
+                if p.poll() not in (None, 0) and not any(key == k for k, _ in kills):
+                    raise RuntimeError(f"heal group {key} exited with {p.returncode}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"healing phase: {what}")
+            time.sleep(0.02)
+
+    def top_step() -> int:
+        with lock:
+            return max((r["step"] for rs in recs.values() for r in rs), default=0)
+
+    def kill(key) -> float:
+        t = time.time()
+        kills.append((key, t))
+        procs[key].kill()
+        procs[key].wait()
+        return t
+
+    t_phase = time.monotonic()
+    try:
+        start(0, 0, {})
+        start(1, 0, {})
+        wait(lambda: len(merged_commits((0, 0))) >= HEAL_MERGED, "groups 0 and 1 never merged")
+        events = {}
+        # (a) Group 2 joins and heals striped from groups 0 and 1.
+        write("hold_1", top_step() + 2)
+        start(2, 1, {})
+        wait(lambda: len([r for r in merged_commits((2, 1)) if r["participants"] == 3])
+             >= HEAL_MERGED, "group 2 never ran merged after its striped heal")
+        # (b) SIGKILL group 2; restart it in prefer mode.
+        events["kill_b"] = kill((2, 1))
+        write("hold_2", top_step() + 2)
+        start(2, 2, {"TPUFT_EC_MODE": "prefer"})
+        wait(lambda: os.path.exists(os.path.join(run_dir, "join_2")), "group 2 never rejoined")
+        events["join_b"] = time.time()
+        wait(lambda: len([r for r in merged_commits((2, 2)) if r["participants"] == 3])
+             >= HEAL_MERGED, "group 2 never ran merged after its erasure heal")
+        # (c) SIGKILL group 2; restart it on the donor path with group 0's
+        # link paced, and SIGKILL group 0 in the middle of the fetch.
+        events["kill_c"] = kill((2, 2))
+        write("hold_3", top_step() + 2)
+        # Paced only once held: the survivors' own re-fetch after the kill
+        # (a failed vote re-heals both) must not trip the signal.
+        wait(lambda: all(os.path.exists(os.path.join(run_dir, f"held_3_g{g}"))
+                         for g in (0, 1)), "groups 0 and 1 never held for group 2")
+        write("pace_g0", int(HEAL_PACE_MBPS))
+        start(2, 3, {})
+        wait(lambda: os.path.exists(os.path.join(run_dir, "serving_g0")),
+             "group 0 never streamed a stripe to group 2's third incarnation")
+        time.sleep(HEAL_KILL_DELAY_S)
+        events["kill_donor"] = kill((0, 0))
+        wait(lambda: len([r for r in merged_commits((2, 3)) if r["participants"] == 2])
+             >= HEAL_MERGED, "groups 1 and 2 never ran merged after the failover")
+        write("stop", top_step() + 1)
+        for key in ((1, 0), (2, 3)):
+            rc = procs[key].wait(timeout=HEAL_TIMEOUT_S)
+            readers[key].join(timeout=30)
+            if rc != 0:
+                raise RuntimeError(f"heal group {key} exited with {rc}")
+        streams = {key: report.read_events([metrics_path(*key)]) for key in procs}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        lighthouse.shutdown()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    phase_s = time.monotonic() - t_phase
+    return heal_checks(card, recs, streams, events, phase_s, device)
+
+
+def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: float,
+                device: str) -> dict:
+    """Phase 11's assertions and prints; returns the K1-K5 launches of all
+    its processes."""
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg, _, _ = flagship_config()
+    per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
+    kinds = ("full", "chunk", "header", "metadata")
+
+    def evs(key, name):
+        return [e for e in streams[key] if e["event"] == name]
+
+    def first_merged(key, n: int, after: float = 0.0):
+        return next(r for r in recs[key] if r["committed"] and r["participants"] == n
+                    and r["t"] > after)
+
+    # Every process: K1-K5 launch per step, losses finite (asserted in the
+    # group), peak memory.
+    launches = {name: 0 for name in per_step}
+    for key, rs in sorted(recs.items()):
+        if not rs:
+            raise AssertionError(f"heal group {key} printed no step")
+        last = rs[-1]
+        for r in rs:
+            for name, k in per_step.items():
+                if device == "cuda" and r["launches"].get(name) != k * r["steps_run"]:
+                    raise AssertionError(f"heal group {key}: {name} launched "
+                                         f"{r['launches'].get(name)} times in "
+                                         f"{r['steps_run']} steps, expected {k} a step")
+        for name in per_step:
+            launches[name] += last["launches"].get(name, 0)
+        print(f"  group {key[0]} incarnation {key[1]}: {last['steps_run']} steps, to step "
+              f"{last['step']}; peak device memory {max(r['peak_mem'] for r in rs) / 2**30:.2f} "
+              f"GiB; serving windows opened {last['windows']}, served {last['served']} ({card})",
+              flush=True)
+    # One params_sha256 per merged step, and every event's merged steps seen.
+    by_step: dict = {}
+    for key, rs in recs.items():
+        for r in rs:
+            if r["committed"] and r["participants"] >= 2:
+                by_step.setdefault(r["step"], {})[key] = r["sha"]
+    for step, shas in sorted(by_step.items()):
+        if len(set(shas.values())) != 1:
+            raise AssertionError(f"step {step}: params_sha256 differ across groups: {shas}")
+    for key, n in (((2, 1), 3), ((2, 2), 3), ((2, 3), 2)):
+        r = first_merged(key, n)
+        together = by_step[r["step"]]
+        if len(together) < n:
+            raise AssertionError(f"step {r['step']}: {n} groups should have committed it "
+                                 f"together, saw {sorted(together)}")
+        print(f"  step {r['step']}: groups {sorted(together)} committed it merged with one "
+              f"params_sha256 {r['sha'][:16]}...", flush=True)
+
+    # (a) The striped two-donor heal, checksummed.
+    fa = recs[(2, 1)][0].get("fetch") or {}
+    if not (fa.get("mode") == "striped" and fa.get("n_donors") == 2
+            and len(fa.get("by_donor", [])) == 2 and min(fa["by_donor"]) > 0
+            and fa.get("crc_verified", 0) > 0 and not fa.get("dead")):
+        raise AssertionError(f"(a) the heal was not striped over two live donors: {fa}")
+    if evs((2, 1), "ec_reconstruct"):
+        raise AssertionError("(a) the striped heal fell back to the erasure shards")
+    modes = recs[(2, 1)][0].get("modes")
+    if not modes:
+        raise AssertionError("(a) the healer did not time the three fetch modes")
+    print(f"  (a) striped heal: {fa['bytes'] / 1e9:.3f} GB from 2 donors, {fa['n_stripes']} "
+          f"stripes ({fa['by_donor']} a donor) over {fa['workers']} workers in "
+          f"{fa['fetch_s']} s = {fa['bytes'] / 1e9 / fa['fetch_s']:.3f} GB/s; "
+          f"{fa['crc_verified']} buffers checksum-verified ({fa['crc_ms']} ms) ({card})",
+          flush=True)
+    for name, m in modes.items():
+        print(f"  (a) same state, {name}: {m['fetch_s']:.3f} s, {m['gb_per_s']:.3f} GB/s "
+              f"({m['n_donors']} donor(s), {m['n_stripes']} stripes, {m['workers']} workers; "
+              f"checksums {m['crc_ms']} ms) ({card})", flush=True)
+    stamps = [(e.get("crc_ms"), e.get("bytes")) for key in ((0, 0), (1, 0))
+              for e in streams[key] if e["event"] == "span" and e["phase"] == "snapshot"
+              and e.get("crc_ms") is not None]
+    if not stamps:
+        raise AssertionError("no snapshot span carries its checksum time")
+    crc_ms = sorted(ms for ms, _ in stamps)
+    print(f"  checksum stamp of a {stamps[0][1] / 1e9:.3f} GB snapshot on the snapshotter: "
+          f"median {crc_ms[len(crc_ms) // 2]:.1f} ms, {crc_ms[0]:.1f}-{crc_ms[-1]:.1f} ms over "
+          f"{len(crc_ms)} snapshots ({card})", flush=True)
+    pushes = [e for key in ((0, 0), (1, 0)) for e in evs(key, "ec_push") if "encode_ms" in e]
+    if not pushes:
+        raise AssertionError("the survivors never encoded a shard generation")
+    enc = sorted(e["encode_ms"] for e in pushes)
+    print(f"  ec encode (background, k 2 m 1): median {enc[len(enc) // 2]:.1f} ms, "
+          f"{enc[0]:.1f}-{enc[-1]:.1f} ms over {len(enc)} generations; shard "
+          f"{pushes[0]['shard_bytes'] / 1e9:.3f} GB; parity pushed "
+          f"{sum(e['push_bytes'] for e in pushes) / 1e9:.3f} GB in all ({card})", flush=True)
+
+    # (b) The erasure heal: no donor fetch, no checkpoint served.
+    recon = evs((2, 2), "ec_reconstruct")
+    if len(recon) != 1 or evs((2, 2), "heal_start") or recs[(2, 2)][0].get("fetch"):
+        raise AssertionError(f"(b) expected one erasure reconstruction and no donor fetch: "
+                             f"{recon}, heal_start {evs((2, 2), 'heal_start')}")
+    rb = first_merged((2, 2), 3)
+    for key in ((0, 0), (1, 0)):
+        # From the survivors' last step before group 2's request to the
+        # step it first committed merged.
+        before = [r for r in recs[key] if r["t"] <= events["join_b"]][-1]["served"]
+        after = next(r for r in recs[key] if r["step"] == rb["step"])["served"]
+        if any(before.get(k, 0) != after.get(k, 0) for k in kinds):
+            raise AssertionError(f"(b) group {key[0]} served checkpoint requests during the "
+                                 f"erasure heal: {before} -> {after}")
+    print(f"  (b) ec_reconstruct of step {recon[0]['step']}: {recon[0]['reconstruct_ms']:.1f} "
+          f"ms, shards {recon[0].get('shards_used')} ({recon[0].get('parity_used')} parity) "
+          f"from {recon[0].get('holders')} holders; the donors served no checkpoint request "
+          f"({card})", flush=True)
+
+    # (c) The failover heal.
+    fc = recs[(2, 3)][0].get("fetch") or {}
+    if not (fc.get("mode") == "striped" and fc.get("n_donors") == 2
+            and fc.get("failovers", 0) >= 1 and len(fc.get("dead", [])) == 1):
+        raise AssertionError(f"(c) the heal did not fail a dead donor's stripes over: {fc}")
+    if evs((2, 3), "ec_reconstruct"):
+        raise AssertionError("(c) the donor heal fell back to the erasure shards")
+    print(f"  (c) failover heal: {fc['fetch_s']} s for {fc['bytes'] / 1e9:.3f} GB; stripes a "
+          f"donor {fc['by_donor']}, {fc['failovers']} failed over from {fc['dead']} "
+          f"(group 0 paced to {HEAL_PACE_MBPS:.0f} MB/s, SIGKILLed "
+          f"{HEAL_KILL_DELAY_S:.1f} s into its first stripe) ({card})", flush=True)
+
+    for name, key, n in (("kill_b", (2, 2), 3), ("kill_c", (2, 3), 2),
+                         ("kill_donor", (2, 3), 2)):
+        r = first_merged(key, n, after=events[name])
+        print(f"  {name}: SIGKILL -> group 2's first merged commit {r['t'] - events[name]:.3f} "
+              f"s ({card})", flush=True)
+    print(f"  healing phase: {phase_s:.1f} s ({card})", flush=True)
+    print("HEALING " + json.dumps({"modes": modes, "striped": fa, "failover": fc,
+                                   "reconstruct": recon[0], "encode_ms": enc,
+                                   "crc_stamp_ms": crc_ms, "phase_s": phase_s}), flush=True)
+    return launches
+
+
 def main() -> int:
+    t_run = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--lighthouse", help=argparse.SUPPRESS)
     parser.add_argument("--run-dir", help=argparse.SUPPRESS)
     parser.add_argument("--diloco-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    parser.add_argument("--heal-group", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--incarnation", type=int, default=0, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -1699,6 +2213,9 @@ def main() -> int:
         return 0
     if args.diloco_group is not None:
         run_diloco_group(args)
+        return 0
+    if args.heal_group is not None:
+        run_heal_group(args)
         return 0
 
     # 1. Card.
@@ -1757,12 +2274,18 @@ def main() -> int:
     codec_phase(card)
 
     # 10. Streaming DiLoCo on the flagship.
-    print(f"DiLoCo: lighthouse + 2 groups, flagship config, StreamingDiLoCo(sync_every="
+    print(f"DiLoCo: lighthouse + 2 groups, flagship width at {DILOCO_LAYERS} layers, "
+          f"StreamingDiLoCo(sync_every="
           f"{DILOCO_SYNC_EVERY}, codec='int8'), group 1 heals into round "
           f"{DILOCO_SOLO_ROUNDS + 1}", flush=True)
     diloco_launches = diloco_phase(card)
 
-    # 11. The kernels line, then the last line.
+    # 11. The healing plane on the flagship.
+    print("healing: lighthouse + 3 groups, flagship config, erasure-coded state k 2 m 1; "
+          "a striped two-donor heal, an erasure heal, a donor killed mid-fetch", flush=True)
+    healing_launches = healing_phase(card)
+
+    # 12. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -1775,6 +2298,7 @@ def main() -> int:
             "launches_on": "rms_norm_pallas entry point" if name == "rms_norm"
                            else "flagship FT training",
             "launches_diloco": diloco_launches.get(name, 0),
+            "launches_healing": healing_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],
@@ -1789,6 +2313,7 @@ def main() -> int:
                                  "checked", "bitwise_repeat")
                if k in r},
         })
+    print(f"chip_smoke: {time.monotonic() - t_run:.1f} s in all ({card})", flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,11 @@ def _imported_roots(path: str):
 def test_port_imports_nothing_of_jax_or_the_jax_package() -> None:
     files = list(_port_files())
     assert len(files) > 10
+    scanned = {os.path.relpath(p, REPO) for p in files}
+    for healing in ("ec/__init__.py", "ec/gf.py", "ec/encoder.py", "ec/placement.py",
+                    "ec/store.py", "ha/__init__.py", "ha/backoff.py",
+                    "checkpointing/integrity.py", "checkpointing/_rwlock.py"):
+        assert os.path.join("torchft_tpu_torch", healing) in scanned, healing
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
         for p in files

@@ -14,26 +14,86 @@ other value (numbers, strings, ``None``) rides pickled in the header.
 
 Flattening copies every tensor to host memory, so the result is a snapshot
 that later in-place updates (optimizer steps) cannot change.
+
+The header may carry one checksum a buffer (``crc_algo``, ``crcs``; the
+HTTP transport stamps them), and :func:`read_state_dict` verifies each
+buffer as it lands.  Headers are read with a restricted unpickler
+(:func:`safe_loads`) that builds builtins, ``collections.OrderedDict`` and
+this module's :class:`StateDictMeta` only: a JAX package frame, whose
+header pickles a JAX tree spec and ``ml_dtypes`` dtypes, raises
+:class:`ForeignFrameError` without importing anything, so healing across
+the two packages fails fast instead of importing ``jax`` into the port.
 """
 
 from __future__ import annotations
 
 import io
 import pickle
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from torchft_tpu_torch.checkpointing.integrity import verify
+
 __all__ = [
+    "ForeignFrameError",
     "StateDictMeta",
+    "as_u8",
     "flatten_state_dict",
+    "read_exact",
+    "read_exact_into",
+    "read_header",
+    "read_state_dict",
+    "safe_loads",
+    "state_dict_frames",
     "unflatten_state_dict",
     "write_state_dict",
-    "read_state_dict",
 ]
+
+
+class ForeignFrameError(RuntimeError):
+    """A pickled header names a class this package does not build: the
+    frame came from another program (the JAX package's own header), and
+    reading it would import that program's modules."""
+
+
+# The only globals a header may name: plain containers and scalars, the
+# ordered dict of module state dicts, and this module's header class.
+_SAFE_GLOBALS = {
+    ("builtins", name) for name in (
+        "bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset", "int",
+        "list", "range", "set", "slice", "str", "tuple",
+    )
+} | {("collections", "OrderedDict"), (__name__, "StateDictMeta")}
+
+
+class _HeaderUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str) -> Any:
+        if (module, name) not in _SAFE_GLOBALS:
+            raise ForeignFrameError(
+                f"checkpoint header names {module}.{name}: not a frame of this package "
+                "(healing across the JAX package and the port is not supported)"
+            )
+        return super().find_class(module, name)
+
+
+def safe_loads(data: Any) -> Any:
+    """Unpickles a header, chunk prefix or shard header received from a
+    peer, admitting only builtins, ``OrderedDict`` and :class:`StateDictMeta`."""
+    return _HeaderUnpickler(io.BytesIO(bytes(data))).load()
+
+
+def as_u8(arr: np.ndarray) -> np.ndarray:
+    """A flat uint8 view of a contiguous numpy array (0-d included)."""
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    if arr.ndim == 0:
+        arr = arr.reshape(1)
+    return arr.view(np.uint8).reshape(-1)
 
 
 @dataclass
@@ -46,6 +106,16 @@ class StateDictMeta:
     leaves: List[Tuple[str, Any]] = field(default_factory=list)
     # Per buffer: (shape, dtype name, nbytes).
     tensors: List[Tuple[Tuple[int, ...], str, int]] = field(default_factory=list)
+    # One checksum a buffer (integrity.py), stamped by the HTTP transport's
+    # snapshotter and verified by every receiver; None in frames without.
+    crc_algo: Optional[str] = None
+    crcs: Optional[Tuple[int, ...]] = None
+
+    @property
+    def buffer_nbytes(self) -> List[int]:
+        """Each buffer's byte size, in buffer order (what a chunk reader
+        preallocates)."""
+        return [nbytes for _, _, nbytes in self.tensors]
 
 
 def _dict_keys(d: dict) -> list:
@@ -91,15 +161,20 @@ def flatten_state_dict(state_dict: Any, step: int = 0) -> Tuple[StateDictMeta, L
 
 def _tensor(buf, shape: Tuple[int, ...], dtype_name: str) -> torch.Tensor:
     dtype = getattr(torch, dtype_name)
-    if len(buf) == 0:
+    if isinstance(buf, torch.Tensor):
+        u8 = buf.reshape(-1)
+    elif len(buf) == 0:
         return torch.empty(shape, dtype=dtype)
-    u8 = torch.frombuffer(buf, dtype=torch.uint8)
+    else:
+        u8 = torch.frombuffer(buf, dtype=torch.uint8)
+    if u8.numel() == 0:
+        return torch.empty(shape, dtype=dtype)
     return u8.view(dtype).reshape(shape)
 
 
 def unflatten_state_dict(meta: StateDictMeta, buffers: List[Any]) -> Any:
     """Rebuilds the nested structure; tensors come back on the CPU, viewing
-    ``buffers`` (each a writable bytes-like object)."""
+    ``buffers`` (each a writable bytes-like object or a uint8 tensor)."""
     leaves = iter(meta.leaves)
 
     def build(spec: Any) -> Any:
@@ -120,32 +195,73 @@ def unflatten_state_dict(meta: StateDictMeta, buffers: List[Any]) -> Any:
     return build(meta.spec)
 
 
-def state_dict_prefix(meta: StateDictMeta) -> bytes:
+def state_dict_frames(meta: StateDictMeta, buffers: List[Any]) -> Tuple[bytes, int]:
+    """(the frame's prefix: header length and pickled header, the whole
+    frame's length): the one source of the framing, so a Content-Length
+    cannot drift from what :func:`write_state_dict` writes."""
     header = pickle.dumps(meta)
-    return len(header).to_bytes(8, "little") + header
+    prefix = len(header).to_bytes(8, "little") + header
+    return prefix, len(prefix) + sum(int(b.nbytes) for b in buffers)
 
 
-def write_state_dict(meta: StateDictMeta, buffers: List[np.ndarray], stream: io.RawIOBase) -> None:
-    stream.write(state_dict_prefix(meta))
+def write_state_dict(meta: StateDictMeta, buffers: List[np.ndarray], stream: Any,
+                     prefix: Optional[bytes] = None) -> None:
+    if prefix is None:
+        prefix, _ = state_dict_frames(meta, buffers)
+    stream.write(prefix)
     for buf in buffers:
-        stream.write(memoryview(buf))
+        stream.write(memoryview(as_u8(buf)))
 
 
-def read_exact(stream: Any, n: int) -> bytearray:
-    out = bytearray(n)
-    view = memoryview(out)
+def read_exact_into(stream: Any, view: memoryview) -> None:
+    """Fills ``view`` from ``stream`` by ``readinto``, so the bytes land in
+    the caller's buffer with no copy between."""
+    n = len(view)
     got = 0
     while got < n:
         r = stream.readinto(view[got:])
         if not r:
             raise EOFError(f"stream ended after {got}/{n} bytes")
         got += r
+
+
+def read_exact(stream: Any, n: int) -> bytearray:
+    out = bytearray(n)
+    read_exact_into(stream, memoryview(out))
     return out
 
 
-def read_state_dict(stream: Any) -> Tuple[StateDictMeta, List[bytearray]]:
-    """Reads one frame: (header, raw buffers).  Unpickles the header, so
-    read only streams from this program's own peers."""
+def byte_view(buf: Any) -> memoryview:
+    """A writable flat byte view of a receive buffer (a bytearray or a
+    uint8 tensor on the CPU, pinned or not)."""
+    if isinstance(buf, torch.Tensor):
+        return memoryview(buf.numpy()).cast("B")
+    return memoryview(buf)
+
+
+def read_header(stream: Any) -> StateDictMeta:
     header_len = int.from_bytes(read_exact(stream, 8), "little")
-    meta: StateDictMeta = pickle.loads(read_exact(stream, header_len))
-    return meta, [read_exact(stream, nbytes) for _, _, nbytes in meta.tensors]
+    return safe_loads(read_exact(stream, header_len))
+
+
+def read_state_dict(stream: Any, alloc: Optional[Callable[[int], Any]] = None,
+                    stats: Optional[dict] = None) -> Tuple[StateDictMeta, List[Any]]:
+    """Reads one frame: (header, raw buffers), each buffer from ``alloc``
+    (a bytearray by default) and filled in place.  With checksums in the
+    header, each buffer is verified as it lands (IOError on a mismatch),
+    and ``stats`` gains ``crc_ms`` and ``crc_verified``; a header of
+    another program raises :class:`ForeignFrameError`."""
+    meta = read_header(stream)
+    buffers = []
+    for i, nbytes in enumerate(meta.buffer_nbytes):
+        buf = alloc(nbytes) if alloc is not None else bytearray(nbytes)
+        view = byte_view(buf)
+        read_exact_into(stream, view)
+        if meta.crcs is not None:
+            t0 = time.monotonic()
+            verify(view, meta.crcs[i], meta.crc_algo, f"checkpoint buffer {i}")
+            if stats is not None:
+                stats["crc_ms"] = stats.get("crc_ms", 0.0) + (time.monotonic() - t0) * 1e3
+                stats["crc_verified"] = stats.get("crc_verified", 0) + 1
+        buffers.append(buf)
+    return meta, buffers

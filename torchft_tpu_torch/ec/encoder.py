@@ -1,0 +1,373 @@
+"""Systematic Reed-Solomon shard codec over serialized state streams.
+
+A copy of ``torchft_tpu/ec/encoder.py`` over the port's frames: the same
+stream bytes and buffers give the same shards, bit for bit.  Shard
+headers are read with the port's restricted unpickler.
+
+The unit of encoding is the CANONICAL serialized checkpoint stream — the
+exact ``write_state_dict`` frame the HTTP ``/full`` endpoint serves
+(length-prefixed pickled StateDictMeta + the raw flat bucket buffers).
+Encoding that stream rather than individual tensors buys the bitwise
+contract for free: a decode reproduces the identical frame bytes, so
+``read_state_dict`` + ``unflatten_state_dict`` on the reconstruction path
+yields a state dict bitwise-equal to a direct donor fetch — the property
+the recovery planner's fallback (and its pinning test) relies on.
+
+Layout: the stream is padded to ``k * L`` bytes (``L = ceil(total / k)``)
+and split into ``k`` data shards; ``m`` parity shards are the Cauchy-matrix
+rows of :func:`~torchft_tpu_torch.ec.gf.cauchy_matrix` applied over the data
+shards.  The code is MDS: ANY ``k`` of the ``k + m`` shards reconstruct the
+stream.  When all ``k`` data shards survive, decode is a pure concatenation
+(no field math at all — the common case when fewer than ``m + 1`` holders
+died).
+
+Every shard carries its own header (step, index, geometry, CRC32C) so a
+shard fetched over HTTP is self-verifying; a corrupt shard is detected and
+EXCLUDED, and the decoder simply draws on another holder.
+"""
+
+from __future__ import annotations
+
+import io
+import pickle
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from torchft_tpu_torch.checkpointing.integrity import CRC_ALGO, checksum, verify
+from torchft_tpu_torch.checkpointing.serialization import (
+    StateDictMeta,
+    as_u8,
+    safe_loads,
+    state_dict_frames,
+)
+from torchft_tpu_torch.ec import gf
+
+__all__ = [
+    "Shard",
+    "decode_shards",
+    "decode_stream",
+    "encode_buffers",
+    "encode_shards",
+    "encode_stream",
+    "read_shard",
+    "write_shard",
+    "write_shard_part",
+]
+
+
+@dataclass
+class Shard:
+    """One erasure shard plus the self-describing header that travels with
+    it on the wire (``/ec/shard/<step>/<idx>``)."""
+
+    step: int
+    idx: int
+    k: int
+    m: int
+    total_len: int  # unpadded canonical stream length
+    crc: int
+    algo: str
+    payload: np.ndarray  # uint8, length ceil(total_len / k)
+    # Generation fingerprint: checksum of the canonical stream's header
+    # prefix.  Shards are only combinable when they came from the SAME
+    # stream; every group's committed-step state is bitwise identical (the
+    # commit protocol's invariant), so a digest mismatch at one (step, idx)
+    # marks a divergent encoder — the reconstruction client groups holders
+    # by digest and only decodes within the majority generation.  The
+    # prefix embeds the per-buffer CRCs (meta.crcs), which is what makes
+    # this 4-byte field content-binding, not just structural.
+    digest: int = 0
+
+    def header(self) -> dict:
+        return {
+            "step": self.step,
+            "idx": self.idx,
+            "k": self.k,
+            "m": self.m,
+            "total_len": self.total_len,
+            "crc": self.crc,
+            "algo": self.algo,
+            "digest": self.digest,
+        }
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.payload.nbytes)
+
+
+def _gather_stream(prefix: bytes, buffers: Sequence[np.ndarray], k: int) -> Tuple[List[np.ndarray], int]:
+    """Splits the virtual concatenation ``prefix + buffers`` into ``k``
+    equal uint8 slices (last zero-padded) without materializing the whole
+    multi-GB stream: each slice is filled segment-by-segment from the
+    source buffers (one copy total — the shards themselves)."""
+    total = len(prefix) + sum(int(b.nbytes) for b in buffers)
+    L = max(2, -(-total // k))  # ceil
+    L += L & 1  # even length: the GF pair-table gather walks uint16 views
+    slices = [np.zeros(L, dtype=np.uint8) for _ in range(k)]
+    pos = 0
+
+    def emit(src: memoryview) -> None:
+        nonlocal pos
+        off = 0
+        n = len(src)
+        while off < n:
+            s, r = divmod(pos, L)
+            take = min(n - off, L - r)
+            slices[s][r : r + take] = np.frombuffer(src[off : off + take], dtype=np.uint8)
+            pos += take
+            off += take
+
+    emit(memoryview(prefix))
+    for b in buffers:
+        emit(memoryview(as_u8(b)))
+    return slices, total
+
+
+def encode_buffers(
+    data: Sequence[np.ndarray],
+    k: int,
+    m: int,
+    step: int,
+    total_len: int,
+    want: Optional[Sequence[int]] = None,
+    digest: int = 0,
+) -> Dict[int, Shard]:
+    """k data slices -> the requested self-verifying shards (systematic:
+    shards 0..k-1 ARE the data slices; k..k+m-1 the Cauchy parity rows).
+
+    ``want`` limits which shards are materialized: data shards are free
+    slices, but EVERY parity shard costs a full GF pass over the stream —
+    so the write side (ECPlane) asks only for its placement assignment
+    (plus all parity when it is the step's designated pusher) instead of
+    paying m full passes on every group every step.  None = all k + m.
+    """
+    want_set = set(range(k + m)) if want is None else {int(i) for i in want}
+    parity_rows = sorted(i - k for i in want_set if i >= k)
+    parity: Dict[int, np.ndarray] = {}
+    if parity_rows:
+        mat = gf.cauchy_matrix(m, k)[parity_rows]
+        for row, payload in zip(parity_rows, gf.gf_matmul(mat, data)):
+            parity[k + row] = payload
+    shards: Dict[int, Shard] = {}
+    for idx in sorted(want_set):
+        payload = data[idx] if idx < k else parity[idx]
+        shards[idx] = Shard(
+            step=step,
+            idx=idx,
+            k=k,
+            m=m,
+            total_len=total_len,
+            crc=checksum(memoryview(payload)),
+            algo=CRC_ALGO,
+            payload=payload,
+            digest=digest,
+        )
+    return shards
+
+
+def encode_stream(
+    meta: StateDictMeta,
+    buffers: Sequence[np.ndarray],
+    k: int,
+    m: int,
+    step: int,
+) -> List[Shard]:
+    """Encodes one flattened state dict into ALL its k + m shards."""
+    prefix, _ = state_dict_frames(meta, list(buffers))
+    data, total = _gather_stream(prefix, buffers, k)
+    shards = encode_buffers(
+        data, k, m, step, total, digest=_stream_digest(meta, buffers, prefix)
+    )
+    return [shards[i] for i in range(k + m)]
+
+
+def _stream_digest(meta: StateDictMeta, buffers: Sequence[np.ndarray], prefix: bytes) -> int:
+    """Content fingerprint of the canonical stream.  When the header
+    already embeds per-buffer CRCs (the transport's default), hashing the
+    prefix alone is content-binding; with TPUFT_HTTP_CRC=0 the prefix is
+    only structural, so the buffers are checksummed here — otherwise two
+    divergent same-shape encoders would collide and reconstruction could
+    silently combine their shards into garbage."""
+    if getattr(meta, "crcs", None) is not None:
+        return checksum(prefix)
+    chain = bytearray(checksum(prefix).to_bytes(4, "little"))
+    for b in buffers:
+        chain += checksum(b).to_bytes(4, "little")
+    return checksum(bytes(chain))
+
+
+def encode_shards(
+    meta: StateDictMeta,
+    buffers: Sequence[np.ndarray],
+    k: int,
+    m: int,
+    step: int,
+    want: Sequence[int],
+) -> Dict[int, Shard]:
+    """Encodes only the requested shard indices (the ECPlane write path)."""
+    prefix, _ = state_dict_frames(meta, list(buffers))
+    data, total = _gather_stream(prefix, buffers, k)
+    return encode_buffers(
+        data, k, m, step, total, want=want,
+        digest=_stream_digest(meta, buffers, prefix),
+    )
+
+
+def decode_data_slices(
+    shards: Dict[int, np.ndarray], k: int, m: int
+) -> List[np.ndarray]:
+    """ANY ``k`` entries of ``{shard_idx: payload}`` -> the k data slices.
+    Raises ValueError when fewer than k distinct shards are given.  When
+    all k data shards survive this is free (the systematic fast path);
+    missing data rows are solved via the inverted generator submatrix."""
+    if len(shards) < k:
+        raise ValueError(f"need {k} shards to decode, have {len(shards)}")
+    have = sorted(shards)[: k]
+    L = len(shards[have[0]])
+    for i in have:
+        if len(shards[i]) != L:
+            raise ValueError(f"shard {i} length {len(shards[i])} != {L}")
+    data: List[Optional[np.ndarray]] = [None] * k
+    missing = [j for j in range(k) if j not in shards]
+    for j in range(k):
+        if j in shards:
+            data[j] = np.asarray(shards[j], dtype=np.uint8)
+    if missing:
+        # Solve for the missing data rows: rows of the generator matrix for
+        # the k shards we ARE using, inverted over GF(256).
+        gen = np.vstack([np.eye(k, dtype=np.uint8), gf.cauchy_matrix(m, k)])
+        sub = gen[have]  # k x k, invertible by the MDS property
+        inv = gf.gf_mat_inv(sub)
+        used = [np.asarray(shards[i], dtype=np.uint8) for i in have]
+        for j in missing:
+            acc = np.zeros(L, dtype=np.uint8)
+            for c, s in zip(inv[j], used):
+                gf.addmul_into(acc, int(c), s)
+            data[j] = acc
+    return [d for d in data]  # type: ignore[misc]
+
+
+def decode_shards(shards: Dict[int, np.ndarray], k: int, m: int, total_len: int) -> bytes:
+    """ANY ``k`` entries of ``{shard_idx: payload}`` -> the original stream
+    bytes (trimmed to ``total_len``)."""
+    out = np.concatenate(decode_data_slices(shards, k, m))
+    return out.tobytes()[:total_len]
+
+
+class _SliceStream(io.RawIOBase):
+    """Read-only stream over the virtual concatenation of the data slices,
+    trimmed to the unpadded stream length — lets ``read_state_dict``
+    deserialize a decoded checkpoint WITHOUT materializing a multi-GB
+    contiguous copy first (two full copies saved on the systematic fast
+    path, which matters on the heal critical path)."""
+
+    def __init__(self, slices: Sequence[np.ndarray], total_len: int) -> None:
+        self._views = [memoryview(s).cast("B") for s in slices]
+        self._total = total_len
+        self._pos = 0
+
+    def readable(self) -> bool:  # pragma: no cover - io protocol
+        return True
+
+    def readinto(self, b) -> int:
+        out = memoryview(b).cast("B")
+        n = min(len(out), self._total - self._pos)
+        if n <= 0:
+            return 0
+        L = len(self._views[0])
+        done = 0
+        while done < n:
+            s, r = divmod(self._pos, L)
+            take = min(n - done, L - r)
+            out[done : done + take] = self._views[s][r : r + take]
+            done += take
+            self._pos += take
+        return n
+
+    def read(self, size: int = -1) -> bytes:
+        if size is None or size < 0:
+            size = self._total - self._pos
+        buf = bytearray(min(size, self._total - self._pos))
+        self.readinto(memoryview(buf))
+        return bytes(buf)
+
+
+def decode_stream(shards: Sequence[Shard]) -> Tuple[StateDictMeta, List[np.ndarray]]:
+    """Verified shards -> (StateDictMeta, raw host buffers), bitwise-equal
+    to what ``read_state_dict`` returns on a direct donor fetch.  Geometry
+    must agree across the shards (one encode generation)."""
+    from torchft_tpu_torch.checkpointing.serialization import read_state_dict
+
+    if not shards:
+        raise ValueError("no shards")
+    k, m, total = shards[0].k, shards[0].m, shards[0].total_len
+    digest = shards[0].digest
+    payloads: Dict[int, np.ndarray] = {}
+    for s in shards:
+        if (s.k, s.m, s.total_len) != (k, m, total):
+            raise ValueError(
+                f"shard {s.idx} geometry ({s.k},{s.m},{s.total_len}) != ({k},{m},{total})"
+            )
+        if s.digest != digest:
+            # Shards from divergent encode generations (e.g. pre-init-sync
+            # states) would decode to garbage that still parses nowhere —
+            # refuse the combination outright.
+            raise ValueError(
+                f"shard {s.idx} digest {s.digest:#x} != {digest:#x}: "
+                "mixed encode generations"
+            )
+        payloads[s.idx] = s.payload
+    data = decode_data_slices(payloads, k, m)
+    return read_state_dict(_SliceStream(data, total))
+
+
+# -- wire framing ------------------------------------------------------------
+
+
+def write_shard(shard: Shard) -> bytes:
+    """8-byte LE header length + pickled header + raw payload — the body of
+    one ``/ec/shard/<step>/<idx>`` transfer (both directions)."""
+    header = pickle.dumps(shard.header())
+    return b"".join(
+        [len(header).to_bytes(8, "little"), header, shard.payload.tobytes()]
+    )
+
+
+def write_shard_part(shard: Shard, part: int, n: int) -> bytes:
+    """Header + one payload byte range — the ``?part=<i>&n=<N>`` response
+    body of ``/ec/shard/<step>/<idx>``.  Boundaries are ``i * L // N`` over
+    the PAYLOAD (header lengths vary with pickled int widths, so frame
+    offsets would not align across shard indices — payload offsets do,
+    which is what lets the subset-rotation fetch decode each range with a
+    different k-subset of shards).  Every part carries the full
+    self-describing header (tiny next to the payload) so any part alone
+    identifies generation and geometry; there is no per-part CRC —
+    reassemblies verify the whole-payload CRC (single-shard range fetch)
+    or the decoded stream's per-buffer CRCs (subset-rotation fetch)."""
+    header = pickle.dumps(shard.header())
+    pl = as_u8(shard.payload)
+    lo, hi = part * len(pl) // n, (part + 1) * len(pl) // n
+    return b"".join(
+        [len(header).to_bytes(8, "little"), header, pl[lo:hi].tobytes()]
+    )
+
+
+def read_shard(raw: bytes, verify_crc: bool = True) -> Shard:
+    """Parses (and by default CRC-verifies) one shard frame.  A mismatch
+    raises IOError — the caller excludes the shard and draws on another
+    holder, which is the 'corrupt shard detected and excluded' contract."""
+    stream = io.BytesIO(raw)
+    hlen = int.from_bytes(stream.read(8), "little")
+    header = safe_loads(stream.read(hlen))
+    payload = np.frombuffer(stream.read(), dtype=np.uint8)
+    shard = Shard(payload=payload, **header)
+    if verify_crc:
+        verify(
+            memoryview(payload),
+            shard.crc,
+            shard.algo,
+            f"ec shard {shard.idx} (step {shard.step})",
+        )
+    return shard

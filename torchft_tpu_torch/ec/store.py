@@ -1,0 +1,808 @@
+"""Shard store, integrity-checked shard transport, and the EC coordinator.
+
+A copy of ``torchft_tpu/ec/store.py`` on the port's codec and transport:
+the same knobs (``TPUFT_EC_K``, ``_M``, ``_RETAIN``, ``_MODE``,
+``_INTERVAL``, ``_FETCH_PARTS``, ``_SUBSET_STRIPE``), placement, pushes
+and reconstruction.
+
+Three layers:
+
+  - :class:`ShardStore` — the bounded in-memory shard inventory one group
+    keeps for its peers, served by the checkpoint HTTP server at
+    ``GET /ec/shard/<step>/<idx>`` and filled both locally (the group's own
+    placement-assigned shards, materialized from its own snapshot) and
+    remotely (``POST /ec/shard/<step>/<idx>`` parity pushes);
+  - module functions — the HTTP client side: push, inventory probe, fetch
+    (CRC-verified on receipt), and :func:`reconstruct`, which assembles the
+    max-step state from ANY ``k`` reachable shard holders;
+  - :class:`ECPlane` — the Manager-facing coordinator: hooks the checkpoint
+    transport's background snapshotter (encode OFF the train loop's
+    critical path, in the overlapped ``ec_encode`` span), tracks the quorum
+    peer set, and exposes the reconstruction entry the recovery planner's
+    donor-free fallback calls.
+
+Trust model: shard payloads are CRC-checked end to end (computed at encode
+time, carried in the shard header, verified on every receive — push AND
+fetch), so a torn push or a bit-flipped fetch is excluded, never decoded.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from torchft_tpu_torch.ec.encoder import (
+    Shard,
+    decode_stream,
+    encode_shards,
+    read_shard,
+    write_shard,
+)
+from torchft_tpu_torch.ec.placement import shard_holder, shards_for_holder
+
+logger = logging.getLogger("torchft_tpu_torch.ec")
+
+__all__ = [
+    "ECConfig",
+    "ECPlane",
+    "ShardStore",
+    "fetch_inventory",
+    "fetch_shard",
+    "push_shard",
+    "reconstruct",
+]
+
+# Environment knobs.
+TPUFT_EC_K_ENV = "TPUFT_EC_K"
+TPUFT_EC_M_ENV = "TPUFT_EC_M"
+TPUFT_EC_RETAIN_ENV = "TPUFT_EC_RETAIN"
+TPUFT_EC_MODE_ENV = "TPUFT_EC_MODE"
+TPUFT_EC_INTERVAL_ENV = "TPUFT_EC_INTERVAL"
+
+_MODES = ("fallback", "prefer")
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        logger.warning("ignoring malformed %s", name)
+        return default
+
+
+@dataclass
+class ECConfig:
+    """Erasure-coding geometry + policy.
+
+    Args:
+        k: data shard count (0 disables the EC plane entirely).
+        m: parity shard count — the number of simultaneous group losses a
+            step's shard generation survives.
+        retain: encode generations kept per store (newest-step wins).
+        mode: ``"fallback"`` reconstructs only when the donor fetch fails
+            or no donor is reachable; ``"prefer"`` heals via reconstruction
+            FIRST (the fully donor-free mode — survivors never open a
+            serving window) and falls back to the donor fetch.
+        interval: encode every Nth committed step (1 = every step).
+    """
+
+    k: int = 0
+    m: int = 2
+    retain: int = 2
+    mode: str = "fallback"
+    interval: int = 1
+
+    def __post_init__(self) -> None:
+        if self.k < 0 or self.m < 0 or self.k + self.m > 256:
+            raise ValueError(f"bad EC geometry k={self.k} m={self.m}")
+        if self.mode not in _MODES:
+            # A typo'd mode silently running the lossy default would be a
+            # policy surprise; construction is the place to fail loudly.
+            raise ValueError(f"TPUFT_EC_MODE must be one of {_MODES}, got {self.mode!r}")
+        self.retain = max(1, self.retain)
+        self.interval = max(1, self.interval)
+
+    @property
+    def enabled(self) -> bool:
+        return self.k > 0
+
+    @property
+    def n_shards(self) -> int:
+        return self.k + self.m
+
+    @classmethod
+    def from_env(cls) -> "ECConfig":
+        return cls(
+            k=_env_int(TPUFT_EC_K_ENV, 0),
+            m=_env_int(TPUFT_EC_M_ENV, 2),
+            retain=_env_int(TPUFT_EC_RETAIN_ENV, 2),
+            mode=os.environ.get(TPUFT_EC_MODE_ENV, "fallback") or "fallback",
+            interval=_env_int(TPUFT_EC_INTERVAL_ENV, 1),
+        )
+
+
+class ShardStore:
+    """Thread-safe bounded shard inventory: {step: {idx: Shard}}.
+
+    Retention keeps the newest ``retain`` steps — a recovering peer always
+    asks for the quorum's max step, and one generation of slack covers the
+    holder whose own commit (and encode) landed a beat later.
+    """
+
+    def __init__(self, retain: int = 2) -> None:
+        self._retain = max(1, retain)
+        self._lock = threading.Lock()
+        self._by_step: Dict[int, Dict[int, Shard]] = {}
+
+    def put(self, shard: Shard) -> None:
+        with self._lock:
+            self._by_step.setdefault(shard.step, {})[shard.idx] = shard
+            while len(self._by_step) > self._retain:
+                del self._by_step[min(self._by_step)]
+
+    def get(self, step: int, idx: int) -> Optional[Shard]:
+        with self._lock:
+            return self._by_step.get(step, {}).get(idx)
+
+    def have(self, step: int) -> List[int]:
+        with self._lock:
+            return sorted(self._by_step.get(step, {}))
+
+    def inventory(self, step: int) -> dict:
+        """The ``GET /ec/have/<step>`` body: held indices + geometry +
+        per-index generation digests (the reconstruction client only
+        combines shards of one digest — see encoder.Shard.digest)."""
+        with self._lock:
+            shards = self._by_step.get(step, {})
+            geo = next(iter(shards.values()), None)
+            return {
+                "step": step,
+                "shards": sorted(shards),
+                "k": geo.k if geo else 0,
+                "m": geo.m if geo else 0,
+                "total_len": geo.total_len if geo else 0,
+                "digests": {str(i): s.digest for i, s in shards.items()},
+            }
+
+    def latest_step(self) -> int:
+        with self._lock:
+            return max(self._by_step) if self._by_step else -1
+
+    def coverage(self) -> Tuple[int, int]:
+        """(latest step held, shard count at that step) — the pair the
+        Manager pushes onto heartbeats for the lighthouse's per-step
+        shard-coverage gauges; (-1, 0) while empty."""
+        with self._lock:
+            if not self._by_step:
+                return -1, 0
+            step = max(self._by_step)
+            return step, len(self._by_step[step])
+
+    def nbytes(self) -> int:
+        with self._lock:
+            return sum(
+                s.nbytes for shards in self._by_step.values() for s in shards.values()
+            )
+
+
+# -- HTTP client side --------------------------------------------------------
+
+
+def _urlopen(url: str, timeout: float, data: Optional[bytes] = None):
+    req = urllib.request.Request(url, data=data, method="POST" if data is not None else "GET")
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def push_shard(base_url: str, shard: Shard, timeout: float) -> None:
+    """POSTs one shard frame to a holder's store (server re-verifies the
+    CRC before storing)."""
+    with _urlopen(
+        f"{base_url}/ec/shard/{shard.step}/{shard.idx}", timeout, data=write_shard(shard)
+    ) as resp:
+        resp.read()
+
+
+def fetch_shard(base_url: str, step: int, idx: int, timeout: float) -> Shard:
+    """Fetches + CRC-verifies one shard (IOError on corruption)."""
+    with _urlopen(f"{base_url}/ec/shard/{step}/{idx}", timeout) as resp:
+        return read_shard(resp.read())
+
+
+# Range-striped shard fetch parallelism: parts per shard (0 = auto-size at
+# ~one part per MB of shard frame, capped).  The same receiver-chooses
+# contract as the checkpoint path's chunk striping.
+TPUFT_EC_FETCH_PARTS_ENV = "TPUFT_EC_FETCH_PARTS"
+_MAX_FETCH_PARTS = 8
+
+# Subset-rotation striping (decode each payload range from its own
+# k-subset so every reachable holder's link serves, parity included).
+# Opt-in: the (k+m)/k fan-out wins only when holder LINKS bind; on a
+# CPU-bound host the per-range GF math for parity rows costs more than the
+# idle links were worth (the JAX package's note: about 25% slower on a
+# 1-core CPU host), so operators enable it where reconstruction is genuinely link-bound.
+TPUFT_EC_SUBSET_STRIPE_ENV = "TPUFT_EC_SUBSET_STRIPE"
+
+
+def _subset_stripe_enabled() -> bool:
+    return os.environ.get(TPUFT_EC_SUBSET_STRIPE_ENV, "0") in ("1", "true", "on")
+
+
+def _fetch_parts_for(est_bytes: int) -> int:
+    raw = os.environ.get(TPUFT_EC_FETCH_PARTS_ENV, "0")
+    try:
+        parts = int(raw)
+    except ValueError:
+        parts = 0
+    if parts > 0:
+        return min(parts, _MAX_FETCH_PARTS)
+    return max(1, min(_MAX_FETCH_PARTS, est_bytes // (1 << 20)))
+
+
+def fetch_shard_part(
+    base_url: str, step: int, idx: int, part: int, n: int, timeout: float
+) -> Shard:
+    """Fetches header + payload range ``part`` of ``n`` (NOT CRC-verified:
+    the payload is a fragment; assemblies verify — see write_shard_part)."""
+    with _urlopen(
+        f"{base_url}/ec/shard/{step}/{idx}?part={part}&n={n}", timeout
+    ) as resp:
+        return read_shard(resp.read(), verify_crc=False)
+
+
+def fetch_shard_striped(
+    urls: Sequence[str],
+    step: int,
+    idx: int,
+    timeout: float,
+    est_bytes: int = 0,
+) -> Shard:
+    """Fetches ONE shard as disjoint payload byte ranges pulled in
+    parallel — ``?part=<i>&n=<N>`` splits round-robin across every holder
+    advertising this (idx, digest), or as N parallel connections to a
+    single holder (the parallel-connection regime of the striped donor
+    fetch).  Reassembly is in-order
+    payload concatenation; the whole-payload CRC then verifies the
+    assembly, so a holder serving divergent or misaligned bytes fails the
+    fetch exactly like a torn stream (IOError)."""
+    if not urls:
+        raise IOError(f"ec shard {idx} (step {step}): no holders to fetch from")
+    n = _fetch_parts_for(est_bytes)
+    if n <= 1:
+        return fetch_shard(urls[0], step, idx, timeout)
+
+    def pull_part(p: int) -> Shard:
+        return fetch_shard_part(urls[p % len(urls)], step, idx, p, n, timeout)
+
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        parts = list(pool.map(pull_part, range(n)))
+    first = parts[0]
+    for p in parts[1:]:
+        if (p.digest, p.k, p.m, p.total_len) != (
+            first.digest, first.k, first.m, first.total_len,
+        ):
+            raise IOError(
+                f"ec shard {idx} (step {step}): holders disagree on "
+                "generation/geometry across range parts"
+            )
+    whole = Shard(
+        payload=np.concatenate([np.asarray(p.payload, dtype=np.uint8) for p in parts]),
+        **first.header(),
+    )
+    from torchft_tpu_torch.checkpointing.integrity import verify
+
+    verify(
+        memoryview(whole.payload), whole.crc, whole.algo,
+        f"ec shard {idx} (step {step}, striped reassembly)",
+    )
+    return whole
+
+
+def _reconstruct_subset_striped(
+    usable: Dict[int, List[str]],
+    k: int,
+    m: int,
+    step: int,
+    deadline: float,
+    stats: dict,
+):
+    """Subset-rotation striped reconstruction: with ``h > k`` distinct
+    reachable shard indices, the payload splits into ``h`` byte ranges and
+    each range decodes from its OWN k-subset (Reed-Solomon is positionwise,
+    so per-range decodes concatenate into the whole-stream decode).  The
+    rotation excludes each index from exactly ``h - k`` ranges, so every
+    holder link serves ``k/h`` of a shard instead of one idle-parity setup
+    serving nothing — in the link-bound regime that is the (k+m)/k fan-out
+    the striped donor fetch gets from extra donors, applied to the shard
+    plane.  Integrity: no whole-shard CRC can apply to ranges; the decoded
+    stream's per-buffer CRCs (read_state_dict) verify end to end instead.
+    Raises on any failure — the caller falls back to whole-shard pulls."""
+    from torchft_tpu_torch.checkpointing.serialization import read_state_dict
+    from torchft_tpu_torch.ec.encoder import _SliceStream, decode_data_slices
+
+    idxs = sorted(usable)
+    h = len(idxs)
+    grid = [
+        (r, idx)
+        for r in range(h)
+        for j, idx in enumerate(idxs)
+        # Range r excludes the h - k indices rotating from position r.
+        if not any((r + t) % h == j for t in range(h - k))
+    ]
+
+    def pull_part(job):
+        r, idx = job
+        url = usable[idx][r % len(usable[idx])]
+        return fetch_shard_part(
+            url, step, idx, r, h, max(1.0, deadline - time.monotonic())
+        )
+
+    with ThreadPoolExecutor(max_workers=min(16, len(grid))) as pool:
+        parts = list(pool.map(pull_part, grid))
+    total_len = parts[0].total_len
+    digest = parts[0].digest
+    by_range: Dict[int, Dict[int, np.ndarray]] = {}
+    for (r, idx), p in zip(grid, parts):
+        if (p.digest, p.k, p.m, p.total_len) != (digest, k, m, total_len):
+            raise IOError(
+                f"ec shard {idx} range {r}: generation/geometry mismatch"
+            )
+        by_range.setdefault(r, {})[idx] = np.asarray(p.payload, dtype=np.uint8)
+    per_range = [decode_data_slices(by_range[r], k, m) for r in range(h)]
+    slices = [
+        np.concatenate([per_range[r][j] for r in range(h)]) for j in range(k)
+    ]
+    stats["subset_striped"] = {"ranges": h, "indices": idxs[: h]}
+    return read_state_dict(_SliceStream(slices, total_len))
+
+
+def fetch_inventory(base_url: str, step: int, timeout: float) -> dict:
+    with _urlopen(f"{base_url}/ec/have/{step}", timeout) as resp:
+        return json.loads(resp.read().decode())
+
+
+def reconstruct(
+    holders: Sequence[str],
+    step: int,
+    timeout: float,
+    poll_s: float = 0.3,
+) -> Tuple[object, List[np.ndarray], dict]:
+    """Assembles the step-``step`` state from any ``k`` shard holders.
+
+    Probes every holder's inventory (in parallel), fetches ``k`` distinct
+    shards (data shards preferred — the systematic fast path decodes by
+    concatenation), retries corrupt/failed shards against alternate holders
+    and alternate indices, and polls until the deadline while coverage is
+    still short (a holder's encode for this step may land a moment after
+    its commit).  Returns ``(meta, buffers, stats)``; raises RuntimeError
+    when k distinct shards never became reachable.
+    """
+    if not holders:
+        raise RuntimeError("ec reconstruct: no shard holders")
+    deadline = time.monotonic() + timeout
+    stats: dict = {"holders": len(holders), "probes": 0, "corrupt": 0, "fetch_errors": 0}
+    last_err: Optional[Exception] = None
+    bad: set = set()  # (idx, url) pairs that failed
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            raise RuntimeError(
+                f"ec reconstruct for step {step} timed out: "
+                f"{stats['probes']} probes over {len(holders)} holders, "
+                f"last error: {last_err}"
+            )
+        # Inventory sweep: which holder has which shard indices, grouped
+        # by generation digest — only shards of ONE generation combine.
+        by_digest: Dict[int, Dict[int, List[str]]] = {}
+        geo: Optional[Tuple[int, int, int]] = None
+        per_probe = max(1.0, min(5.0, remaining))
+
+        def probe(url: str):
+            try:
+                return url, fetch_inventory(url, step, per_probe)
+            except Exception as e:  # noqa: BLE001 — a dead holder is data
+                return url, e
+
+        with ThreadPoolExecutor(max_workers=min(16, len(holders))) as pool:
+            outcomes = list(pool.map(probe, holders))
+        stats["probes"] += 1
+        for url, inv in outcomes:
+            if isinstance(inv, Exception):
+                last_err = inv
+                continue
+            if not inv.get("shards"):
+                continue
+            if inv.get("k"):
+                geo = (inv["k"], inv["m"], inv["total_len"])
+            digests = inv.get("digests") or {}
+            for idx in inv["shards"]:
+                d = int(digests.get(str(idx), 0))
+                by_digest.setdefault(d, {}).setdefault(idx, []).append(url)
+        k = geo[0] if geo else 0
+        # The widest-coverage generation wins; committed-step state is
+        # bitwise identical across groups, so multiple digests mean a
+        # divergent encoder (or pre-sync step-0 state) to be excluded.
+        by_idx: Dict[int, List[str]] = {}
+        if by_digest:
+            by_idx = max(by_digest.values(), key=len)
+            if len(by_digest) > 1:
+                stats["digest_groups"] = len(by_digest)
+        usable = {
+            idx: [u for u in urls if (idx, u) not in bad]
+            for idx, urls in by_idx.items()
+        }
+        usable = {idx: urls for idx, urls in usable.items() if urls}
+        if geo and len(usable) >= k:
+            # Shard frame size estimate for the range-striping auto-sizer:
+            # total_len / k data bytes plus a small header.
+            est_shard_bytes = geo[2] // max(1, k)
+            # Subset-rotation striping (opt-in, link-bound deployments):
+            # more reachable indices than k means idle holder links under
+            # whole-shard pulls; per-range k-subset decode spreads the SAME
+            # k shards' worth of bytes over all of them.  Any failure falls
+            # back to the whole-shard path below.
+            if (
+                len(usable) > k
+                and _subset_stripe_enabled()
+                and _fetch_parts_for(est_shard_bytes) > 1
+            ):
+                try:
+                    meta, buffers = _reconstruct_subset_striped(
+                        usable, k, geo[1], step, deadline, stats
+                    )
+                    idxs = sorted(usable)
+                    stats["shards_used"] = idxs
+                    stats["parity_used"] = sum(1 for i in idxs if i >= k)
+                    return meta, buffers, stats
+                except Exception as e:  # noqa: BLE001 — degrade, don't fail
+                    stats["fetch_errors"] += 1
+                    stats.pop("subset_striped", None)
+                    last_err = e
+
+            chosen = sorted(usable)[:k]  # lowest-first: data shards decode by concat
+
+            def pull(idx: int):
+                errs: List[Exception] = []
+                # Range-striped first (disjoint byte ranges in parallel,
+                # round-robin over every same-digest holder of this idx —
+                # the striped-donor fetch's parallelism applied to the
+                # shard plane).  Any failure — including a pre-range
+                # holder serving full frames for part requests, which the
+                # reassembly CRC catches — falls back to the whole-shard
+                # per-holder loop below.
+                if _fetch_parts_for(est_shard_bytes) > 1:
+                    try:
+                        got = fetch_shard_striped(
+                            usable[idx], step, idx,
+                            max(1.0, deadline - time.monotonic()),
+                            est_bytes=est_shard_bytes,
+                        )
+                        stats["striped_fetches"] = stats.get("striped_fetches", 0) + 1
+                        return got
+                    except Exception as e:  # noqa: BLE001 — degrade, don't fail
+                        stats["fetch_errors"] += 1
+                        errs.append(e)
+                for url in usable[idx]:
+                    try:
+                        return fetch_shard(url, step, idx, max(1.0, deadline - time.monotonic()))
+                    except IOError as e:
+                        stats["corrupt"] += 1
+                        bad.add((idx, url))
+                        errs.append(e)
+                    except Exception as e:  # noqa: BLE001 — holder died mid-fetch
+                        stats["fetch_errors"] += 1
+                        bad.add((idx, url))
+                        errs.append(e)
+                return errs[-1] if errs else RuntimeError(f"no holder for shard {idx}")
+
+            with ThreadPoolExecutor(max_workers=min(16, k)) as pool:
+                pulls = list(pool.map(pull, chosen))
+            got = [p for p in pulls if isinstance(p, Shard)]
+            if len(got) == k:
+                meta, buffers = decode_stream(got)
+                stats["shards_used"] = [s.idx for s in got]
+                stats["parity_used"] = sum(1 for s in got if s.idx >= k)
+                return meta, buffers, stats
+            last_err = next(p for p in pulls if not isinstance(p, Shard))
+            # Loop: the bad-set now excludes the failures; alternate indices
+            # or holders may still cover k.
+            continue
+        time.sleep(min(poll_s, max(0.0, deadline - time.monotonic())))
+
+
+# -- Manager-facing coordinator ----------------------------------------------
+
+
+class ECPlane:
+    """Per-group EC coordinator (one per Manager, rank 0 of the group).
+
+    Write side: :meth:`on_snapshot` runs on the checkpoint transport's
+    background snapshotter after every flatten — it encodes the canonical
+    stream into ``k + m`` shards inside the overlapped ``ec_encode`` span,
+    stores this group's placement-assigned shards locally, and (as the
+    step's rotated designated pusher) pushes parity shards to the peers
+    that own them, so holders whose own pipeline is behind still hold
+    their parity.  Data shards are never pushed: every group materializes
+    its own assignment from its own (replicated) state — zero wire cost.
+
+    Read side: :meth:`reconstruct_state` is the recovery planner's
+    donor-free fallback — probe the peer set's shard inventories, fetch any
+    ``k``, decode, hand back (meta, buffers) bitwise-equal to a donor
+    fetch.
+
+    The replicated-state assumption: cross-group replica state is
+    IDENTICAL at a committed step (the torchft DDP/HSDP model) — that is
+    what lets every group encode the same canonical stream independently.
+    """
+
+    def __init__(
+        self,
+        config: ECConfig,
+        store: Optional[ShardStore] = None,
+        spans=None,
+        metrics=None,
+        resolve_peer: Optional[Callable[[str], str]] = None,
+        push_timeout: float = 30.0,
+    ) -> None:
+        self.config = config
+        self.store = store if store is not None else ShardStore(retain=config.retain)
+        self._spans = spans
+        self._metrics = metrics
+        # manager address -> shard-endpoint base URL (the peer's checkpoint
+        # transport metadata); resolution dials the peer's manager, so the
+        # result is cached per address.
+        self._resolve_peer = resolve_peer
+        self._peer_http: Dict[str, str] = {}
+        self._push_timeout = push_timeout
+        self._lock = threading.Lock()
+        self._peer_ranks: List[int] = []
+        self._peer_addrs: Dict[int, str] = {}
+        self._self_rank: Optional[int] = None
+        self._last_encoded_step = -1
+
+    # -- membership ---------------------------------------------------------
+
+    def set_peers(
+        self, ranks: Sequence[int], addrs: Sequence[str], self_rank: Optional[int]
+    ) -> None:
+        """Updates the placement membership from the latest quorum's
+        participant list (sorted replica ranks + manager addresses)."""
+        with self._lock:
+            self._peer_ranks = sorted(ranks)
+            self._peer_addrs = dict(zip(ranks, addrs))
+            self._self_rank = self_rank
+
+    def _membership(self):
+        with self._lock:
+            return list(self._peer_ranks), dict(self._peer_addrs), self._self_rank
+
+    def wants_snapshot(self, step: int) -> bool:
+        """Whether enqueueing a snapshot for ``step`` would lead to an
+        encode — the Manager asks BEFORE enqueueing, because the flatten +
+        CRC pass the snapshotter pays happens regardless of whether
+        :meth:`on_snapshot` then encodes; skipping the enqueue when the
+        interval/membership/step gates would drop it anyway saves a full
+        state-sized host copy per gated step."""
+        ranks, _, self_rank = self._membership()
+        if not (
+            self.config.enabled
+            and self_rank is not None
+            and len(ranks) >= 2
+            and step > 0
+            and step > self._last_encoded_step
+            and step % self.config.interval == 0
+        ):
+            return False
+        # Placement gate: with more groups than shards, the rotation gives
+        # this group zero assignments on some steps; unless it is also the
+        # step's designated parity pusher, on_snapshot would encode nothing
+        # — so don't pay the flatten for it.
+        return bool(
+            shards_for_holder(step, self_rank, ranks, self.config.n_shards)
+            or ranks[step % len(ranks)] == self_rank
+        )
+
+    def _http_base(self, addr: str) -> Optional[str]:
+        if self._resolve_peer is None:
+            return addr  # tests/benches hand shard URLs directly
+        base = self._peer_http.get(addr)
+        if base is None:
+            try:
+                base = self._resolve_peer(addr)
+            except Exception as e:  # noqa: BLE001 — a dead peer resolves later
+                logger.debug("ec peer %s unresolvable: %s", addr, e)
+                return None
+            self._peer_http[addr] = base
+        return base
+
+    # -- write side (snapshotter thread) ------------------------------------
+
+    def on_snapshot(self, step: int, meta, buffers) -> None:
+        """Encode + place one committed step's shard generation.  Runs on
+        the background snapshotter — never on the train loop — and must
+        never raise (a failed encode degrades to donor-path-only healing
+        for this step)."""
+        cfg = self.config
+        ranks, addrs, self_rank = self._membership()
+        if not cfg.enabled or self_rank is None or len(ranks) < 2:
+            return
+        if step <= 0:
+            # Pre-init-sync states legitimately DIVERGE across groups
+            # (different random init until participant 0's weights land);
+            # encoding them would spread mixed-generation shards that can
+            # never combine.  Step 0 heals stay on the donor path.
+            return
+        if step <= self._last_encoded_step or step % cfg.interval != 0:
+            return
+        try:
+            # Materialize ONLY what this group needs: its placement-assigned
+            # shards (data assignments are free slices) plus — when it is
+            # the step's designated pusher — every parity shard.  Each
+            # parity shard costs a full GF pass over the stream, so the
+            # fleet-wide encode cost per step is ~(m/n + m) passes total,
+            # not n*m.
+            own = shards_for_holder(step, self_rank, ranks, cfg.n_shards)
+            is_pusher = ranks[step % len(ranks)] == self_rank
+            want = set(own)
+            if is_pusher:
+                want |= set(range(cfg.k, cfg.n_shards))
+            if not want:
+                self._last_encoded_step = step
+                return
+            if self._spans is not None:
+                with self._spans.span("ec_encode", step=step) as sp:
+                    shards = encode_shards(meta, buffers, cfg.k, cfg.m, step, want)
+                encode_ms = sp.duration_ms
+            else:
+                t0 = time.monotonic()
+                shards = encode_shards(meta, buffers, cfg.k, cfg.m, step, want)
+                encode_ms = (time.monotonic() - t0) * 1e3
+            self._last_encoded_step = step
+            for idx in own:
+                self.store.put(shards[idx])
+            pushed, push_errors, push_bytes = self._push_parity(
+                step, shards, ranks, addrs, self_rank, is_pusher
+            )
+            if self._metrics is not None:
+                any_shard = next(iter(shards.values()))
+                self._metrics.emit(
+                    "ec_push",
+                    step=step,
+                    k=cfg.k,
+                    m=cfg.m,
+                    encode_ms=round(encode_ms, 3),
+                    shard_bytes=any_shard.nbytes,
+                    held=len(self.store.have(step)),
+                    pushed=pushed,
+                    push_errors=push_errors,
+                    push_bytes=push_bytes,
+                )
+        except Exception as e:  # noqa: BLE001 — encode must not kill the snapshotter
+            logger.exception("ec encode for step %s failed: %s", step, e)
+
+    def _push_parity(self, step, shards, ranks, addrs, self_rank, is_pusher):
+        """The step's designated pusher sends each parity shard to its
+        assigned holder.  Rotating the pusher (not broadcasting from every
+        group) keeps wire cost at one copy of the parity per step for the
+        whole cluster; receivers verify the CRC and store idempotently."""
+        cfg = self.config
+        pushed = errors = nbytes = 0
+        if not is_pusher:
+            return pushed, errors, nbytes
+        for idx in range(cfg.k, cfg.n_shards):
+            holder = shard_holder(step, idx, ranks)
+            if holder == self_rank:
+                continue
+            base = self._http_base(addrs.get(holder, ""))
+            if not base:
+                errors += 1
+                continue
+            try:
+                push_shard(base, shards[idx], self._push_timeout)
+                pushed += 1
+                nbytes += shards[idx].nbytes
+            except Exception as e:  # noqa: BLE001 — push is best-effort
+                errors += 1
+                # Drop the cached URL: a respawned peer keeps its manager
+                # address but gets a fresh checkpoint-HTTP port, and a
+                # cache that never invalidates would silently bleed
+                # redundancy on every following step.
+                self._peer_http.pop(addrs.get(holder, ""), None)
+                logger.warning(
+                    "ec parity push shard %d step %d to rank %s failed: %s",
+                    idx, step, holder, e,
+                )
+        return pushed, errors, nbytes
+
+    # -- read side (recovery planner) ----------------------------------------
+
+    def holder_urls(self) -> List[str]:
+        """Shard-endpoint base URLs of every resolvable peer (self's own
+        store is reachable through its local transport too, but a fresh
+        incarnation's store is empty — peers are the interesting set)."""
+        ranks, addrs, self_rank = self._membership()
+        urls: List[str] = []
+        for rank in ranks:
+            if rank == self_rank:
+                continue
+            base = self._http_base(addrs.get(rank, ""))
+            if base:
+                urls.append(base)
+        return urls
+
+    def reconstruct_state(self, step: int, timeout: float):
+        """(meta, buffers, stats) for ``step`` from any ``k`` holders."""
+        try:
+            return reconstruct(self.holder_urls(), step, timeout)
+        except Exception:
+            # A failed reconstruction may mean stale cached peer URLs
+            # (respawned peers on fresh ports); the next attempt should
+            # re-resolve everything rather than retry dead endpoints.
+            self._peer_http.clear()
+            raise
+
+    def coverage(self) -> Tuple[int, int]:
+        return self.store.coverage()
+
+    def reshard(self) -> int:
+        """Proactive re-placement after a membership change: re-derives the
+        newest held generation's placement under the NEW peer set and
+        pushes every held shard whose new holder is a peer.  Called by the
+        Manager on the quorum thread right after a participant-set change
+        (set_peers has already installed the new membership), so coverage
+        is restored BEFORE the next fault instead of waiting for the next
+        encode interval — the window the ``tpuft_ec_shard_coverage``
+        lighthouse alert fires on.  Keeps the local copies (extra
+        redundancy is free; retention evicts them); best-effort like every
+        push path — returns the number of shards actually pushed."""
+        cfg = self.config
+        ranks, addrs, self_rank = self._membership()
+        if not cfg.enabled or self_rank is None or len(ranks) < 2:
+            return 0
+        step = self.store.latest_step()
+        if step < 0:
+            return 0
+        pushed = errors = nbytes = 0
+        for idx in self.store.have(step):
+            holder = shard_holder(step, idx, ranks)
+            if holder == self_rank:
+                continue
+            shard = self.store.get(step, idx)
+            if shard is None:
+                continue  # evicted between have() and get()
+            base = self._http_base(addrs.get(holder, ""))
+            if not base:
+                errors += 1
+                continue
+            try:
+                push_shard(base, shard, self._push_timeout)
+                pushed += 1
+                nbytes += shard.nbytes
+            except Exception as e:  # noqa: BLE001 — reshard is best-effort
+                errors += 1
+                self._peer_http.pop(addrs.get(holder, ""), None)
+                logger.warning(
+                    "ec reshard shard %d step %d to rank %s failed: %s",
+                    idx, step, holder, e,
+                )
+        if self._metrics is not None and (pushed or errors):
+            self._metrics.emit(
+                "ec_push",
+                step=step,
+                k=cfg.k,
+                m=cfg.m,
+                reshard=True,
+                held=len(self.store.have(step)),
+                pushed=pushed,
+                push_errors=errors,
+                push_bytes=nbytes,
+            )
+        return pushed

@@ -7,9 +7,18 @@ training loop needs:
     overlaps the forward and backward passes;
   - reconfiguration: a new quorum id rebuilds the cross-group collective
     under a fresh store prefix;
-  - healing: a group that is behind fetches the state of a group at the
-    quorum's max step through the checkpoint transport (one donor), while
-    up-to-date groups serve theirs; the healer then fast-forwards its step;
+  - healing: a group that is behind fetches the state of the groups at the
+    quorum's max step through the checkpoint transport, striped over up to
+    ``TPUFT_MAX_HEAL_DONORS`` donors (4; 0 for no cap; one for a
+    point-to-point transport), while up-to-date groups serve theirs; the
+    healer then fast-forwards its step.  A failed fetch latches, and the
+    next quorum's retry waits a decorrelated-jitter backoff
+    (``TPUFT_HEAL_BACKOFF_BASE_S``, 0.2; ``TPUFT_HEAL_BACKOFF_CAP_S``, 5);
+  - erasure-coded state (``TPUFT_EC_K`` > 0, :mod:`torchft_tpu_torch.ec`):
+    each committed step's state is also encoded into k + m shards on the
+    transport's background snapshotter and spread over the participants, so
+    a healer whose donors are gone (``TPUFT_EC_MODE=fallback``) or any
+    healer (``prefer``) rebuilds the max-step state from any k holders;
   - error latching: failures never raise into the train loop; they fail
     the step's commit vote;
   - commit protocol: an optimizer step lands only when every local rank of
@@ -25,7 +34,9 @@ Observability, as the JAX Manager's: with ``TPUFT_METRICS_PATH`` set, each
 phase runs inside a span (``quorum`` with its minted trace id on the quorum
 RPC, ``configure``, ``heal``, ``allreduce_merge``, ``commit_vote``), the
 lifecycle events (``quorum``, ``reconfigure``, ``membership_change``,
-``heal_start``, ``heal_fetched``, ``error``, ``commit``) go into the stream,
+``heal_start``, ``heal_fetched``, ``ec_push``, ``ec_reconstruct``,
+``error``, ``commit``) go into the stream (the ``ec_reconstruct`` and
+overlapped ``ec_encode`` spans too),
 and a ``step_summary`` follows each vote with the step's phases, its wall
 and busy time and its goodput-ledger causes.  The busy-time EWMA rides the
 lighthouse heartbeats (``set_status``) and the ledger's counters fields
@@ -56,7 +67,9 @@ import torch
 from torchft_tpu_torch._native import ManagerClient, ManagerServer, StoreClient, StoreServer
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collective
+from torchft_tpu_torch.ec import ECConfig, ECPlane
 from torchft_tpu_torch.futures import completed_future, device_get, future_timeout, then
+from torchft_tpu_torch.ha.backoff import DecorrelatedBackoff
 from torchft_tpu_torch.metrics import MetricsLogger
 from torchft_tpu_torch.obs.flight import mint_trace_id
 from torchft_tpu_torch.obs.ledger import StepLedger
@@ -65,8 +78,17 @@ from torchft_tpu_torch.obs.spans import SpanTracker, StepTimeStats
 MANAGER_ADDR_KEY = "manager_addr"
 REPLICA_ID_KEY = "replica_id"
 TPUFT_LIGHTHOUSE_ENV = "TPUFT_LIGHTHOUSE"
+# Donors one heal stripes over (0: no cap).
+TPUFT_MAX_HEAL_DONORS_ENV = "TPUFT_MAX_HEAL_DONORS"
+# The heal-retry backoff's first (and least) and largest sleep, seconds.
+TPUFT_HEAL_BACKOFF_BASE_ENV = "TPUFT_HEAL_BACKOFF_BASE_S"
+TPUFT_HEAL_BACKOFF_CAP_ENV = "TPUFT_HEAL_BACKOFF_CAP_S"
 
 logger = logging.getLogger("torchft_tpu_torch.manager")
+
+
+# The transport's last_fetch fields that ride the heal span and event.
+_FETCH_FIELDS = ("bytes", "fetch_s", "mode", "n_stripes", "workers", "crc_ms", "failovers")
 
 
 class ExceededMaxRetriesError(RuntimeError):
@@ -75,6 +97,23 @@ class ExceededMaxRetriesError(RuntimeError):
 
 def _ms(t: timedelta) -> int:
     return int(t.total_seconds() * 1000)
+
+
+def _env_float(name: str, default: float) -> float:
+    """A float knob; a malformed value falls back (it must not abort
+    recovery)."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        logger.warning("ignoring malformed %s", name)
+        return default
+
+
+def _max_heal_donors() -> int:
+    try:
+        return int(os.environ.get(TPUFT_MAX_HEAL_DONORS_ENV, "4"))
+    except ValueError:
+        return 4
 
 
 def _divide(out: Any, num: int, in_place: bool) -> Any:
@@ -241,9 +280,40 @@ class Manager:
         # and the train thread's CUDA stream it is ordered on.
         self._snapshot_window: Optional[tuple] = None
         self._train_stream: Optional[Any] = None
+
+        # The erasure-coded plane, where the transport can host shards.
+        self._ec: Optional[ECPlane] = None
+        ec_cfg = ECConfig.from_env()
+        if ec_cfg.enabled and hasattr(checkpoint_transport, "attach_shard_store"):
+            self._ec = ECPlane(ec_cfg, spans=self._spans, metrics=self._metrics,
+                               resolve_peer=self._dial_peer_transport,
+                               push_timeout=timeout.total_seconds())
+        self._ec_enqueued_step = -1
+        # Heal-retry pacing after consecutive failed fetches.
+        heal_base_s = _env_float(TPUFT_HEAL_BACKOFF_BASE_ENV, 0.2)
+        if heal_base_s <= 0:
+            logger.warning("ignoring non-positive %s=%s; using 0.2",
+                           TPUFT_HEAL_BACKOFF_BASE_ENV, heal_base_s)
+            heal_base_s = 0.2
+        self._heal_backoff = DecorrelatedBackoff(
+            base_s=heal_base_s, cap_s=_env_float(TPUFT_HEAL_BACKOFF_CAP_ENV, 5.0))
+        self._heal_failures = 0
         if checkpoint_transport is not None and hasattr(checkpoint_transport,
                                                         "set_span_tracker"):
             checkpoint_transport.set_span_tracker(self._spans)
+        if self._ec is not None:
+            checkpoint_transport.attach_shard_store(self._ec.store)
+            checkpoint_transport.set_snapshot_hook(self._ec.on_snapshot)
+
+    def _dial_peer_transport(self, manager_addr: str) -> str:
+        """A peer manager's checkpoint-transport URL for this local rank
+        (its shard endpoints live on the same server)."""
+        client = ManagerClient(manager_addr, connect_timeout_ms=_ms(self._connect_timeout))
+        try:
+            return client._checkpoint_metadata(self._rank, timeout_ms=_ms(self._timeout),
+                                               trace_id=self._trace_id)
+        finally:
+            client.close()
 
     def _log(self, level: int, msg: str) -> None:
         logger.log(level, f"[{self._replica_id}/{self._rank} - step {self._step}] {msg}")
@@ -275,6 +345,16 @@ class Manager:
             self._ar_t_first = self._ar_t_last = None
             self._d2h_bytes = self._h2d_bytes = 0
             self._summary_extra = {}
+        # The erasure encoder's feed: at the top of a step the state is the
+        # last committed one (a failed vote left it unchanged), snapshotted
+        # here on the train thread's stream as a non-serving snapshot; the
+        # flatten, encode and parity pushes run on the transport's thread.
+        transport = self._checkpoint_transport
+        if (self._ec is not None and self._step != self._ec_enqueued_step
+                and self._ec.wants_snapshot(self._step)
+                and hasattr(transport, "enqueue_snapshot")):
+            transport.enqueue_snapshot(self._step, self._manager_state_dict(), serve=False)
+            self._ec_enqueued_step = self._step
         self._quorum_future = self._executor.submit(self._async_quorum)
         if not self._use_async_quorum:
             self.wait_quorum()
@@ -327,6 +407,12 @@ class Manager:
                 commit_failures=self._commit_failures,
                 trace_id=self._trace_id,
             )
+        if self._ec is not None:
+            # The shard placement's membership: every participant.
+            p_ranks = list(quorum.participant_replica_ranks)
+            p_addrs = list(quorum.participant_manager_addresses)
+            if p_ranks and len(p_ranks) == len(p_addrs):
+                self._ec.set_peers(p_ranks, p_addrs, quorum.replica_rank)
         # With async quorum only the up-to-date groups take part in this
         # step: a healing group's max_replica_rank is None.  With sync
         # quorum every group is healed before the step runs.
@@ -368,6 +454,14 @@ class Manager:
                 list(quorum.recover_dst_replica_ranks_all)
                 if transport.serves_all_donors else list(quorum.recover_dst_replica_ranks)
             )
+            if (transport.serves_all_donors and not serve_dsts and quorum.heal
+                    and quorum.max_step == self._step):
+                # A group re-fetching after failed commits holds the max-step
+                # state itself, and so may its peers: every group the quorum
+                # names as its donors may be re-fetching from it, and none
+                # is told to serve.  Serving a copy is always safe.
+                serve_dsts = (list(quorum.recover_src_replica_ranks)
+                              or [cast(int, quorum.recover_src_replica_rank)])
             if serve_dsts:
                 self._log(logging.INFO, f"serving checkpoint at step {quorum.max_step} "
                           f"to replicas {serve_dsts}")
@@ -384,36 +478,149 @@ class Manager:
                 self._snapshot_window = (t_snap, time.monotonic())
             if quorum.heal:
                 self._healing = True
-                src_rank = cast(int, quorum.recover_src_replica_rank)
-                self._set_status("heal")
-                self._log(logging.INFO, f"healing from replica {src_rank} at step {quorum.max_step}")
-                self._metrics.emit("heal_start", src_rank=src_rank, max_step=quorum.max_step,
-                                   n_donors=1)
-                with self._spans.span("heal", step=quorum.max_step,
-                                      src_rank=src_rank) as sp_heal:
-                    donor = ManagerClient(
-                        quorum.recover_src_manager_address,
-                        connect_timeout_ms=_ms(self._connect_timeout),
-                    )
-                    try:
-                        meta = donor._checkpoint_metadata(
-                            self._rank, timeout_ms=_ms(self._timeout), trace_id=self._trace_id
-                        )
-                    finally:
-                        donor.close()
-                    self._pending_state_dict = transport.recv_checkpoint(
-                        src_rank=src_rank, metadata=meta, step=quorum.max_step,
-                        timeout=self._timeout.total_seconds(),
-                    )
-                    fetched = getattr(transport, "last_fetch", None) or {}
-                    sp_heal.fields.update(fetched)
-                self._metrics.emit("heal_fetched", src_rank=src_rank, step=quorum.max_step,
-                                   heal_ms=sp_heal.duration_ms, n_donors=1, **fetched)
-                self._step = quorum.max_step
+                self._heal(quorum)
         elif quorum.heal:
             self._healing = True
         # Quorum and heal resolved: the group trains until the vote.
         self._set_status("step")
+
+    def _heal(self, quorum: Any) -> None:
+        """Fetches the quorum's max-step state: striped over the donors the
+        quorum lists (capped; the primary alone for a point-to-point
+        transport), or rebuilt from erasure shards when the donors fail
+        (``fallback``) or first (``prefer``); raises when neither works."""
+        transport = self._checkpoint_transport
+        max_step = quorum.max_step
+        src_rank = cast(int, quorum.recover_src_replica_rank)
+        donor_ranks = list(quorum.recover_src_replica_ranks) or [src_rank]
+        donor_addrs = [a for a in (list(quorum.recover_src_manager_addresses)
+                                   or [quorum.recover_src_manager_address]) if a]
+        max_donors = _max_heal_donors()
+        if max_donors > 0:
+            donor_ranks, donor_addrs = donor_ranks[:max_donors], donor_addrs[:max_donors]
+        if not transport.serves_all_donors:
+            # Only the primary sends to this group on a point-to-point transport.
+            donor_ranks, donor_addrs = donor_ranks[:1], donor_addrs[:1]
+        if self._heal_failures > 0:
+            delay = self._heal_backoff.next()
+            self._log(logging.WARNING, f"heal retry #{self._heal_failures}: backing off "
+                      f"{delay:.2f}s before re-fetching")
+            time.sleep(delay)
+        self._set_status("heal")
+        prefer_ec = self._ec is not None and self._ec.config.mode == "prefer"
+        state: Optional[Dict[str, Any]] = None
+        fetch_err: Optional[Exception] = None
+        if not prefer_ec and donor_addrs:
+            state, fetch_err = self._heal_from_donors(src_rank, max_step, donor_ranks, donor_addrs)
+        elif not donor_addrs:
+            fetch_err = RuntimeError("quorum response names no reachable donor")
+        if state is None and self._ec is not None:
+            state = self._heal_from_shards(max_step, fetch_err)
+        if state is None and prefer_ec and donor_addrs:
+            # prefer falls back to the donors when the shards do not cover.
+            state, fetch_err = self._heal_from_donors(src_rank, max_step, donor_ranks, donor_addrs)
+        if state is None:
+            self._heal_failures += 1
+            raise fetch_err if fetch_err is not None else RuntimeError(
+                "heal failed with no donors and no shard coverage")
+        self._heal_failures = 0
+        self._heal_backoff.reset()
+        self._pending_state_dict = state
+        self._step = max_step
+
+    def _heal_from_donors(self, src_rank: int, max_step: int, donor_ranks: List[int],
+                          donor_addrs: List[str]) -> tuple:
+        """(state, None) from a striped donor fetch, or (None, error)."""
+        transport = self._checkpoint_transport
+        assert transport is not None
+        # "healing from replica" is a grep contract of the kill drives.
+        self._log(logging.INFO, f"healing from replica {src_rank} at step {max_step} via "
+                  f"{len(donor_addrs)} donor(s) {list(zip(donor_ranks, donor_addrs))}")
+        self._metrics.emit("heal_start", src_rank=src_rank, max_step=max_step,
+                           n_donors=len(donor_addrs))
+        try:
+            with self._spans.span("heal", step=max_step, src_rank=src_rank) as sp_heal:
+                metas, used = self._resolve_donor_metadatas(donor_ranks, donor_addrs)
+                state = transport.recv_checkpoint(
+                    src_rank=used[0], metadata=metas if len(metas) > 1 else metas[0],
+                    step=max_step, timeout=self._timeout.total_seconds(),
+                )
+                fetched = {k: v for k, v in (getattr(transport, "last_fetch", None) or {}).items()
+                           if k in _FETCH_FIELDS}
+                sp_heal.fields.update(fetched)
+            fetched["n_donors"] = len(metas)
+            self._metrics.emit("heal_fetched", src_rank=used[0], step=max_step,
+                               heal_ms=sp_heal.duration_ms, **fetched)
+            return state, None
+        except Exception as e:  # noqa: BLE001 - the shards may still heal this round
+            self._log(logging.WARNING, f"donor heal fetch failed: {e}")
+            return None, e
+
+    def _heal_from_shards(self, max_step: int, fetch_err: Optional[Exception]
+                          ) -> Optional[Dict[str, Any]]:
+        """The max-step state from any k shard holders, built as a donor
+        fetch builds it (bitwise the same); None when the shards never
+        covered k (the caller latches the donor error)."""
+        assert self._ec is not None
+        if max_step <= 0:
+            # No generation of step 0 exists (the groups' initial states
+            # differ until the first sync).
+            return None
+        if fetch_err is not None:
+            self._log(logging.WARNING, f"donor path exhausted ({fetch_err}); reconstructing "
+                      f"step {max_step} from erasure shards")
+        transport = self._checkpoint_transport
+        try:
+            with self._spans.span("ec_reconstruct", step=max_step) as sp:
+                meta, buffers, stats = self._ec.reconstruct_state(
+                    max_step, timeout=self._timeout.total_seconds())
+                state = transport.materialize(meta, buffers)
+            self._metrics.emit(
+                "ec_reconstruct", step=max_step, reconstruct_ms=sp.duration_ms,
+                **{k: v for k, v in stats.items()
+                   if k in ("holders", "probes", "corrupt", "fetch_errors", "shards_used",
+                            "parity_used")},
+            )
+            self._log(logging.INFO, f"reconstructed step {max_step} from erasure shards "
+                      f"{stats.get('shards_used')} ({stats['holders']} holders, "
+                      f"{stats.get('parity_used', 0)} parity)")
+            return state
+        except Exception as e:  # noqa: BLE001 - latched by the caller
+            self._log(logging.WARNING, f"erasure reconstruction failed: {e}")
+            return None
+
+    def _resolve_donor_metadatas(self, donor_ranks: List[int], donor_addrs: List[str]
+                                 ) -> tuple:
+        """Each donor's transport URL, dialled in parallel (one hung donor
+        costs one timeout); an unreachable donor is left out.  Raises when
+        none answers."""
+        pairs = list(zip(donor_ranks, donor_addrs))
+
+        def dial(pair: tuple) -> tuple:
+            try:
+                return self._dial_peer_transport(pair[1]), None
+            except Exception as e:  # noqa: BLE001 - reported per donor
+                return None, e
+
+        if len(pairs) == 1:
+            outcomes = [dial(pairs[0])]
+        else:
+            with ThreadPoolExecutor(max_workers=len(pairs),
+                                    thread_name_prefix="tpuft_donor_dial") as pool:
+                outcomes = list(pool.map(dial, pairs))
+        metas: List[str] = []
+        used: List[int] = []
+        last_err: Optional[Exception] = None
+        for (rank_i, addr_i), (meta, err) in zip(pairs, outcomes):
+            if err is None:
+                metas.append(meta)
+                used.append(rank_i)
+            else:
+                last_err = err
+                self._log(logging.WARNING, f"donor {rank_i} ({addr_i}) unreachable: {err}")
+        if not metas:
+            raise RuntimeError(f"no heal donor reachable (tried {len(pairs)}): {last_err}")
+        return metas, used
 
     def _on_membership_change(self, quorum: Any, configure_ms: float,
                               last_configure: Dict[str, Any]) -> None:
@@ -424,6 +631,13 @@ class Manager:
         old, self._last_participants = self._last_participants, new
         if old == new:
             return
+        if self._ec is not None:
+            # Re-place the newest shard generation under the new membership
+            # now, not at the next encode.
+            try:
+                self._ec.reshard()
+            except Exception as e:  # noqa: BLE001 - best effort
+                self._log(logging.WARNING, f"ec reshard failed: {e}")
         joined, left = sorted(set(new) - set(old or [])), sorted(set(old or []) - set(new))
         mode = last_configure.get("mode", "unknown")
         self._metrics.emit(
@@ -613,8 +827,11 @@ class Manager:
         )
         step_fields = self._observe_step(vote_step, committed, lanes)
         self._spans.step_summary(vote_step, committed=committed, **step_fields, **ar_fields)
-        if self._checkpoint_transport is not None:
-            # The weights are about to change: stop serving the snapshot.
+        if committed and self._checkpoint_transport is not None:
+            # The weights are about to change: close the serving window.  A
+            # failed vote leaves the state, and so the served copy, as it
+            # is: a healer still fetching (or failing a stripe over to this
+            # group after another donor died) goes on.
             self._checkpoint_transport.disallow_checkpoint()
         if committed:
             self._step += 1
@@ -765,11 +982,17 @@ class Manager:
         group's heartbeats (rank 0 only)."""
         if self._manager_server is None:
             return
+        ec_held, ec_step, ec_k = -1, -1, -1
+        if self._ec is not None:
+            # The shard coverage: shards held at the newest step held (an
+            # empty store reports 0 at step 0), and k.
+            step, count = self._ec.coverage()
+            ec_held, ec_step, ec_k = count, max(0, step), self._ec.config.k
         lk = self._link_ewma
         self._manager_server.set_status(
             self._step, state, self._step_stats.ewma_ms, self._step_stats.last_ms,
-            self._ar_gbps, -1, -1, -1, lk.get("recv_gbps", -1.0), lk.get("send_gbps", -1.0),
-            lk.get("rtt_ms", -1.0),
+            self._ar_gbps, ec_held, ec_step, ec_k, lk.get("recv_gbps", -1.0),
+            lk.get("send_gbps", -1.0), lk.get("rtt_ms", -1.0),
         )
 
     # -- state --------------------------------------------------------------
