@@ -136,16 +136,46 @@ result):
    verify ms, the erasure encode and reconstruct ms, the failover heal's
    seconds, each SIGKILL to group 2's first merged commit, each process's
    peak device memory.
-12. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
-   the phase 5 run, on the DiLoCo run as ``launches_diloco`` and on the
-   healing run as ``launches_healing``), the run's seconds, then the last
-   line, ``{"ok": true, "device": {...}}``.
+12. Elastic: ``torchft_tpu_torch.launch``'s Launcher runs three groups
+   of this script's ``--elastic-group`` mode and one hot spare on the card
+   (an external lighthouse, one metrics stream, the native 2-lane ring on
+   the f32 wire), each training the flagship at full width and depth under
+   the elastic batch engine (``TPUFT_ELASTIC_GLOBAL_BATCH`` 48,
+   ``TPUFT_ELASTIC_MICROBATCH`` 16: one microstep of 16 a group at three
+   participants, 16 + 8 at two).  A group goes through the port's
+   ``replica_env()`` (a spare builds the model, starts the card and loads
+   the kernels, then waits for its id) and ``make_manager`` (the drain
+   watcher attached).  (a) ``Launcher.drain(2)`` while group 2's step is in
+   flight: the spare adopts group 2 and heals; (b) SIGKILL of group 1
+   ELASTIC_KILL_DELAY_S into a step: the refilled spare adopts it and
+   heals.  Asserted: (a) the donor commits
+   its step in flight, exits 0 through ``complete_drain`` with its marker,
+   and the lighthouse's next quorum leaves it out; no survivor fails a
+   commit from the first three-way merge to the SIGKILL; every committed
+   ``step_summary`` carries ``elastic_global_batch`` 48, the survivors'
+   ``elastic_participants`` run 3 -> 2 -> 3 and their steps at two run
+   microsteps of 16 and 8; every survivor reconfigure of (a) is
+   incremental with the 0 -> 1 edge's lanes reused; the replacement is
+   the adopted spare and it healed; (b) one adoption and a heal; every
+   merged step ends with one params_sha256; K1-K5 launch 12 / 12 / 12 /
+   1 / 1 times a microstep in every process; committed steps ran the
+   native 2-lane ring on the f32 wire.  Printed: each transition's
+   ``obs.report.deadwindow`` dead time, its reconfigures' modes and ms, the
+   drain notice to the donor's exit, adoption and fault to the first
+   merged commit (the SIGKILL's beside phases 6 and 11's cold restarts),
+   each process's peak device memory.
+13. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
+   the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
+   healing run as ``launches_healing`` and on the elastic run as
+   ``launches_elastic``), the run's seconds, then the last line,
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -1925,8 +1955,8 @@ def healing_phase(card: str, device: str = "cuda") -> dict:
     restarted with TPUFT_EC_MODE=prefer: it heals from the survivors'
     shards.  (c) Group 2 is SIGKILLed and restarted on the donor path;
     group 0's link is paced and group 0 is SIGKILLed in the middle of the
-    fetch: the stripes fail over to group 1.  Returns the K1-K5 launches of
-    every process."""
+    fetch: the stripes fail over to group 1.  Returns what
+    :func:`heal_checks` returns."""
     from torchft_tpu_torch._native import LighthouseServer
     from torchft_tpu_torch.models import flagship_config
     from torchft_tpu_torch.obs import report
@@ -2055,7 +2085,8 @@ def healing_phase(card: str, device: str = "cuda") -> dict:
 def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: float,
                 device: str) -> dict:
     """Phase 11's assertions and prints; returns the K1-K5 launches of all
-    its processes."""
+    its processes and the seconds from each SIGKILL of group 2 to its
+    restart's first merged commit."""
     from torchft_tpu_torch.models import flagship_config
 
     cfg, _, _ = flagship_config()
@@ -2176,15 +2207,434 @@ def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: flo
           f"(group 0 paced to {HEAL_PACE_MBPS:.0f} MB/s, SIGKILLed "
           f"{HEAL_KILL_DELAY_S:.1f} s into its first stripe) ({card})", flush=True)
 
+    recovery = {}
     for name, key, n in (("kill_b", (2, 2), 3), ("kill_c", (2, 3), 2),
                          ("kill_donor", (2, 3), 2)):
         r = first_merged(key, n, after=events[name])
-        print(f"  {name}: SIGKILL -> group 2's first merged commit {r['t'] - events[name]:.3f} "
+        recovery[name] = r["t"] - events[name]
+        print(f"  {name}: SIGKILL -> group 2's first merged commit {recovery[name]:.3f} "
               f"s ({card})", flush=True)
     print(f"  healing phase: {phase_s:.1f} s ({card})", flush=True)
     print("HEALING " + json.dumps({"modes": modes, "striped": fa, "failover": fc,
                                    "reconstruct": recon[0], "encode_ms": enc,
                                    "crc_stamp_ms": crc_ms, "phase_s": phase_s}), flush=True)
+    return launches, recovery
+
+
+# -- phase 12: the elastic plane on the flagship -----------------------------------
+
+ELASTIC_GLOBAL_BATCH = 48  # 16 a group at 3 participants, 16 + 8 at 2
+ELASTIC_MICROBATCH = 16
+ELASTIC_MERGED = 2         # merged commits of every group before each event
+ELASTIC_TIMEOUT_S = 420.0
+ELASTIC_DRAIN_DEADLINE_S = 60.0
+ELASTIC_KILL_DELAY_S = 0.3  # from group 1's step start to its SIGKILL
+
+
+def run_elastic_group(args: argparse.Namespace) -> None:
+    """One replica group of the elastic phase, as the launcher starts it:
+    the flagship built from its seed, then ``replica_env()`` (a hot spare
+    starts the card and loads the kernels, then blocks there for its group
+    id), then the examples' Manager (``make_manager``: the drain watcher
+    attached).  Each step reads the Manager's elastic plan after its quorum
+    and accumulates ``accum_steps`` microsteps of at most
+    ``ELASTIC_MICROBATCH`` sequences that sum to the group's share of the
+    global batch.  It leaves at a drain (``DRAIN exit``) or at the step in
+    the run directory's ``stop`` file (``FINAL``).  Every step prints a
+    STEP record: the group, the incarnation's replica id, the plan, the
+    microsteps so far, the kernels' launch counts, the ring's configuration
+    and the parameters' sha256."""
+    import logging
+
+    import torch
+
+    from torchft_tpu_torch import GradientAverager
+    from torchft_tpu_torch.examples._common import TrainGate, make_manager, replica_env
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"[e{os.getpid()}] %(message)s")
+    cfg, _, seq = flagship_config()
+    dev = resolve_device(args.device)
+    # Group-independent: one seed for every group, paid by a spare while idle.
+    model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(4000))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    group, _ = replica_env(dev)
+    manager = make_manager(
+        lambda: {"model": model.state_dict(), "optim": opt.state_dict()},
+        lambda sd: (model.load_state_dict(sd["model"]), opt.load_state_dict(sd["optim"])),
+        group, min_replicas=1, timeout_s=180.0, init_sync=False)
+    averager = GradientAverager(manager)
+    params = [p for p in model.parameters() if p.requires_grad]
+    data = torch.Generator(device=dev).manual_seed(500 + group)
+    gate = TrainGate(manager, steps=1 << 30)
+    stop_path = os.path.join(args.run_dir, "stop")
+    reset_launch_counts()
+    microsteps = steps_run = 0
+    while gate.should_continue():
+        stop = _read_int(stop_path)
+        if stop is not None and manager.current_step() >= stop:
+            break
+        if steps_run > 400:
+            raise RuntimeError(f"elastic group {group}: never reached the stop step")
+        before = manager.current_step()
+        t0 = time.time()
+        manager.start_quorum()
+        manager.wait_quorum()
+        plan = manager.elastic_plan()
+        if plan is None or plan["global_batch"] != ELASTIC_GLOBAL_BATCH:
+            raise RuntimeError(f"elastic group {group}: no elastic plan ({plan})")
+        share, micro = plan["group_batch"], plan["microbatch"]
+        # The step is in flight: its quorum has formed.
+        print("BEGIN " + json.dumps({"rid": manager.replica_id(), "step": before,
+                                     "t": time.time()}), flush=True)
+        opt.zero_grad(set_to_none=True)
+        loss_v, sizes = 0.0, []
+        for m in range(plan["accum_steps"]):
+            n = min(micro, share - m * micro)
+            tokens = torch.randint(0, cfg.vocab_size, (n, seq), generator=data, device=dev)
+            loss = loss_fn(model, {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)})
+            (loss * (n / share)).backward()
+            loss_v += float(loss) * n / share
+            sizes.append(n)
+        microsteps += len(sizes)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        averager.allreduce([p.grad for p in params])
+        committed = manager.should_commit()
+        if committed:
+            opt.step()
+        gate.note_commit(committed)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        steps_run += 1
+        col = manager.collective()
+        rec = {"group": group, "rid": manager.replica_id(), "pid": os.getpid(), "before": before,
+               "step": manager.current_step(), "committed": committed,
+               "participants": manager.num_participants(), "plan": plan, "sizes": sizes,
+               "microsteps": microsteps, "steps_run": steps_run, "loss": loss_v,
+               "t0": t0, "t": time.time(), "launches": launch_counts(),
+               "ring": [col.ring_engine, col.lanes, col.wire_dtype, col.size()],
+               "configure": dict(col.last_configure),
+               "peak_mem": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0}
+        if committed:
+            flat = torch.cat([p.detach().reshape(-1).view(torch.uint8) for p in params])
+            rec["sha"] = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+        print("STEP " + json.dumps(rec), flush=True)
+        if committed and not math.isfinite(loss_v):
+            raise RuntimeError(f"elastic group {group}: loss {loss_v} is not finite")
+    if not gate.finish(group):
+        print(f"[group {group}] FINAL step={manager.current_step()}", flush=True)
+    manager.shutdown()
+
+
+class _LogTail:
+    """STEP records and lines of every log file in a directory, each line
+    stamped with the host time a poll read it."""
+
+    def __init__(self, run_dir: str) -> None:
+        self._dir = run_dir
+        self._pos: dict = {}
+        self.recs: list = []
+        self.begins: list = []
+        self.lines: dict = {}
+
+    def poll(self) -> None:
+        for name in sorted(os.listdir(self._dir)):
+            if not name.endswith(".log"):
+                continue
+            path = os.path.join(self._dir, name)
+            with open(path, "rb") as f:
+                f.seek(self._pos.get(name, 0))
+                data = f.read()
+            cut = data.rfind(b"\n") + 1
+            self._pos[name] = self._pos.get(name, 0) + cut
+            now = time.time()
+            for line in data[:cut].decode(errors="replace").splitlines():
+                self.lines.setdefault(name, []).append((now, line))
+                if line.startswith("BEGIN "):
+                    self.begins.append(json.loads(line[len("BEGIN "):]))
+                if line.startswith("STEP "):
+                    rec = json.loads(line[len("STEP "):])
+                    rec["log"] = name
+                    self.recs.append(rec)
+                    short = {k: rec[k] for k in ("group", "step", "committed", "participants",
+                                                 "microsteps")}
+                    print(f"  [{name}] STEP {json.dumps(short)}", flush=True)
+
+    def text(self, name: str) -> str:
+        return "\n".join(line for _, line in self.lines.get(name, []))
+
+
+def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
+    """The flagship under the port's Launcher: three groups, one hot spare,
+    an external lighthouse, one metrics stream, the elastic engine at a
+    global batch of 48.  (a) ``Launcher.drain(2)``: the donor finishes its
+    step and exits, the spare adopts group 2 and heals.  (b) SIGKILL of
+    group 1: the refilled spare adopts it and heals.  ``cold`` holds the
+    cold-restart seconds of phases 6 and 11 to print beside (b)'s.  Returns
+    the K1-K5 launches of every process."""
+    from torchft_tpu_torch._native import LighthouseServer
+    from torchft_tpu_torch.launch import Launcher
+    from torchft_tpu_torch.metrics import MetricsLogger
+    from torchft_tpu_torch.obs import report
+
+    # A long straggler wait: a departure here is a drain or an evicted
+    # SIGKILL, which no quorum waits for, so it holds back only a group
+    # still finishing its heal step (a short one lets two groups re-form
+    # without it while it heals, and it falls behind again).
+    lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
+                                  min_replicas=2, join_timeout_ms=60000)
+    run_dir = tempfile.mkdtemp(prefix="tpuft_elastic_")
+    metrics_path = os.path.join(run_dir, "metrics.jsonl")
+    driver = MetricsLogger(metrics_path, "chip_smoke")
+    tail = _LogTail(run_dir)
+    env = {"TPUFT_METRICS_PATH": metrics_path,
+           "TPUFT_ELASTIC_GLOBAL_BATCH": str(ELASTIC_GLOBAL_BATCH),
+           "TPUFT_ELASTIC_MICROBATCH": str(ELASTIC_MICROBATCH),
+           "TPUFT_RING_ENGINE": "native"}
+    launcher = Launcher([sys.executable, os.path.abspath(__file__), "--elastic-group",
+                         "--run-dir", run_dir, "--device", device],
+                        num_groups=3, lighthouse=lighthouse.address(), max_restarts=2,
+                        log_dir=run_dir, env=env, cwd=HERE, spares=1)
+    ev: dict = {}
+
+    def wait(cond, what: str) -> None:
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        while True:
+            tail.poll()
+            launcher.supervise_once()
+            if cond():
+                return
+            if launcher.exhausted():
+                raise RuntimeError(f"elastic phase: groups {launcher.exhausted()} died")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"elastic phase: {what}")
+            time.sleep(0.02)
+
+    def merged(rid_pred, n: int = 3, after: float = 0.0) -> list:
+        return [r for r in tail.recs if rid_pred(r) and r["committed"]
+                and r["participants"] == n and r["t"] > after]
+
+    def rids(group: int) -> list:
+        out = []
+        for r in tail.recs:
+            if r["group"] == group and r["rid"] not in out:
+                out.append(r["rid"])
+        return out
+
+    def spare_ready() -> bool:
+        return any(s.proc.poll() is None
+                   and "[spare] ready" in tail.text(f"spare_{s.sid}.log")
+                   for s in launcher._spares)
+
+    try:
+        launcher.start()
+        wait(lambda: all(len(merged(lambda r, g=g: r["group"] == g)) >= ELASTIC_MERGED
+                         for g in range(3)) and spare_ready(),
+             "three groups never ran merged with a ready spare")
+        # (a) Drain group 2 while its step is in flight (its quorum formed).
+        donor_rid = rids(2)[0]
+        n_begins = len(tail.begins)
+        wait(lambda: any(b["rid"] == donor_rid for b in tail.begins[n_begins:]),
+             "the donor never began a step")
+        drain_spare = launcher._spares[0]
+        ev["notice"] = time.time()
+        driver.emit("fault", kind="drain", group="2")
+        launcher.drain(2, deadline_s=ELASTIC_DRAIN_DEADLINE_S)
+        ev["adopt_a"] = time.time()
+        if launcher.pid(2) != drain_spare.proc.pid:
+            raise AssertionError("the drained group's id did not go to the hot spare")
+        wait(lambda: len(rids(2)) == 2 and not launcher.draining()
+             and len(merged(lambda r: r["rid"] == rids(2)[1])) >= ELASTIC_MERGED
+             and spare_ready(), "the drained group's replacement never ran merged")
+        # (b) SIGKILL group 1 in the middle of a step (its quorum formed,
+        # its microsteps running); the refilled spare adopts it.
+        kill_spare = launcher._spares[0]
+        n_begins = len(tail.begins)
+        wait(lambda: any(b["rid"] == rids(1)[0] for b in tail.begins[n_begins:]),
+             "group 1 never began a step")
+        time.sleep(ELASTIC_KILL_DELAY_S)
+        ev["kill"] = time.time()
+        driver.emit("fault", kind="kill", group="1")
+        launcher.kill(1, hold=False)
+        if launcher.supervise_once() != [1] or launcher.pid(1) != kill_spare.proc.pid:
+            raise AssertionError("the killed group's id did not go to the hot spare")
+        ev["adopt_b"] = time.time()
+        wait(lambda: len(rids(1)) == 2
+             and len(merged(lambda r: r["rid"] == rids(1)[1])) >= ELASTIC_MERGED,
+             "the killed group's replacement never ran merged")
+        with open(os.path.join(run_dir, "stop"), "w") as f:
+            f.write(str(max(r["step"] for r in tail.recs) + 2))
+        wait(lambda: all(launcher.pid(g) is None for g in range(3)),
+             "the groups never stopped")
+        if not launcher.all_exited_clean():
+            raise AssertionError("a group exited non-zero at the stop step")
+        tail.poll()
+        flight = lighthouse.flight()
+        events = report.read_events([metrics_path])
+        logs = {name: tail.text(name) for name in tail.lines}
+        restarts = launcher.restarts(1)
+    finally:
+        launcher.stop()
+        driver.close()
+        lighthouse.shutdown()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    ev["spares"] = (drain_spare.sid, kill_spare.sid)
+    ev["restarts_1"] = restarts
+    return elastic_checks(card, cold, tail.recs, events, flight, logs, ev, donor_rid, device)
+
+
+def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict, logs: dict,
+                   ev: dict, donor_rid: str, device: str) -> dict:
+    """Phase 12's assertions and prints; returns the K1-K5 launches of all
+    its processes."""
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.obs import report
+
+    cfg, _, _ = flagship_config()
+    per_micro = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                 "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
+    by_rid: dict = {}
+    for r in recs:
+        by_rid.setdefault(r["rid"], []).append(r)
+    # Incarnations in the order they first stepped.
+    order = sorted(by_rid, key=lambda rid: by_rid[rid][0]["t"])
+    repl_a = [rid for rid in order if by_rid[rid][0]["group"] == 2][1]
+    repl_b = [rid for rid in order if by_rid[rid][0]["group"] == 1][1]
+    survivors_a = [rid for rid in order if by_rid[rid][0]["group"] in (0, 1)
+                   and by_rid[rid][0]["t"] < ev["kill"]]
+
+    # Every process: K1-K5 per microstep, the native 2-lane ring on the f32
+    # wire, peak memory.
+    launches = {name: 0 for name in per_micro}
+    for rid, rs in by_rid.items():
+        for r in rs:
+            for name, k in per_micro.items():
+                if device == "cuda" and r["launches"].get(name) != k * r["microsteps"]:
+                    raise AssertionError(f"elastic {rid}: {name} launched "
+                                         f"{r['launches'].get(name)} times in "
+                                         f"{r['microsteps']} microsteps, expected {k} each")
+            if r["committed"] and r["ring"][3] > 1 and r["ring"][:3] != ["native", 2, "f32"]:
+                raise AssertionError(f"elastic {rid}: the ring ran {r['ring']}")
+        for name in per_micro:
+            launches[name] += rs[-1]["launches"].get(name, 0)
+        print(f"  group {rs[0]['group']} ({rid[:12]}, pid {rs[0]['pid']}, {rs[0]['log']}): "
+              f"{rs[-1]['steps_run']} steps, {rs[-1]['microsteps']} microsteps, to step "
+              f"{rs[-1]['step']}; peak device memory "
+              f"{max(r['peak_mem'] for r in rs) / 2**30:.2f} GiB ({card})", flush=True)
+
+    # One params_sha256 per merged step.
+    by_step: dict = {}
+    for r in recs:
+        if r["committed"] and r["participants"] >= 2:
+            by_step.setdefault(r["step"], {})[r["rid"]] = r["sha"]
+    for step, shas in sorted(by_step.items()):
+        if len(set(shas.values())) != 1:
+            raise AssertionError(f"step {step}: params_sha256 differ: {shas}")
+    last = max(s for s, shas in by_step.items() if len(shas) == 3)
+    print(f"  step {last}: all three groups committed it merged with one params_sha256 "
+          f"{next(iter(by_step[last].values()))[:16]}...", flush=True)
+
+    # (a) The donor: its step in flight at the notice committed, it left
+    # through complete_drain with its marker and exit 0.
+    donor = by_rid[donor_rid]
+    in_flight = next(r for r in donor if r["t"] >= ev["notice"])
+    if not in_flight["committed"]:
+        raise AssertionError(f"(a) the donor's step in flight did not commit: {in_flight}")
+    donor_log = logs[donor[0]["log"]]
+    if "DRAIN exit" not in donor_log or "drain complete at step" not in donor_log:
+        raise AssertionError("(a) the donor printed no drain marker")
+    exits = [e for e in events if e["event"] == "drain_donor_exit"]
+    handoffs = [e for e in events if e["event"] == "drain_handoff"]
+    if [e["exit_code"] for e in exits] != [0] or [e["hot_spare"] for e in handoffs] != [True]:
+        raise AssertionError(f"(a) donor exits {exits}, handoffs {handoffs}")
+    # The lighthouse's first quorum after the drain mark leaves the donor out.
+    flights = sorted(flight.get("events", []), key=lambda e: e["seq"])
+    mark = next(e["seq"] for e in flights if e["kind"] == "replica_drain"
+                and e["detail"].startswith(("prefix=2 ", f"prefix={donor_rid} ")))
+    nxt = next(e for e in flights if e["kind"] == "quorum_formed" and e["seq"] > mark)
+    members = nxt["detail"].split("members=[", 1)[1].split("]", 1)[0].split(",")
+    if donor_rid in members:
+        raise AssertionError(f"(a) the quorum after the drain lists the donor: {nxt['detail']}")
+    # No survivor failed a commit from the first three-way merge to the kill.
+    t_start = min(r["t"] for r in recs if r["committed"] and r["participants"] == 3)
+    failed = [r for rid in survivors_a for r in by_rid[rid]
+              if not r["committed"] and t_start <= r["t"] <= ev["kill"]]
+    if failed:
+        raise AssertionError(f"(a) survivors failed commits: {failed}")
+    # The elastic records: 48 on every committed summary, the survivors'
+    # participants 3 -> 2 -> 3 through (a), 2 microsteps (16 + 8) at 2.
+    summaries = [e for e in events if e["event"] == "step_summary" and e.get("committed")]
+    if not summaries or any(e.get("elastic_global_batch") != ELASTIC_GLOBAL_BATCH
+                            for e in summaries):
+        raise AssertionError("a committed step_summary lacks elastic_global_batch 48")
+    for rid in survivors_a:
+        seen = [e["elastic_participants"] for e in summaries if e["replica_id"] == rid
+                and t_start <= e["ts"] <= ev["kill"]]
+        runs = [k for k, _ in itertools.groupby(seen)]
+        if runs[-3:] != [3, 2, 3] or runs.count(2) != 1:
+            raise AssertionError(f"(a) {rid}: elastic_participants ran {runs}, not 3 -> 2 -> 3")
+        at2 = [r for r in by_rid[rid] if r["committed"] and r["participants"] == 2
+               and r["t"] <= ev["kill"]]
+        if not at2 or any(r["sizes"] != [16, 8] for r in at2):
+            raise AssertionError(f"(a) {rid}: steps at 2 participants ran "
+                                 f"{[r['sizes'] for r in at2]}, not [16, 8]")
+    # The 0 <-> 1 edge survives every reconfigure of (a) on both its ends.
+    recfg = [e for e in events if e["event"] == "reconfigure" and e["replica_id"] in survivors_a
+             and ev["notice"] <= e["ts"] <= ev["kill"]]
+    if not recfg or any(e["mode"] != "incremental" or e["reused_lanes"] < 2 for e in recfg):
+        raise AssertionError(f"(a) survivors' reconfigures: "
+                             f"{[(e['mode'], e['reused_lanes']) for e in recfg]}")
+    # The replacement is the adopted spare, and it healed.
+    spare_log = logs[f"spare_{ev['spares'][0]}.log"]
+    if ("adopted replica group 2" not in spare_log or "healing from replica" not in spare_log
+            or by_rid[repl_a][0]["log"] != f"spare_{ev['spares'][0]}.log"):
+        raise AssertionError("(a) the replacement is not the adopted, healed spare")
+
+    # (b) One adoption after the SIGKILL, and a heal.
+    spare_log = logs[f"spare_{ev['spares'][1]}.log"]
+    if (spare_log.count("adopted replica group") != 1 or "adopted replica group 1" not in spare_log
+            or "healing from replica" not in spare_log or ev["restarts_1"] != 1):
+        raise AssertionError("(b) the killed group was not restarted once by the adopted spare")
+
+    # Prints: each transition's dead time, configure mode and ms, the
+    # drain's handoff, the adoptions' recovery.
+    commits = report.commit_timelines(events)
+    for name, t_fault, group, repl in (("(a) drain", ev["notice"], "2", repl_a),
+                                       ("(b) SIGKILL", ev["kill"], "1", repl_b)):
+        dw = report.deadwindow(commits, [(t_fault, group)])
+        first = min(r["t"] for r in by_rid[repl] if r["committed"])
+        first_merged = min(r["t"] for r in by_rid[repl] if r["committed"]
+                           and r["participants"] == 3)
+        cfgs = [(e["replica_id"].split(":")[0], e["mode"], e["reused_lanes"],
+                 round(e["configure_ms"], 1)) for e in events if e["event"] == "reconfigure"
+                and t_fault <= e["ts"] <= first_merged + 1.0]
+        print(f"  {name} of group {group}: obs.report.deadwindow dead time "
+              f"{dw['dead_time_s']:.3f} s; fault -> replacement's first commit "
+              f"{first - t_fault:.3f} s, first merged commit {first_merged - t_fault:.3f} s; "
+              f"adoption -> first merged commit "
+              f"{first_merged - ev['adopt_a' if group == '2' else 'adopt_b']:.3f} s; "
+              f"reconfigures (group, mode, reused lanes, ms) {cfgs} ({card})", flush=True)
+        ev[f"dead_{group}"] = dw["dead_time_s"]
+        ev[f"merged_{group}"] = first_merged - t_fault
+    old = sorted(r["t"] for r in donor if r["committed"])
+    new = sorted(r["t"] for r in by_rid[repl_a] if r["committed"])
+    steps_iv = sorted(b - a for a, b in zip(old, old[1:]))
+    gap = new[0] - old[-1]
+    print(f"  (a) donor's last commit -> replacement's first: {gap:.3f} s, less a median "
+          f"step {steps_iv[len(steps_iv) // 2]:.3f} s: "
+          f"{max(0.0, gap - steps_iv[len(steps_iv) // 2]):.3f} s; drain notice -> donor "
+          f"exit {exits[0]['drain_s']:.3f} s ({card})", flush=True)
+    print(f"  (b) SIGKILL -> hot spare's first merged commit {ev['merged_1']:.3f} s, beside "
+          f"the cold restarts of this run: phase 11 "
+          f"{', '.join(f'{v:.3f}' for v in cold.get('heal', []))} s (flagship), phase 6 "
+          f"{cold.get('kill_heal', float('nan')):.3f} s (conv net) ({card})", flush=True)
+    print("ELASTIC " + json.dumps({k: v for k, v in ev.items() if k not in ("spares",)}),
+          flush=True)
     return launches
 
 
@@ -2198,6 +2648,7 @@ def main() -> int:
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     parser.add_argument("--heal-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--incarnation", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--elastic-group", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -2216,6 +2667,9 @@ def main() -> int:
         return 0
     if args.heal_group is not None:
         run_heal_group(args)
+        return 0
+    if args.elastic_group:
+        run_elastic_group(args)
         return 0
 
     # 1. Card.
@@ -2256,7 +2710,7 @@ def main() -> int:
     # 6. Kill and heal through the launcher and the train_ddp example.
     print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
           flush=True)
-    kill_heal_phase(card)
+    kill_heal = kill_heal_phase(card)
 
     # 7. The bare ring on the card's host.
     print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
@@ -2283,9 +2737,17 @@ def main() -> int:
     # 11. The healing plane on the flagship.
     print("healing: lighthouse + 3 groups, flagship config, erasure-coded state k 2 m 1; "
           "a striped two-donor heal, an erasure heal, a donor killed mid-fetch", flush=True)
-    healing_launches = healing_phase(card)
+    healing_launches, heal_recovery = healing_phase(card)
 
-    # 12. The kernels line, then the last line.
+    # 12. The elastic plane on the flagship.
+    print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship config, elastic global batch "
+          f"{ELASTIC_GLOBAL_BATCH} (microbatch {ELASTIC_MICROBATCH}); a cooperative drain, "
+          f"then a SIGKILL, each handed to the spare", flush=True)
+    elastic_launches = elastic_phase(card, {"heal": [heal_recovery["kill_b"],
+                                                     heal_recovery["kill_c"]],
+                                            "kill_heal": kill_heal["recovery_s"]})
+
+    # 13. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -2299,6 +2761,7 @@ def main() -> int:
                            else "flagship FT training",
             "launches_diloco": diloco_launches.get(name, 0),
             "launches_healing": healing_launches.get(name, 0),
+            "launches_elastic": elastic_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -12,6 +12,14 @@
   of the native engine closes, and a reconfigure runs a fresh ring.
 - Engine selection: ``engine="native"`` raises where the engine cannot be
   built; ``"auto"`` warns once and runs the Python engine.
+- Incremental reconfiguration (tests/test_elastic_churn.py's soak, parity
+  and world-2 cases, on both engines): every generation of a churn walk
+  bitwise equal on every rank, with lanes reused and no fd leaked; the
+  incremental and the full path bitwise equal to an all-JAX walk; a mixed
+  JAX + port ring through the walk, with the knob on or off on each side,
+  equal to an all-JAX ring in bits and in each member's
+  ``last_configure``; a rank that missed a quorum does not reuse the edge
+  its neighbour closed meanwhile.
 - The int8 / int4 wire codecs: the quantizers and the nibble packing
   bitwise equal to the JAX package's (NaN, infinities and all-zero inputs
   included); codec allreduces in mixed rings on every engine pair at 1, 2
@@ -27,9 +35,12 @@ several stripes.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import logging
+import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
@@ -513,3 +524,204 @@ def test_bf16_tensors_off_the_bf16_wire_sum_in_bf16_as_ml_dtypes_arrays(store, j
                 c.shutdown()
     for rank in range(2):
         np.testing.assert_array_equal(results["port"][rank], results["jax"][rank])
+
+
+# -- incremental reconfiguration ------------------------------------------------
+
+
+def _fd_count() -> int:
+    return len(os.listdir("/proc/self/fd"))
+
+
+def _settle_fds(target: int, timeout_s: float = 10.0) -> int:
+    """tests/test_elastic_churn.py's ``_settle_fds``: closed sockets release
+    their fds a beat after shutdown."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        gc.collect()
+        n = _fd_count()
+        if n <= target:
+            return n
+        time.sleep(0.1)
+    gc.collect()
+    return _fd_count()
+
+
+def _generation(store, members: Dict[int, object], timeout: float = 20.0) -> dict:
+    """One quorum change, as tests/test_elastic_churn.py's ``_run_generation``
+    runs it: every live member configures onto a fresh prefix (ranked by
+    member id) and runs one allreduce of small integers (exact in f32) and
+    one bf16 payload.  Asserts every rank holds the same bits and the true
+    sum; returns the bits and each member's ``last_configure``."""
+    import ml_dtypes
+
+    live = sorted(members)
+    world = len(live)
+    prefix = f"inc/{next(_PREFIX)}"
+
+    def worker(rank: int):
+        c = members[live[rank]]
+        c.configure(f"{store.address()}/{prefix}", rank, world)
+        xs = [np.arange(96, dtype=np.float32) % 7.0 + float(rank + 1),
+              np.full(33, float(rank + 1), dtype=np.dtype(ml_dtypes.bfloat16)),
+              np.full(6000, float(rank + 1), dtype=np.float32)]
+        res = c.allreduce(xs, op="sum").wait(timeout=timeout)
+        lc = c.last_configure
+        return (b"".join(np.asarray(r).tobytes() for r in res),
+                (lc["mode"], lc["reused_lanes"], lc["opened_lanes"]), float(res[2][0]))
+
+    with ThreadPoolExecutor(max_workers=world) as pool:
+        results = [f.result(timeout=timeout + 60)
+                   for f in [pool.submit(worker, r) for r in range(world)]]
+    assert len({r[0] for r in results}) == 1, f"ranks diverged at world {world}"
+    assert results[0][2] == world * (world + 1) / 2
+    return {"bits": results[0][0], "cfg": {live[r]: results[r][1] for r in range(world)}}
+
+
+# The soak's walk (worlds 3 -> 2 -> 3 -> 4 -> 3 -> 2 -> 2 -> 3): leaves, joins,
+# a survivor replaced by a fresh incarnation in the same change that admits
+# a member, and a world-2 replacement.
+_WALK = [("leave", 2), ("join", 3), ("join", 4), ("leave", 0), ("leave", 3),
+         ("replace", 1), ("join", 5), ("replace_join", 4)]
+
+
+def _walk(store, make, seed_members=(0, 1, 2)) -> List[dict]:
+    members = {i: make(i) for i in seed_members}
+    out = [_generation(store, members)]
+    try:
+        for kind, who in _WALK:
+            if kind == "leave":
+                members.pop(who).shutdown()
+            elif kind == "join":
+                members[who] = make(who)
+            elif kind == "replace":
+                members.pop(who).shutdown()
+                members[who] = make(who)
+            else:  # a survivor replaced in the change that admits a member
+                members.pop(who).shutdown()
+                members[who] = make(who)
+                members[who + 10] = make(who + 10)
+            out.append(_generation(store, members))
+    finally:
+        for c in members.values():
+            c.shutdown()
+    return out
+
+
+@pytest.mark.parametrize("engine", ["py", "native"])
+def test_churn_soak_bitwise_with_reuse_and_no_fd_leak(store, engine) -> None:
+    """The port's twin of tests/test_elastic_churn.py's soak on the flat
+    ring: every generation is bitwise the same on every rank, the
+    incremental path reuses lanes, the full path still runs for fresh
+    members, and the walk leaks no fd (the native engine's dup'd ones
+    included)."""
+    gc.collect()
+    fd_before = _fd_count()
+    gens = _walk(store, lambda i: TCPCollective(timeout=15.0, lanes=2, chunk_bytes=CHUNK,
+                                                engine=engine, host=HOST))
+    modes = {m for g in gens for m, _, _ in g["cfg"].values()}
+    assert modes == {"incremental", "full"}, modes
+    assert sum(r for g in gens for _, r, _ in g["cfg"].values()) > 0
+    # 3 -> 2 (member 2 leaves): the 0 -> 1 edge survives on both of its ends.
+    assert gens[1]["cfg"][0] == ("incremental", 2, 2)
+    assert gens[1]["cfg"][1] == ("incremental", 2, 2)
+    fd_after = _settle_fds(fd_before)
+    assert fd_after <= fd_before, f"leaked fds: {fd_before} -> {fd_after}"
+
+
+@pytest.mark.parametrize("engine", ["py", "native"])
+def test_incremental_vs_full_bitwise_parity(store, jax_collectives, monkeypatch,
+                                            engine) -> None:
+    """tests/test_elastic_churn.py's parity matrix: the same walk and payloads
+    with ``TPUFT_INCREMENTAL_RECONF`` 1 and 0 give the same bits in every
+    generation, and both equal an all-JAX walk on the full path."""
+    runs = {}
+    for knob in ("1", "0"):
+        monkeypatch.setenv("TPUFT_INCREMENTAL_RECONF", knob)
+        runs[knob] = _walk(store, lambda i: TCPCollective(
+            timeout=15.0, lanes=2, chunk_bytes=CHUNK, engine=engine, host=HOST))
+    assert {m for g in runs["0"] for m, _, _ in g["cfg"].values()} == {"full"}
+    assert "incremental" in {m for g in runs["1"] for m, _, _ in g["cfg"].values()}
+    ref = _walk(store, lambda i: jax_collectives.TCPCollective(
+        timeout=15.0, lanes=2, chunk_bytes=CHUNK, topology="ring", engine="py",
+        transport="tcp"))
+    for gen, (a, b, r) in enumerate(zip(runs["1"], runs["0"], ref)):
+        assert a["bits"] == b["bits"] == r["bits"], f"generation {gen} differs"
+
+
+@pytest.mark.parametrize("engine", ["py", "native"])
+def test_world2_neighbor_replacement_no_stall(store, engine) -> None:
+    """tests/test_elastic_churn.py's world-2 regression: the survivor's only
+    neighbour is replaced, no edge survives, and the survivor stays on the
+    incremental path and rebuilds both edges over its kept listener with
+    no stall (twice: rebuilt edges must survive a rebuild)."""
+    make = lambda: TCPCollective(timeout=15.0, lanes=2, chunk_bytes=CHUNK,  # noqa: E731
+                                 engine=engine, host=HOST)
+    members = {0: make(), 1: make()}
+    try:
+        _generation(store, members)
+        for _ in range(2):
+            members.pop(1).shutdown()
+            members[1] = make()
+            t0 = time.monotonic()
+            gen = _generation(store, members)
+            assert time.monotonic() - t0 < 20.0
+            assert gen["cfg"][0] == ("incremental", 0, 4), gen["cfg"]
+            assert gen["cfg"][1] == ("full", 0, 4), gen["cfg"]
+    finally:
+        for c in members.values():
+            c.shutdown()
+
+
+@pytest.mark.parametrize("jax_inc, port_inc", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("port_engine", ["py", "native"])
+def test_mixed_ring_churn_matches_an_all_jax_ring(store, jax_collectives, jax_inc, port_inc,
+                                                  port_engine) -> None:
+    """A ring of JAX and port members (even ids JAX, odd ids port) through
+    the churn walk, with the incremental knob on or off on each side: every
+    generation's bits and every member's (mode, reused_lanes,
+    opened_lanes) equal an all-JAX ring's whose members carry the same
+    knobs."""
+
+    def make(kind: str, inc: bool, i: int):
+        c = _make(kind, "native" if kind == "jax" else port_engine, 2, "f32", jax_collectives,
+                  timeout=15.0)
+        c._incremental = inc
+        return c
+
+    mixed = _walk(store, lambda i: make("jax", jax_inc, i) if i % 2 == 0
+                  else make("port", port_inc, i))
+    ref = _walk(store, lambda i: make("jax", jax_inc if i % 2 == 0 else port_inc, i))
+    for gen, (a, b) in enumerate(zip(mixed, ref)):
+        assert a["bits"] == b["bits"], f"generation {gen}: bits differ"
+        assert a["cfg"] == b["cfg"], f"generation {gen}: {a['cfg']} != {b['cfg']}"
+    assert "incremental" in {m for g in mixed for m, _, _ in g["cfg"].values()}
+
+
+@pytest.mark.parametrize("engine", ["py", "native"])
+def test_a_rank_that_missed_a_quorum_rebuilds_its_edge(store, engine) -> None:
+    """Members 0 and 2 form a ring; 0 then forms one with 1 while 2 misses
+    that quorum; 0 and 2 meet again.  Both kept their listeners and tokens,
+    but 0 closed the old edge when it reconfigured without 2, so neither end
+    may reuse it: 2 reads from ``nbrs_<r>`` that 0 last recorded 1, and both
+    rebuild the edge over their kept listeners at once (an identity-only
+    rule has 2 reuse a dead socket while 0 waits out the rendezvous for its
+    dial)."""
+    make = lambda: TCPCollective(timeout=15.0, lanes=2, chunk_bytes=CHUNK,  # noqa: E731
+                                 engine=engine, host=HOST)
+    cols = {i: make() for i in range(3)}
+    for c in cols.values():
+        c.RENDEZVOUS_TIMEOUT_S = 10.0
+    try:
+        _generation(store, {0: cols[0], 2: cols[2]})
+        _generation(store, {0: cols[0], 1: cols[1]})
+        t0 = time.monotonic()
+        gen = _generation(store, {0: cols[0], 2: cols[2]})
+        assert time.monotonic() - t0 < 5.0
+        assert gen["cfg"] == {0: ("incremental", 0, 4), 2: ("incremental", 0, 4)}
+        # And the rebuilt edge is reused at the next change that keeps it.
+        gen = _generation(store, {0: cols[0], 2: cols[2]})
+        assert gen["cfg"] == {0: ("incremental", 4, 0), 2: ("incremental", 4, 0)}
+    finally:
+        for c in cols.values():
+            c.shutdown()

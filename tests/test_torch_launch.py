@@ -3,7 +3,10 @@
 Twins of the JAX-free cases of tests/test_launch.py (tiny ``python -c``
 children), an eviction at the lighthouse seen through its status page, the
 wire evict, and the supervised kill-and-heal drive of the train_ddp example
-with ``--device cpu``.
+with ``--device cpu``.  Hot spares (tests/test_launch.py:128's adoption,
+the refill of a dead spare, the fast-death brake, a group with its own
+environment spawning cold, ``--spares`` on the CLI) run on the port's
+launcher and the JAX package's side by side with the same children.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import urllib.request
 
 import pytest
 
+from torch_port_ref import import_reference
 from torchft_tpu_torch import _native
 from torchft_tpu_torch.examples.kill_heal import _Tail, kill_and_heal
 from torchft_tpu_torch.launch import Launcher, main
@@ -214,3 +218,109 @@ def test_tail_splits_incarnations_by_line_not_read_time(tmp_path) -> None:
     assert [s[1] for s in tail.steps(first=reborn)] == [6]
     assert tail.count("healing from replica", first=reborn) == 1
     assert tail.lines[reborn - 1][1] == "[group 1] st"
+
+
+# -- hot spares ---------------------------------------------------------------------
+
+# tests/test_launch.py's spare-aware child: a spare blocks on its go-file.
+_SPARE_AWARE = (
+    "import os,time;"
+    "gid = os.environ.get('REPLICA_GROUP_ID');"
+    "sf = os.environ.get('TPUFT_SPARE_FILE');\n"
+    "if gid is None and sf:\n"
+    "    print('spare ready', flush=True)\n"
+    "    while not os.path.exists(sf): time.sleep(0.02)\n"
+    "    gid = open(sf).read().strip()\n"
+    "print('gid', gid, flush=True); time.sleep(60)"
+)
+
+
+def _launcher_cls(which: str):
+    if which == "port":
+        return Launcher
+    return import_reference("torchft_tpu.launch").Launcher
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_hot_spare_adoption(tmp_path, which) -> None:
+    """A killed group restarts by adopting the ready spare (the group's
+    process is the former spare's), and the pool is refilled."""
+    with _launcher_cls(which)([sys.executable, "-c", _SPARE_AWARE], num_groups=1,
+                              lighthouse=None, max_restarts=3, log_dir=str(tmp_path),
+                              spares=1) as launcher:
+        _wait(lambda: b"gid 0" in (tmp_path / "g0.log").read_bytes())
+        _wait(lambda: launcher.spare_count() == 1)
+        spare_pid, spare_sid = launcher._spares[0].proc.pid, launcher._spares[0].sid
+        _wait(lambda: b"spare ready" in (tmp_path / f"spare_{spare_sid}.log").read_bytes())
+        launcher.kill(0, hold=False)
+        assert launcher.supervise_once() == [0]
+        assert launcher._groups[0].proc.pid == spare_pid
+        assert launcher.restarts(0) == 1
+        _wait(lambda: b"gid 0" in (tmp_path / f"spare_{spare_sid}.log").read_bytes())
+        _wait(lambda: launcher.spare_count() == 1)
+        assert launcher._spares[0].sid != spare_sid
+    assert not list(tmp_path.glob("spare_*.go"))
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_dead_spare_is_refilled_and_fast_deaths_disable_the_pool(tmp_path, which) -> None:
+    """A spare that dies after a healthy uptime is replaced; a command whose
+    spares die at once stops the pool after four fast deaths, and the
+    groups then restart cold."""
+    cls = _launcher_cls(which)
+    with cls([sys.executable, "-c", _SPARE_AWARE], num_groups=1, lighthouse=None,
+             log_dir=str(tmp_path / "a"), spares=1) as launcher:
+        _wait(lambda: launcher.spare_count() == 1)
+        first = launcher._spares[0]
+        first.spawned_at -= 60.0  # a healthy uptime
+        first.proc.kill()
+        first.proc.wait()
+        launcher.supervise_once()
+        _wait(lambda: launcher.spare_count() == 1)
+        assert launcher._spares[0].sid != first.sid
+        assert not launcher._spare_pool_disabled
+
+    crash = "import os,sys; sys.exit(3) if 'TPUFT_SPARE_FILE' in os.environ else None;" + \
+        "print('gid', os.environ['REPLICA_GROUP_ID'], flush=True); import time; time.sleep(60)"
+    with cls([sys.executable, "-c", crash], num_groups=1, lighthouse=None,
+             log_dir=str(tmp_path / "b"), max_restarts=2, spares=1) as launcher:
+        deadline = time.monotonic() + 60
+        while not launcher._spare_pool_disabled:
+            assert time.monotonic() < deadline, "the pool was never disabled"
+            launcher.supervise_once()
+            time.sleep(0.05)
+        assert launcher.spare_count() == 0
+        group_pid = launcher._groups[0].proc.pid
+        launcher.kill(0, hold=False)
+        assert launcher.supervise_once() == [0]
+        assert launcher._groups[0].proc.pid != group_pid
+        _wait(lambda: (tmp_path / "b" / "g0.log").read_bytes().count(b"gid 0") == 2)
+
+
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_group_with_its_own_env_spawns_cold(tmp_path, which) -> None:
+    """Spares start with the base environment only, so a group with
+    overrides of its own restarts cold and leaves the spare in the pool."""
+    with _launcher_cls(which)([sys.executable, "-c", _SPARE_AWARE], num_groups=1,
+                              lighthouse=None, log_dir=str(tmp_path), spares=1) as launcher:
+        _wait(lambda: launcher.spare_count() == 1)
+        _wait(lambda: b"gid 0" in (tmp_path / "g0.log").read_bytes())
+        spare_pid = launcher._spares[0].proc.pid
+        launcher._groups[0].env = {"EXTRA": "1"}
+        launcher.kill(0, hold=False)
+        assert launcher.supervise_once() == [0]
+        assert launcher._groups[0].proc.pid != spare_pid
+        assert launcher.spare_count() == 1 and launcher._spares[0].proc.pid == spare_pid
+        _wait(lambda: (tmp_path / "g0.log").read_bytes().count(b"gid 0") == 2)
+
+
+def test_launch_cli_spares(tmp_path) -> None:
+    """``--spares 1``: the CLI's groups finish cleanly with a spare in the
+    pool, and the spare is stopped with the launcher."""
+    rc = main(["--groups", "1", "--spares", "1", "--log-dir", str(tmp_path), "--",
+               sys.executable, "-c",
+               "import os,time\nif 'TPUFT_SPARE_FILE' in os.environ: time.sleep(60)\n"
+               "else: time.sleep(1.0); print('done', os.environ['REPLICA_GROUP_ID'])"])
+    assert rc == 0
+    assert b"done 0" in (tmp_path / "g0.log").read_bytes()
+    assert (tmp_path / "spare_0.log").exists() and not list(tmp_path.glob("spare_*.go"))

@@ -46,7 +46,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package() -> None:
     scanned = {os.path.relpath(p, REPO) for p in files}
     for healing in ("ec/__init__.py", "ec/gf.py", "ec/encoder.py", "ec/placement.py",
                     "ec/store.py", "ha/__init__.py", "ha/backoff.py",
-                    "checkpointing/integrity.py", "checkpointing/_rwlock.py"):
+                    "checkpointing/integrity.py", "checkpointing/_rwlock.py",
+                    "drain/__init__.py", "drain/watcher.py"):
         assert os.path.join("torchft_tpu_torch", healing) in scanned, healing
     bad = {
         os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
@@ -63,6 +64,7 @@ def test_every_port_module_imports_without_cuda() -> None:
         for m in pkgutil.walk_packages(torchft_tpu_torch.__path__, "torchft_tpu_torch.")
     ]
     assert "torchft_tpu_torch.ops.attention" in names
+    assert "torchft_tpu_torch.drain.watcher" in names
     for name in names:
         importlib.import_module(name)
 

@@ -40,6 +40,9 @@ SAMPLES = {
     "StoreDeleteResponse": {},
     "LighthouseEvictRequest": {"replica_prefix": "1"},
     "LighthouseEvictResponse": {"evicted": 3},
+    "LighthouseDrainRequest": {"replica_prefix": "2:4f1c-é", "deadline_ms": -1,
+                               "trace_id": "g/2#9"},
+    "LighthouseDrainResponse": {"drained": 2},
 }
 
 

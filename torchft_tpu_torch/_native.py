@@ -10,8 +10,8 @@ every native call.
 
 The library is built (``_build.native_lib_path``) and loaded at first use,
 not at import.  The port binds what the fault-tolerant training loop
-needs: the lighthouse server (with its evict), a lighthouse client for
-evicts, the manager server and client (quorum, checkpoint metadata, commit
+needs: the lighthouse server (with its evict and drain), a lighthouse
+client for evicts and drain notices, the manager server and client (quorum, checkpoint metadata, commit
 vote, heartbeat telemetry and goodput ledger), the servers' flight
 recorders, the rendezvous store, and the GIL-free ring data plane
 (:class:`RingEngine`, ``native/src/ring.h``) on the flat ring with its hop
@@ -74,6 +74,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tf_lighthouse_http_address.argtypes = [vp]
     lib.tf_lighthouse_evict.restype = ctypes.c_int
     lib.tf_lighthouse_evict.argtypes = [vp, cp]
+    lib.tf_lighthouse_drain.restype = ctypes.c_int
+    lib.tf_lighthouse_drain.argtypes = [vp, cp, ctypes.c_int64]
     lib.tf_lighthouse_shutdown.argtypes = [vp]
     lib.tf_lighthouse_shutdown.restype = None
     lib.tf_lighthouse_free.argtypes = [vp]
@@ -301,6 +303,16 @@ class LighthouseServer:
         dropped."""
         return int(_lib().tf_lighthouse_evict(self._ptr, replica_prefix.encode()))
 
+    def drain(self, replica_prefix: str, deadline_ms: int = 0) -> int:
+        """Marks every replica id matching ``replica_prefix`` (a full id or
+        a ``"<group>"`` family) as a planned departure: left out of the next
+        quorum at once while its step in flight finishes, and refused as
+        ``"is draining"`` if it asks again; a replacement incarnation (a
+        fresh ``":<uuid>"``) is admitted.  ``deadline_ms`` is advisory.
+        Returns the number of ids marked."""
+        return int(_lib().tf_lighthouse_drain(self._ptr, replica_prefix.encode(),
+                                              int(deadline_ms)))
+
     def flight_json(self, limit: int = 0) -> str:
         """The flight recorder as a JSON document (newest event first;
         ``limit`` 0 keeps every retained one): the payload of this
@@ -325,8 +337,9 @@ class LighthouseServer:
 
 class LighthouseClient:
     """Lighthouse access over the wire for one ``host:port`` (a supervisor's
-    evict of a dead group).  The JAX package's client also fails over across
-    an HA replica set; that waits for the HA port."""
+    evict of a dead group, a departing group's drain notice).  The JAX
+    package's client also fails over across an HA replica set; that waits
+    for the HA port."""
 
     def __init__(self, addr: str, connect_timeout_ms: int = 10000) -> None:
         self._client = _Client(addr, connect_timeout_ms)
@@ -336,6 +349,17 @@ class LighthouseClient:
         req = _wire.encode("LighthouseEvictRequest", {"replica_prefix": replica_prefix})
         resp = self._client.call(LIGHTHOUSE_EVICT, req, timeout_ms)
         return _wire.decode("LighthouseEvictResponse", resp)["evicted"]
+
+    def drain(self, replica_prefix: str, deadline_ms: int = 0, timeout_ms: int = 5000,
+              trace_id: str = "") -> int:
+        """:meth:`LighthouseServer.drain` through wire method 5; ``trace_id``
+        is the step in flight's, for the lighthouse's flight recorder."""
+        req = _wire.encode("LighthouseDrainRequest", {
+            "replica_prefix": replica_prefix, "deadline_ms": int(deadline_ms),
+            "trace_id": trace_id,
+        })
+        resp = self._client.call(LIGHTHOUSE_DRAIN, req, timeout_ms)
+        return _wire.decode("LighthouseDrainResponse", resp)["drained"]
 
     def close(self) -> None:
         self._client.close()

@@ -9,7 +9,7 @@ varint, repeated ``int64`` packed.  Decoding also accepts unpacked repeated
 scalars and skips unknown fields, as proto3 parsers must.
 
 Only the messages in :data:`SCHEMAS` are covered (``proto/tpuft.proto``,
-Manager and Store services, and the lighthouse's Evict method).
+Manager and Store services, and the lighthouse's Evict and Drain methods).
 """
 
 from __future__ import annotations
@@ -68,6 +68,12 @@ SCHEMAS: Dict[str, List[Tuple[int, str, str]]] = {
     "StoreDeleteResponse": [],
     "LighthouseEvictRequest": [(1, "replica_prefix", "string")],
     "LighthouseEvictResponse": [(1, "evicted", "int64")],
+    "LighthouseDrainRequest": [
+        (1, "replica_prefix", "string"),
+        (2, "deadline_ms", "int64"),
+        (3, "trace_id", "string"),
+    ],
+    "LighthouseDrainResponse": [(1, "drained", "int64")],
 }
 
 _DEFAULTS = {

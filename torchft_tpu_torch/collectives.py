@@ -5,6 +5,8 @@ groups as host buffers over TCP; ``configure(store_addr, rank, world_size)``
 tears down the previous ring and rendezvouses a new one on every quorum
 change, and operations return ``Work`` futures whose failures are latched
 and reported through ``errored()`` instead of raised into the train loop.
+A quorum change that keeps a ring edge (the same neighbour process on the
+same side) reuses that edge's lane sockets instead (below).
 
 :class:`TCPCollective` is the JAX package's striped multi-lane flat ring:
 ``lanes`` sockets to each ring neighbour, each allreduce cut into chunk
@@ -16,8 +18,18 @@ package's byte for byte, so one ring can hold JAX and port ranks on either
 engine:
 
 * the rendezvous keys ``rank_<r>`` (``host:port``) and ``cfg_<r>``
-  (``full:<token>``) under the quorum's store prefix, and the 12-byte dial
-  preamble ``<III`` (rank, channel, lane), one connection per lane;
+  (``full:<token>`` or ``inc:<token>``) under the quorum's store prefix,
+  and the 12-byte dial preamble ``<III`` (rank, channel, lane), one
+  connection per lane;
+* incremental reconfiguration (``TPUFT_INCREMENTAL_RECONF``, on by
+  default): the listener and its token outlive a configure, and a rank
+  whose previous ring is live publishes ``inc:<token>``; an edge is reused
+  when the neighbour's (address, token) is the one recorded at the
+  previous configure and its mode is ``inc``, and only the other edges are
+  dialled and accepted (``last_configure``: ``mode``, ``reused_lanes``,
+  ``opened_lanes``, ``configure_s``); a port rank also publishes
+  ``nbrs_<r>`` (its previous neighbours) and reuses an edge to another
+  port rank only when both ends recorded each other;
 * every frame is a ``<IQ`` header (tag, payload bytes) and the payload;
 * op ``seq``'s stripe ``s`` owns tags ``seq * 520 + s * 8 + {1: reduce-
   scatter, 2: allgather}``; stripe counts, ``np.array_split`` chunk and
@@ -44,13 +56,14 @@ reads the current configuration's counters (they restart at every
 ``configure``) and :meth:`TCPCollective.lane_totals` the monotonic totals
 across reconfigures.
 
-Not ported yet: the 2-D topology, shm lanes, link shaping, incremental
-reconfiguration, and the ops other than allreduce.
+Not ported yet: the 2-D topology, shm lanes, link shaping, and the ops
+other than allreduce.
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import logging
 import math
 import os
@@ -95,7 +108,16 @@ _MAX_LANES = 8
 _RING_ENGINES = ("auto", "py", "native")
 _WIRE_DTYPES = ("auto", "f32", "bf16")
 
+# Incremental reconfiguration: "0" (or false/off/no) takes the full
+# rendezvous at every quorum change.
+TPUFT_INCREMENTAL_RECONF_ENV = "TPUFT_INCREMENTAL_RECONF"
+
 _native_fallback_warned = False
+
+
+def _incremental_from_env() -> bool:
+    v = os.environ.get(TPUFT_INCREMENTAL_RECONF_ENV, "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
 
 
 def _ring_lanes_from_env() -> int:
@@ -597,10 +619,18 @@ class TCPCollective(Collective):
         # The Python hops' recorder; native ring passes record inside the
         # engine and are merged in hop_records / lane_stats.
         self._hops = HopRecorder()
-        # Counters of every closed configuration, banked at abort, so
-        # lane_totals never goes backwards across a reconfigure.
+        # Counters of every closed configuration, banked at abort (and at an
+        # incremental configure), so lane_totals never goes backwards.
         self._lifetime: Dict[str, Any] = {}
-        self.last_configure: Dict[str, Any] = {}
+        # Incremental reconfiguration: this rank's published listener
+        # address and the token minted with the listener, and each ring
+        # neighbour's (address, token) as the last configure saw it.
+        self._incremental = _incremental_from_env()
+        self._self_addr: Optional[str] = None
+        self._listener_token = ""
+        self._neighbor_ids: Dict[str, tuple] = {}
+        self.last_configure: Dict[str, Any] = {"mode": "none", "reused_lanes": 0,
+                                               "opened_lanes": 0, "configure_s": 0.0}
 
     # -- properties -----------------------------------------------------------
 
@@ -646,15 +676,18 @@ class TCPCollective(Collective):
 
     def configure(self, store_addr: str, rank: int, world_size: int) -> None:
         t0 = time.monotonic()
+        # The incremental attempt comes first: abort() would close the
+        # sockets and the listener it keeps.
+        if self._configure_incremental(store_addr, rank, world_size, t0):
+            return
         self.abort()
         with self._lock:
             self._op_error = None
             self._rank = rank
             self._world_size = world_size
             self._op_seq = 0
-            # How the configure went, in the JAX package's record (the port
-            # always rendezvouses in full); the Manager's reconfigure event
-            # reads it.
+            # How the configure went (the Manager's reconfigure event reads
+            # it).
             self.last_configure = {"mode": "full", "reused_lanes": 0, "opened_lanes": 0,
                                    "configure_s": 0.0}
             if world_size == 1:
@@ -677,6 +710,163 @@ class TCPCollective(Collective):
                 "opened_lanes": len(self._next_lanes) + len(self._prev_lanes),
                 "configure_s": time.monotonic() - t0,
             }
+
+    def _configure_incremental(self, store_addr: str, rank: int, world_size: int,
+                               t0: float) -> bool:
+        """The quorum change's fast path, the JAX package's protocol: when
+        this rank's previous ring is live, keep the listener and the lane
+        sockets of every edge whose neighbour survives, and open only the
+        changed edges.  Returns False (the caller then takes the full path,
+        whose abort reclaims whatever this attempt left) when a
+        precondition fails or any step slips.
+
+        Every configuring rank publishes ``rank_<r>`` (its address; the
+        listener is kept, so it is unchanged here) and ``cfg_<r>``
+        (``inc:<token>`` here, ``full:<token>`` on the full path) under the
+        new quorum's prefix.  An edge is reused when the neighbour's
+        published (address, token) equals the one recorded at the previous
+        configure and its mode is ``inc`` (a ``full`` neighbour's abort
+        closed its end).  Both ends read the same two records, so they
+        decide alike.  Once ``inc`` is published this rank stays on the
+        path even when no edge survives (it then rebuilds both over the
+        kept listener), since a fresh neighbour may already have dialled
+        it.
+
+        A port rank also publishes ``nbrs_<r>``, the neighbours it recorded
+        at its previous configure, and reuses an edge to another port rank
+        only when the far end recorded this rank there too.  Identity alone
+        is not enough when a rank missed a quorum: its neighbour kept its
+        listener and token but closed their edge when it reconfigured
+        without it, and the rank that missed the quorum would reuse a dead
+        socket while the neighbour waited the whole rendezvous timeout for
+        its dial (a JAX neighbour publishes no ``nbrs_<r>``; the edge then
+        follows the JAX package's rule on both ends)."""
+        if not self._incremental:
+            return False
+        with self._lock:
+            try:
+                return self._configure_incremental_locked(store_addr, rank, world_size, t0)
+            except Exception as e:  # noqa: BLE001 - any slip falls back to the full path
+                logger.info("incremental reconfigure fell back to the full path: %s", e)
+                return False
+
+    def _configure_incremental_locked(self, store_addr: str, rank: int, world_size: int,
+                                      t0: float) -> bool:
+        # A live ring on both sides of the change, a kept listener, no
+        # latched error and nothing in flight (the Manager reconfigures at
+        # a step boundary).
+        if (self._listener is None or self._self_addr is None or not self._neighbor_ids
+                or self._world_size <= 1 or world_size <= 1 or self._op_error is not None
+                or self._inflight or not self._next_lanes or not self._prev_lanes
+                or self._ring_executor is None):
+            return False
+        old_next_id = self._neighbor_ids.get("next")
+        old_prev_id = self._neighbor_ids.get("prev")
+        if old_next_id is None or old_prev_id is None:
+            return False
+        store = StoreClient(store_addr)
+        old_store, self._store = self._store, store
+        if old_store is not None:
+            old_store.close()
+        # Before publishing: drop dials that reached the kept listener and
+        # were never taken (a fresh neighbour dials the moment it reads our
+        # key, so its lanes must land after this sweep), and bump the
+        # generation, as abort() does.
+        self._generation += 1
+        self._purge_backlog()
+        store.set(f"rank_{rank}", self._self_addr.encode())
+        # Set before cfg_<r>: a neighbour that reads this rank's mode finds
+        # its previous neighbours too.
+        store.set(f"nbrs_{rank}", json.dumps({"next": list(old_next_id),
+                                               "prev": list(old_prev_id)}).encode())
+        store.set(f"cfg_{rank}", f"inc:{self._listener_token}".encode())
+        next_rank, prev_rank = (rank + 1) % world_size, (rank - 1) % world_size
+        # The whole rendezvous budget: a replaced neighbour is a fresh
+        # process that may publish late.
+        ident_ms = int(self.RENDEZVOUS_TIMEOUT_S * 1000)
+        next_id = self._peer_identity(next_rank, timeout_ms=ident_ms)
+        prev_id = self._peer_identity(prev_rank, timeout_ms=ident_ms)
+        if next_id is None or prev_id is None:
+            return False
+        me = [self._self_addr, self._listener_token]
+        reuse_next = (next_id[2] == "inc" and next_id[:2] == old_next_id
+                      and self._recorded_me(next_rank, "prev", me))
+        reuse_prev = (prev_id[2] == "inc" and prev_id[:2] == old_prev_id
+                      and self._recorded_me(prev_rank, "next", me))
+        # Bank the closing configuration's counters while its engine is
+        # readable, then detach the engine: its dup'd fds close without a
+        # shutdown, so the kept sockets stay connected (a refusal, ops in
+        # flight, raises and falls back).
+        self._bank_locked()
+        engine, self._engine = self._engine, None
+        if engine is not None:
+            engine.detach()
+        for reused, peers in ((reuse_next, self._next_lanes), (reuse_prev, self._prev_lanes)):
+            for p in peers:
+                if reused:
+                    p.bytes_out = p.bytes_in = 0
+                else:
+                    p.close()
+        self._op_error = None
+        self._rank = rank
+        self._world_size = world_size
+        self._op_seq = 0
+        lanes = self._lanes
+        opened = 0
+        if not reuse_next:
+            addr = store.get(f"rank_{next_rank}", wait=True, timeout_ms=ident_ms)
+            if addr is None:
+                raise TimeoutError(f"rendezvous: rank {next_rank} never published its address")
+            self._next_lanes = [self._dial(addr, lane) for lane in range(lanes)]
+            opened += lanes
+        if not reuse_prev:
+            self._prev_lanes = self._accept_lanes(self._listener, prev_rank, strict=False)
+            opened += lanes
+        self._engine = self._create_engine()
+        self._neighbor_ids = {"next": next_id[:2], "prev": prev_id[:2]}
+        self.last_configure = {
+            "mode": "incremental",
+            "reused_lanes": (lanes if reuse_next else 0) + (lanes if reuse_prev else 0),
+            "opened_lanes": opened,
+            "configure_s": time.monotonic() - t0,
+        }
+        return True
+
+    def _recorded_me(self, peer_rank: int, side: str, me: list) -> bool:
+        """Whether ``peer_rank`` recorded this rank as its ``side``
+        neighbour at its previous configure; True for a neighbour that
+        publishes no record (the JAX package's rule)."""
+        assert self._store is not None
+        raw = self._store.get(f"nbrs_{peer_rank}", wait=False)
+        return raw is None or json.loads(raw.decode()).get(side) == me
+
+    def _purge_backlog(self) -> None:
+        """Closes every connection waiting in the kept listener's backlog."""
+        listener = self._listener
+        assert listener is not None
+        listener.settimeout(0.0)
+        try:
+            while True:
+                try:
+                    conn, _ = listener.accept()
+                except (BlockingIOError, socket.timeout):
+                    return
+                conn.close()
+        finally:
+            listener.settimeout(None)
+
+    def _peer_identity(self, peer_rank: int, timeout_ms: int = 10_000) -> Optional[tuple]:
+        """``(address, token, mode)`` that ``peer_rank`` published under the
+        current prefix, or None."""
+        assert self._store is not None
+        addr = self._store.get(f"rank_{peer_rank}", wait=True, timeout_ms=timeout_ms)
+        cfg = self._store.get(f"cfg_{peer_rank}", wait=True, timeout_ms=timeout_ms)
+        if addr is None or cfg is None:
+            return None
+        mode, _, token = cfg.decode().partition(":")
+        if not token:
+            return None
+        return (addr.decode(), token, mode)
 
     def _create_engine(self) -> Optional[_native.RingEngine]:
         """The native engine over this generation's lane sockets, or None
@@ -712,8 +902,14 @@ class TCPCollective(Collective):
         self._listener = listener
         port = listener.getsockname()[1]
         host = self._host or socket.gethostname()
-        self._store.set(f"rank_{self._rank}", f"{host}:{port}".encode())
-        self._store.set(f"cfg_{self._rank}", f"full:{os.urandom(8).hex()}".encode())
+        # The token is minted with the listener: (address, token) equality
+        # at a later configure proves the same process holds the far end
+        # (an address alone could be a new process on a recycled port).
+        self._listener_token = os.urandom(8).hex()
+        self._self_addr = f"{host}:{port}"
+        self._store.set(f"rank_{self._rank}", self._self_addr.encode())
+        # "full": this rank's earlier sockets are gone (abort closed them).
+        self._store.set(f"cfg_{self._rank}", f"full:{self._listener_token}".encode())
 
         n = self._world_size
         next_rank, prev_rank = (self._rank + 1) % n, (self._rank - 1) % n
@@ -724,28 +920,62 @@ class TCPCollective(Collective):
         # A dial completes in the listener's backlog, so every rank dials
         # all its lanes before accepting any.
         self._next_lanes = [self._dial(addr, lane) for lane in range(lanes)]
+        self._prev_lanes = self._accept_lanes(listener, prev_rank, strict=True)
+        # Each neighbour's identity, which the next configure compares to
+        # decide whether an edge survived; a missing one only forces the
+        # full path then.
+        self._neighbor_ids = {}
+        try:
+            nxt, prv = self._peer_identity(next_rank), self._peer_identity(prev_rank)
+            if nxt is not None and prv is not None:
+                self._neighbor_ids = {"next": nxt[:2], "prev": prv[:2]}
+        except Exception:  # noqa: BLE001 - a reuse hint only
+            pass
 
-        # Lanes from prev arrive in any order, keyed by their preamble.
+    def _accept_lanes(self, listener: socket.socket, prev_rank: int,
+                      strict: bool) -> List[_Peer]:
+        """Accepts one connection a lane from ``prev_rank`` (in any order,
+        keyed by the preamble).  An unexpected connection raises when
+        ``strict`` (a fresh listener) and is dropped otherwise (a kept
+        listener may still hear a stale dial)."""
+        lanes = self._lanes
         expected = {(prev_rank, _CH_RING, lane) for lane in range(lanes)}
         accepted: Dict[Tuple[int, int, int], _Peer] = {}
         deadline = time.monotonic() + self.RENDEZVOUS_TIMEOUT_S
-        while len(accepted) < lanes:
-            listener.settimeout(max(0.01, deadline - time.monotonic()))
-            try:
-                conn, _ = listener.accept()
-            except socket.timeout:
-                raise TimeoutError(f"rendezvous: ring lanes never connected: "
-                                   f"{sorted(expected - set(accepted))}") from None
-            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            conn.settimeout(self._timeout)
-            peer = _Peer(conn)
-            key = _PREAMBLE.unpack(peer.recv_exact(_PREAMBLE.size))
-            if key not in expected or key in accepted:
+        try:
+            while len(accepted) < lanes:
+                listener.settimeout(max(0.01, deadline - time.monotonic()))
+                try:
+                    conn, _ = listener.accept()
+                except socket.timeout:
+                    raise TimeoutError(f"rendezvous: ring lanes never connected: "
+                                       f"{sorted(expected - set(accepted))}") from None
+                conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                conn.settimeout(self._timeout)
+                peer = _Peer(conn)
+                try:
+                    key = _PREAMBLE.unpack(peer.recv_exact(_PREAMBLE.size))
+                except (OSError, ConnectionError):
+                    if strict:
+                        raise
+                    peer.close()
+                    continue
+                if key not in expected or key in accepted:
+                    peer.close()
+                    if strict:
+                        raise ConnectionError(f"rendezvous: unexpected connection (rank, "
+                                              f"channel, lane) {key}; expected "
+                                              f"{sorted(expected)}")
+                    logger.warning("dropping a stale ring connection %s", key)
+                    continue
+                accepted[key] = peer
+        except BaseException:
+            for peer in accepted.values():
                 peer.close()
-                raise ConnectionError(f"rendezvous: unexpected connection (rank, channel, lane) "
-                                      f"{key}; expected {sorted(expected)}")
-            accepted[key] = peer
-        self._prev_lanes = [accepted[(prev_rank, _CH_RING, lane)] for lane in range(lanes)]
+            raise
+        finally:
+            listener.settimeout(None)
+        return [accepted[(prev_rank, _CH_RING, lane)] for lane in range(lanes)]
 
     def abort(self) -> None:
         with self._lock:
@@ -757,6 +987,10 @@ class TCPCollective(Collective):
             if self._listener is not None:
                 self._listener.close()
                 self._listener = None
+            # The listener and its token are gone: no edge of this rank can
+            # be reused by the next configure.
+            self._neighbor_ids = {}
+            self._self_addr = None
             pools = [self._ring_executor, self._lane_executor, *self._send_pools]
             self._ring_executor = self._lane_executor = None
             self._send_pools = []

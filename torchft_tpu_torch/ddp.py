@@ -37,6 +37,10 @@ flight.  ``last_stats``' three waits are the sums of those spans' durations.
 :class:`PerLeafGradientAverager` is the JAX package's one-allreduce-per-
 tensor averager, and :func:`allreduce_pytree` the one-shot form of the
 bucket averager (on a list of tensors: torch has no pytrees).
+
+:class:`ElasticBatchScaler` is the JAX package's elastic batch engine: with
+``TPUFT_ELASTIC_GLOBAL_BATCH`` set, the Manager plans each membership's
+split of a constant global batch (``Manager.elastic_plan``).
 """
 
 from __future__ import annotations
@@ -52,12 +56,124 @@ from torchft_tpu_torch.manager import Manager
 TPUFT_DEVICE_WIRE_PREP_ENV = "TPUFT_DEVICE_WIRE_PREP"
 _MAX_PLANS = 8
 
+# The elastic batch engine's knobs, the JAX package's: the global batch
+# (set: on), the microbatch a group accumulates in, the LR policy, the
+# participant count that policy scales from, and a master switch.
+TPUFT_ELASTIC_ENV = "TPUFT_ELASTIC"
+TPUFT_ELASTIC_GLOBAL_BATCH_ENV = "TPUFT_ELASTIC_GLOBAL_BATCH"
+TPUFT_ELASTIC_MICROBATCH_ENV = "TPUFT_ELASTIC_MICROBATCH"
+TPUFT_ELASTIC_SCALE_LR_ENV = "TPUFT_ELASTIC_SCALE_LR"
+TPUFT_ELASTIC_BASE_PARTICIPANTS_ENV = "TPUFT_ELASTIC_BASE_PARTICIPANTS"
+
 
 def _env_flag(name: str, default: bool = False) -> bool:
     raw = os.environ.get(name)
     if raw is None or not raw.strip():
         return default
     return raw.strip().lower() in ("1", "true", "on", "yes")
+
+
+class ElasticBatchScaler:
+    """Constant-global-batch rescaling across membership churn.
+
+    ``plan(participants, rank)`` splits the fixed ``global_batch`` across
+    the CURRENT participant set: each group takes ``global_batch //
+    participants`` samples (the first ``global_batch % participants``
+    groups take one extra, so the split is exact — no rounding drift in
+    the committed global batch), runs them as ``ceil(share / microbatch)``
+    accumulation microsteps of at most ``microbatch`` samples, and the
+    per-step examples/s the goodput ledger scores stays proportional to
+    live capacity instead of collapsing to zero while a respawn rejoins.
+
+    LR scaling is OPTIONAL and off by default: with the global batch held
+    constant the LR schedule needs no correction (that is the point).
+    ``scale_lr="linear"``/``"sqrt"`` support the other elastic policy —
+    per-group batch held fixed, global batch breathing with membership —
+    where ``lr_scale`` follows participants relative to
+    ``base_participants`` (first membership seen, unless pinned by arg or
+    ``TPUFT_ELASTIC_BASE_PARTICIPANTS``).
+    """
+
+    def __init__(
+        self,
+        global_batch: int,
+        microbatch: int = 1,
+        scale_lr: str = "none",
+        base_participants: Optional[int] = None,
+    ) -> None:
+        if global_batch <= 0:
+            raise ValueError(f"global_batch must be positive, got {global_batch}")
+        if microbatch <= 0:
+            raise ValueError(f"microbatch must be positive, got {microbatch}")
+        if scale_lr not in ("none", "linear", "sqrt"):
+            raise ValueError(
+                f"scale_lr must be 'none', 'linear' or 'sqrt', got {scale_lr!r}"
+            )
+        self.global_batch = int(global_batch)
+        self.microbatch = int(microbatch)
+        self.scale_lr = scale_lr
+        self.base_participants = (
+            int(base_participants) if base_participants else None
+        )
+
+    @classmethod
+    def from_env(cls) -> Optional["ElasticBatchScaler"]:
+        """The env-configured scaler, or None when elastic batching is off
+        (no TPUFT_ELASTIC_GLOBAL_BATCH, or TPUFT_ELASTIC=0)."""
+        raw = os.environ.get(TPUFT_ELASTIC_GLOBAL_BATCH_ENV)
+        if not raw or not _env_flag(TPUFT_ELASTIC_ENV, True):
+            return None
+        try:
+            global_batch = int(raw)
+            microbatch = int(
+                os.environ.get(TPUFT_ELASTIC_MICROBATCH_ENV) or "1"
+            )
+            base = int(
+                os.environ.get(TPUFT_ELASTIC_BASE_PARTICIPANTS_ENV) or "0"
+            )
+        except ValueError:
+            return None
+        if global_batch <= 0 or microbatch <= 0:
+            return None
+        scale_lr = os.environ.get(TPUFT_ELASTIC_SCALE_LR_ENV, "none")
+        if scale_lr not in ("none", "linear", "sqrt"):
+            scale_lr = "none"
+        return cls(
+            global_batch,
+            microbatch=microbatch,
+            scale_lr=scale_lr,
+            base_participants=base or None,
+        )
+
+    def plan(self, participants: int, rank: Optional[int] = None) -> Dict[str, Any]:
+        """The batch plan for one membership: exact constant-global-batch
+        split, this group's share (when ``rank`` is given), and the
+        accumulation microstep count that realizes it."""
+        participants = max(1, int(participants))
+        if self.base_participants is None:
+            self.base_participants = participants
+        base_share, extra = divmod(self.global_batch, participants)
+        if rank is not None and 0 <= rank < participants:
+            group_batch = base_share + (1 if rank < extra else 0)
+        else:
+            # Membership-wide view (no rank): the largest share, which is
+            # what sizes a survivor's worst-case accumulation loop.
+            group_batch = base_share + (1 if extra else 0)
+        accum_steps = max(1, -(-group_batch // self.microbatch))
+        if self.scale_lr == "linear":
+            lr_scale = participants / self.base_participants
+        elif self.scale_lr == "sqrt":
+            lr_scale = (participants / self.base_participants) ** 0.5
+        else:
+            lr_scale = 1.0
+        return {
+            "participants": participants,
+            "global_batch": self.global_batch,
+            "group_batch": group_batch,
+            "microbatch": min(self.microbatch, group_batch) or 1,
+            "accum_steps": accum_steps,
+            "lr_scale": lr_scale,
+        }
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

@@ -1,0 +1,344 @@
+"""Drain-notice sources, multiplexed into one event.
+
+The counterpart of ``torchft_tpu/drain/watcher.py``: the same sources,
+notice-file layout (``drain_<group>.json`` with ``deadline_ms``, ``source``
+and ``pid``), environment knobs and defaults.
+
+A planned departure is announced through one of three channels, each with a
+different shape; :class:`DrainWatcher` normalizes them into a single
+:class:`DrainNotice` and invokes one callback exactly once:
+
+  - **SIGTERM** — what Kubernetes (and most orchestrators) send at the
+    start of a termination grace period.  The handler chains to any
+    previously installed one.
+  - **GCE metadata server** — a poller over the instance metadata
+    ``preempted`` and ``maintenance-event`` endpoints (the 30 s
+    spot/preemptible notice and host-maintenance announcements).  Off by
+    default; enabled by ``TPUFT_GCE_DRAIN_POLL=1`` or a
+    ``TPUFT_GCE_METADATA_URL`` override (a local stub in the tests).
+  - **Explicit trigger** — a JSON notice file (``TPUFT_DRAIN_DIR`` +
+    ``drain_<group>.json``, written atomically by the launcher's
+    ``drain()`` or by an operator from the CLI), or a programmatic
+    :meth:`DrainWatcher.trigger` call.
+
+The watcher never raises into the train loop and is safe to start in any
+process (signal installation silently degrades off the main thread).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "DRAIN_DIR_ENV",
+    "DRAIN_GRACE_ENV",
+    "GCE_METADATA_URL_ENV",
+    "GCE_POLL_ENV",
+    "DrainNotice",
+    "DrainWatcher",
+]
+
+# Directory the supervisor and the CLI write per-group notice files into
+# (file name: drain_<REPLICA_GROUP_ID>.json).
+DRAIN_DIR_ENV = "TPUFT_DRAIN_DIR"
+# Default grace period in seconds for sources that carry no deadline of
+# their own (SIGTERM, bare trigger calls).  30 s = the GCE spot notice.
+DRAIN_GRACE_ENV = "TPUFT_DRAIN_GRACE_S"
+# Override of the GCE metadata base URL (tests point this at a local stub).
+GCE_METADATA_URL_ENV = "TPUFT_GCE_METADATA_URL"
+# Opt-in for polling the real metadata server.
+GCE_POLL_ENV = "TPUFT_GCE_DRAIN_POLL"
+
+_DEFAULT_GRACE_S = 30.0
+_GCE_DEFAULT_URL = "http://metadata.google.internal/computeMetadata/v1/instance"
+
+
+@dataclass(frozen=True)
+class DrainNotice:
+    """One announced departure: where it came from and how long we have."""
+
+    # "sigterm" | "gce-preemption" | "gce-maintenance" | "file" | explicit.
+    source: str
+    # Unix timestamp after which the process may be forcibly gone.
+    deadline: float
+
+    def remaining_s(self) -> float:
+        return max(0.0, self.deadline - time.time())
+
+    def deadline_ms_from_now(self) -> int:
+        return int(self.remaining_s() * 1000)
+
+
+class DrainWatcher:
+    """Multiplexes drain-notice sources into one callback.
+
+    Args:
+        on_notice: called once, from whichever thread observed the notice
+            first, with the :class:`DrainNotice`.  Must not block for long.
+        group_id: replica group id used to derive the notice-file name;
+            defaults to ``REPLICA_GROUP_ID`` (resolved at ``start()``, i.e.
+            after hot-spare adoption has pinned the id).
+        grace_s: deadline for sources without one (default: 30 s or
+            ``TPUFT_DRAIN_GRACE_S``).
+        sigterm: install the SIGTERM hook (main thread only; silently
+            skipped elsewhere).
+        drain_dir: notice-file directory (default: ``TPUFT_DRAIN_DIR``;
+            no file polling when unset).
+        gce_url: metadata base URL; polling runs when this is set
+            explicitly, ``TPUFT_GCE_METADATA_URL`` is set, or
+            ``TPUFT_GCE_DRAIN_POLL=1``.
+        poll_interval_s: file/metadata poll period.
+    """
+
+    def __init__(
+        self,
+        on_notice: Optional[Callable[[DrainNotice], None]] = None,
+        *,
+        group_id: Optional[str] = None,
+        grace_s: Optional[float] = None,
+        sigterm: bool = True,
+        drain_dir: Optional[str] = None,
+        gce_url: Optional[str] = None,
+        poll_interval_s: float = 0.25,
+    ) -> None:
+        self._on_notice = on_notice
+        self._group_id = group_id
+        if grace_s is None:
+            try:
+                grace_s = float(os.environ.get(DRAIN_GRACE_ENV, _DEFAULT_GRACE_S))
+            except ValueError:
+                grace_s = _DEFAULT_GRACE_S
+        self._grace_s = grace_s
+        self._sigterm = sigterm
+        self._drain_dir = drain_dir if drain_dir is not None else os.environ.get(
+            DRAIN_DIR_ENV
+        )
+        self._gce_url = gce_url or os.environ.get(GCE_METADATA_URL_ENV)
+        self._gce_enabled = bool(
+            gce_url
+            or os.environ.get(GCE_METADATA_URL_ENV)
+            or os.environ.get(GCE_POLL_ENV) == "1"
+        )
+        self._poll_interval_s = poll_interval_s
+
+        self._lock = threading.Lock()
+        self._notice: Optional[DrainNotice] = None
+        self._fired = threading.Event()
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._prev_sigterm = None
+        self._started = False
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "DrainWatcher":
+        if self._started:
+            return self
+        self._started = True
+        if self._group_id is None:
+            self._group_id = os.environ.get("REPLICA_GROUP_ID", "0")
+        if self._sigterm:
+            self._install_sigterm()
+        if self._drain_dir:
+            t = threading.Thread(
+                target=self._file_loop, name="tpuft_drain_file", daemon=True
+            )
+            t.start()
+            self._threads.append(t)
+        if self._gce_enabled:
+            t = threading.Thread(
+                target=self._gce_loop, name="tpuft_drain_gce", daemon=True
+            )
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=2.0)
+        self._threads = []
+        if self._prev_sigterm is not None:
+            try:
+                signal.signal(signal.SIGTERM, self._prev_sigterm)
+            except ValueError:
+                pass
+            self._prev_sigterm = None
+
+    # -- notice state -------------------------------------------------------
+
+    @property
+    def notice(self) -> Optional[DrainNotice]:
+        return self._notice
+
+    def drain_requested(self) -> bool:
+        return self._fired.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> Optional[DrainNotice]:
+        """Blocks until a notice arrives (or timeout); returns it."""
+        self._fired.wait(timeout)
+        return self._notice
+
+    def trigger(self, source: str = "manual", grace_s: Optional[float] = None) -> None:
+        """Explicit (CLI/programmatic) drain trigger."""
+        self._fire(
+            DrainNotice(
+                source=source,
+                deadline=time.time() + (grace_s if grace_s is not None else self._grace_s),
+            )
+        )
+
+    def _fire(self, notice: DrainNotice) -> None:
+        with self._lock:
+            if self._notice is not None:
+                return  # first notice wins; a drain is not retractable
+            self._notice = notice
+        self._fired.set()
+        logger.warning(
+            "drain notice: source=%s deadline in %.1fs",
+            notice.source, notice.remaining_s(),
+        )
+        if self._on_notice is not None:
+            try:
+                self._on_notice(notice)
+            except Exception:  # noqa: BLE001 — a notice must never kill its source thread
+                logger.exception("drain on_notice callback failed")
+
+    # -- sources ------------------------------------------------------------
+
+    def _install_sigterm(self) -> None:
+        def handler(signum, frame):
+            # _fire runs on a FRESH thread, never in the handler itself: a
+            # signal handler executes on the main thread between bytecodes,
+            # and the main thread may be holding non-reentrant locks the
+            # notice path needs (MetricsLogger._lock during a commit emit,
+            # this watcher's own _lock) — firing inline would deadlock the
+            # very step the drain wants to finish.
+            notice = DrainNotice(
+                source="sigterm", deadline=time.time() + self._grace_s
+            )
+            threading.Thread(
+                target=self._fire, args=(notice,),
+                name="tpuft_drain_sigterm", daemon=True,
+            ).start()
+            prev = self._prev_sigterm
+            if callable(prev) and prev not in (signal.SIG_IGN, signal.SIG_DFL):
+                prev(signum, frame)
+
+        try:
+            self._prev_sigterm = signal.signal(signal.SIGTERM, handler)
+        except ValueError:
+            # Not the main thread: the orchestrator-facing channel degrades
+            # to the file/metadata pollers.
+            self._prev_sigterm = None
+            logger.debug("not main thread; SIGTERM drain hook not installed")
+
+    def notice_file_path(self) -> Optional[str]:
+        if not self._drain_dir:
+            return None
+        return os.path.join(self._drain_dir, f"drain_{self._group_id}.json")
+
+    def _file_loop(self) -> None:
+        path = self.notice_file_path()
+        junk_ticks = 0
+        while path and not self._stop.is_set() and not self._fired.is_set():
+            if os.path.exists(path):
+                grace = self._grace_s
+                source = "file"
+                pid = None
+                try:
+                    with open(path, "r", encoding="utf-8") as f:
+                        data = json.load(f)
+                    grace = float(data.get("deadline_ms", grace * 1000)) / 1000.0
+                    source = str(data.get("source", source))
+                    pid = int(data["pid"]) if data.get("pid") is not None else None
+                    junk_ticks = 0
+                except (OSError, ValueError, TypeError, AttributeError):
+                    # A bare `touch`, non-dict JSON, or junk fields: still a
+                    # valid (unpinned) trigger — and never a reason to kill
+                    # this poller thread.  But a supervisor writing the file
+                    # non-atomically looks identical mid-write (empty or
+                    # truncated JSON), so give it one poll tick to finish
+                    # before consuming it as a touch-trigger — otherwise the
+                    # notice fires without its deadline/source/pid payload.
+                    junk_ticks += 1
+                    if junk_ticks < 2:
+                        self._stop.wait(self._poll_interval_s)
+                        continue
+                if pid is not None and pid != os.getpid():
+                    # A notice addressed to the donor, observed by its
+                    # replacement (same group id, same file name): not
+                    # ours — keep watching.  The addressee (or the
+                    # supervisor at reap time) deletes the file.
+                    self._stop.wait(self._poll_interval_s)
+                    continue
+                if pid is None and os.environ.get("TPUFT_DRAIN_SUPERVISED") == "1":
+                    # Under a supervising launcher, a pid-less file is an
+                    # OPERATOR request addressed to the supervisor, which
+                    # re-issues it pid-pinned after pre-warming the
+                    # replacement; consuming it here would exit with
+                    # nobody taking over.
+                    self._stop.wait(self._poll_interval_s)
+                    continue
+                try:
+                    # Consume the notice so a later incarnation of this
+                    # group cannot replay it.
+                    os.remove(path)
+                except OSError:
+                    pass
+                self._fire(
+                    DrainNotice(source=source, deadline=time.time() + grace)
+                )
+                return
+            # File absent: any mid-write grace state is stale (the writer
+            # aborted and removed it) — a future notice gets a fresh tick.
+            junk_ticks = 0
+            self._stop.wait(self._poll_interval_s)
+
+    def _gce_fetch(self, endpoint: str) -> Optional[str]:
+        import urllib.request
+
+        base = self._gce_url or _GCE_DEFAULT_URL
+        req = urllib.request.Request(
+            f"{base}/{endpoint}", headers={"Metadata-Flavor": "Google"}
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=2.0) as resp:
+                return resp.read().decode("utf-8", "replace").strip()
+        except Exception:  # noqa: BLE001 — metadata server absent/slow is normal
+            return None
+
+    def _gce_loop(self) -> None:
+        # The real metadata server supports hanging GETs (wait_for_change);
+        # plain polling keeps the stub servers tests use trivial and is
+        # plenty for a 30 s notice.
+        interval = max(self._poll_interval_s, 0.25)
+        while not self._stop.is_set() and not self._fired.is_set():
+            preempted = self._gce_fetch("preempted")
+            if preempted and preempted.upper() == "TRUE":
+                # The ACTIVE spot notice: ~30 s until the VM is gone.
+                self._fire(
+                    DrainNotice(
+                        source="gce-preemption", deadline=time.time() + 30.0
+                    )
+                )
+                return
+            event = self._gce_fetch("maintenance-event")
+            if event and event.upper() not in ("", "NONE"):
+                self._fire(
+                    DrainNotice(
+                        source="gce-maintenance",
+                        deadline=time.time() + self._grace_s,
+                    )
+                )
+                return
+            self._stop.wait(interval)

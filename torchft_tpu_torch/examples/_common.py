@@ -1,17 +1,19 @@
 """Shared mechanics of the example trainers: the launcher's environment
-contract, the Manager wiring, when a train loop is done, and the FINAL
-digest.  Each example keeps its own train loop inline.
+contract (with the hot-spare branch), the Manager wiring (with the drain
+watcher), when a train loop is done (a drain among the exits), and the
+FINAL digest.  Each example keeps its own train loop inline.
 
-The counterpart of ``examples/_common.py``, without the hot-spare branch,
-the drain watcher and the straggler injection.
+The counterpart of ``examples/_common.py``, without the straggler
+injection.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import time
 from datetime import timedelta
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,10 +22,41 @@ from torchft_tpu_torch.collectives import TCPCollective
 from torchft_tpu_torch.manager import Manager
 
 
-def replica_env() -> Tuple[int, int]:
-    """(replica_group, num_replica_groups) from the launcher's env."""
+def warm_device(device: Any) -> None:
+    """The group-independent start a hot spare pays while idle: the CUDA
+    context and every kernel library's load (a no-op on the CPU)."""
+    if torch.device(device).type != "cuda":
+        return
+    from torchft_tpu_torch._build import kernel_lib
+    from torchft_tpu_torch.ops import KERNELS
+
+    torch.zeros(1, device=device)
+    for source in sorted({k.source for k in KERNELS.values()}):
+        kernel_lib(source)
+
+
+def replica_env(device: Optional[Any] = None) -> Tuple[int, int]:
+    """(replica_group, num_replica_groups) from the launcher's env.
+
+    A hot spare (``TPUFT_SPARE_FILE`` set, no ``REPLICA_GROUP_ID``) first
+    warms ``device`` (:func:`warm_device`), then blocks until the launcher
+    writes its group id into the go-file.  Call this after the rest of the
+    group-independent work (the imports, the model's build from its seed),
+    so an adoption pays only for the Manager and the rejoin."""
+    gid = os.environ.get("REPLICA_GROUP_ID")
+    spare = os.environ.get("TPUFT_SPARE_FILE")
+    if gid is None and spare:
+        if device is not None:
+            warm_device(device)
+        print(f"[spare] ready (device up), waiting at {spare}", flush=True)
+        while not os.path.exists(spare):
+            time.sleep(0.05)
+        with open(spare) as f:
+            gid = f.read().strip()
+        os.environ["REPLICA_GROUP_ID"] = gid
+        print(f"[spare] adopted replica group {gid}", flush=True)
     return (
-        int(os.environ.get("REPLICA_GROUP_ID", 0)),
+        int(gid or 0),
         int(os.environ.get("NUM_REPLICA_GROUPS", 2)),
     )
 
@@ -35,16 +68,21 @@ def make_manager(
     *,
     min_replicas: int = 1,
     timeout_s: float = 30.0,
+    init_sync: bool = True,
 ) -> Manager:
     """One-process replica group's Manager with the examples' wiring: a
-    TCPCollective data plane and the HTTP checkpoint transport.
+    TCPCollective data plane, the HTTP checkpoint transport and the drain
+    watcher (SIGTERM, the launcher's notice file, the opt-in GCE poll), so
+    a planned departure hands off instead of dying.
 
     Every server of the group (store, manager, ring, checkpoint) listens on
     and is advertised under ``MASTER_ADDR``, the group's store host (the
-    launcher sets ``localhost``): peers already reach the store there."""
+    launcher sets ``localhost``): peers already reach the store there.
+    ``init_sync=False`` skips the step-0 weight sync, for groups that build
+    the same weights from one seed."""
     host = os.environ.get("MASTER_ADDR", "localhost")
     timeout = timedelta(seconds=timeout_s)
-    return Manager(
+    manager = Manager(
         collective=TCPCollective(timeout=timeout_s, host=host),
         load_state_dict=load,
         state_dict=save,
@@ -57,12 +95,17 @@ def make_manager(
         store_addr=host,
         manager_bind=f"{host}:0",
         checkpoint_transport=HTTPTransport(timeout=timeout_s, host=host),
+        init_sync=init_sync,
     )
+    manager.attach_drain_watcher()
+    return manager
 
 
 class TrainGate:
     """Decides when an example train loop is done.
 
+    - **drain**: a drain notice arrived; leave after the step in flight
+      (the launcher has already started a replacement).
     - **merged final** (``require_merged`` > 0): past the step budget, keep
       stepping until a committed step ran with at least that many groups.
       A survivor then steps on alone until a healed replacement merges back,
@@ -80,6 +123,8 @@ class TrainGate:
         self._last_merged = 0
 
     def should_continue(self) -> bool:
+        if self._manager.drain_requested():
+            return False
         step = self._manager.current_step()
         if self._steps_cap and step >= self._steps_cap:
             return False
@@ -90,6 +135,20 @@ class TrainGate:
     def note_commit(self, committed: bool) -> None:
         """Records the last step's participation (call once per step)."""
         self._last_merged = self._manager.num_participants() if committed else 0
+
+    def drained(self) -> bool:
+        return self._manager.drain_requested()
+
+    def finish(self, replica_group: int) -> bool:
+        """The drain epilogue: completes a requested drain and prints the
+        exit marker.  True on a drain exit (the caller prints no FINAL: a
+        donor's parameters are not the run's result)."""
+        if not self.drained():
+            return False
+        self._manager.complete_drain()
+        print(f"[group {replica_group}] DRAIN exit step={self._manager.current_step()}",
+              flush=True)
+        return True
 
 
 def params_digest(state_dict: Dict[str, torch.Tensor]) -> str:

@@ -12,6 +12,11 @@ command)::
     python -m torchft_tpu_torch.launch --groups 2 -- \\
         python -m torchft_tpu_torch.examples.train_ddp --steps 20
 
+With ``--spares 1`` on the launcher a killed or drained group's id goes
+to a pre-started spare, which has built the model and started the device
+while idle (its log is ``spare_<sid>.log``); a drained group finishes its
+step, prints ``DRAIN exit`` instead of FINAL and exits 0.
+
 It trains on the card unless given ``--device cpu``.  The model is the
 small conv net on synthetic CIFAR-shaped data, the same numpy dataset as
 the JAX example.  At exit each process prints a parameter checksum: after
@@ -75,7 +80,9 @@ def main() -> None:
         rng.standard_normal((2048, 32, 32, 3)).astype(np.float32)).to(dev)
     dataset_y = torch.from_numpy(rng.integers(0, 10, size=(2048,)).astype(np.int64)).to(dev)
 
-    replica_group, num_groups = replica_env()
+    # Everything above is group-independent: a hot spare has paid for it
+    # (and for the device's start) before it blocks here for its group id.
+    replica_group, num_groups = replica_env(dev)
     sgd = torch.optim.SGD(model.parameters(), lr=args.lr)
 
     def save():
@@ -110,8 +117,9 @@ def main() -> None:
             print(f"[group {replica_group}] step={step} loss={float(loss.detach()):.4f} "
                   f"participants={manager.num_participants()} committed={committed}",
                   flush=True)
-        print(f"[group {replica_group}] FINAL step={manager.current_step()} "
-              f"params_sha256={params_digest(model.state_dict())}", flush=True)
+        if not gate.finish(replica_group):
+            print(f"[group {replica_group}] FINAL step={manager.current_step()} "
+                  f"params_sha256={params_digest(model.state_dict())}", flush=True)
     finally:
         manager.shutdown()
 

@@ -1,19 +1,29 @@
 """Replica-group launcher and restart supervisor.
 
-The counterpart of ``torchft_tpu/launch.py``, cut to what the kill-and-heal
-path needs.  ``Launcher`` starts one process per replica group with the
-environment contract every group reads (``REPLICA_GROUP_ID``,
-``NUM_REPLICA_GROUPS``, ``TPUFT_LIGHTHOUSE``, ``MASTER_ADDR``), optionally
-runs the native lighthouse in-process, and restarts a group that died: the
-new process is a new incarnation that rejoins through the lighthouse and
-heals from a live peer.  A dead or killed group is evicted at the lighthouse
-once per incarnation, so the survivors' next quorum does not wait out the
-heartbeat timeout, and a group that dies within seconds of its start is
-restarted with exponential backoff instead of at the supervisor's poll rate.
+The counterpart of ``torchft_tpu/launch.py``, without the straggler
+sentinel, the incident watcher and the JobSet spec.  ``Launcher`` starts one
+process per replica group with the environment contract every group reads
+(``REPLICA_GROUP_ID``, ``NUM_REPLICA_GROUPS``, ``TPUFT_LIGHTHOUSE``,
+``MASTER_ADDR``, ``TPUFT_DRAIN_DIR``), optionally runs the native lighthouse
+in-process, and restarts a group that died: the new process is a new
+incarnation that rejoins through the lighthouse and heals from a live peer.
+A dead or killed group is evicted at the lighthouse once per incarnation,
+so the survivors' next quorum does not wait out the heartbeat timeout, and
+a group that dies within seconds of its start is restarted with
+exponential backoff instead of at the supervisor's poll rate.
+
+Hot spares (``spares=N``, ``--spares N``): processes started with no
+``REPLICA_GROUP_ID`` and a go-file (``TPUFT_SPARE_FILE``) pay for their
+start while idle; a restart hands the dead group's id to a ready spare by
+writing its go-file, and the pool is refilled.  Cooperative drain
+(:meth:`Launcher.drain`, or an operator's ``drain_<g>.json`` in the log
+directory): the group's id goes to a replacement at once while the donor,
+told through its pid-pinned notice file, finishes its step and exits;
+past its deadline it is sent SIGTERM, then SIGKILL.
 
 CLI::
 
-    python -m torchft_tpu_torch.launch --groups 2 --max-restarts 3 -- \\
+    python -m torchft_tpu_torch.launch --groups 2 --spares 1 --max-restarts 3 -- \\
         python -m torchft_tpu_torch.examples.train_ddp --steps 150
 
 Programmatic::
@@ -28,14 +38,20 @@ Programmatic::
 from __future__ import annotations
 
 import argparse
+import glob
+import json
 import logging
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+from torchft_tpu_torch.metrics import MetricsLogger
 
 logger = logging.getLogger(__name__)
 
@@ -47,12 +63,42 @@ __all__ = ["Launcher", "main"]
 
 
 @dataclass
+class _Spare:
+    """A started process with no group id, blocked in the example's
+    ``replica_env`` until its go-file names one."""
+
+    proc: subprocess.Popen
+    log: Optional[object]
+    go_path: str
+    sid: int
+    spawned_at: float = 0.0
+
+
+@dataclass
+class _Draining:
+    """A donor finishing a cooperative departure: out of its group's slot
+    (the replacement holds it), reaped on its own, and sent SIGTERM, then
+    SIGKILL, past its deadline."""
+
+    proc: subprocess.Popen
+    log: Optional[object]
+    group: int
+    deadline: float  # monotonic
+    notice_path: str
+    started: float = 0.0
+    term_sent: bool = False
+
+
+@dataclass
 class _Group:
     proc: Optional[subprocess.Popen] = None
     log: Optional[object] = None
     restarts: int = 0
     held: bool = False  # killed on purpose; not restarted until spawn()
     exited_clean: bool = False
+    # Environment overrides of this group alone: such a group cannot adopt
+    # a spare (spares start with the base environment) and spawns cold.
+    env: Dict[str, str] = field(default_factory=dict)
     spawned_at: float = 0.0
     # Crash-loop brake: the next restart waits until backoff_until.
     backoff_until: float = 0.0
@@ -80,6 +126,8 @@ class Launcher:
             inherits this process's stdout and stderr.
         env: extra environment for every group (a None value unsets).
         cwd: working directory of the groups.
+        spares: hot-spare pool size.  The command must resolve its group
+            id through the examples' ``replica_env`` contract.
     """
 
     def __init__(
@@ -94,6 +142,7 @@ class Launcher:
         log_dir: Optional[str] = None,
         env: Optional[Dict[str, Optional[str]]] = None,
         cwd: Optional[str] = None,
+        spares: int = 0,
     ) -> None:
         self._cmd = list(cmd)
         self._num_groups = num_groups
@@ -103,6 +152,12 @@ class Launcher:
         self._groups: Dict[int, _Group] = {i: _Group() for i in range(num_groups)}
         self._embedded = None
         self._evict_client = None  # wire client of an external lighthouse
+        self._spares_target = max(0, spares)
+        self._spares: List[_Spare] = []
+        self._spare_seq = 0
+        self._spare_fast_deaths = 0
+        self._spare_pool_disabled = False
+        self._draining: List[_Draining] = []
         self.lighthouse_http_address = ""
         if lighthouse == "embed":
             from torchft_tpu_torch._native import LighthouseServer
@@ -128,16 +183,77 @@ class Launcher:
         base["MASTER_ADDR"] = base.get("MASTER_ADDR", "localhost")
         if self.lighthouse_address:
             base["TPUFT_LIGHTHOUSE"] = self.lighthouse_address
-        self._base_env = base
+        # The drain channel and the spares' go-files: the log directory, or
+        # a temporary one removed at stop().  Children honour only notices
+        # pinned to their pid; a pid-less file is an operator's request to
+        # this supervisor, which re-issues it through drain().
+        self._work_dir_created = log_dir is None
         if log_dir is not None:
             os.makedirs(log_dir, exist_ok=True)
+            self._work_dir = log_dir
+        else:
+            self._work_dir = tempfile.mkdtemp(prefix="tpuft_launch_")
+        base["TPUFT_DRAIN_DIR"] = self._work_dir
+        base["TPUFT_DRAIN_SUPERVISED"] = "1"
+        self._base_env = base
+        self._metrics = MetricsLogger(base.get("TPUFT_METRICS_PATH"), "launcher")
 
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "Launcher":
         for i in range(self._num_groups):
             self.spawn(i)
+        for _ in range(self._spares_target):
+            self._spawn_spare()
         return self
+
+    # -- hot spares ------------------------------------------------------------
+
+    def _spawn_spare(self) -> None:
+        if self._spare_pool_disabled:
+            return
+        sid = self._spare_seq
+        self._spare_seq += 1
+        go_path = os.path.join(self._work_dir, f"spare_{sid}.go")
+        env = dict(self._base_env)
+        env.pop("REPLICA_GROUP_ID", None)
+        env["TPUFT_SPARE_FILE"] = go_path
+        stdout = stderr = log = None
+        if self._log_dir is not None:
+            log = open(os.path.join(self._log_dir, f"spare_{sid}.log"), "ab")
+            stdout, stderr = log, subprocess.STDOUT
+        proc = subprocess.Popen(self._cmd, env=env, stdout=stdout, stderr=stderr, cwd=self._cwd)
+        self._spares.append(_Spare(proc=proc, log=log, go_path=go_path, sid=sid,
+                                   spawned_at=time.monotonic()))
+
+    def _note_spare_death(self, spare: _Spare) -> None:
+        """A dead spare: close its log, count a fast death (more than three
+        in a row disable the pool: the command itself is broken), refill."""
+        if spare.log is not None:
+            spare.log.close()
+        if time.monotonic() - spare.spawned_at < _MIN_UPTIME_S:
+            self._spare_fast_deaths += 1
+        else:
+            self._spare_fast_deaths = 0
+        if self._spare_fast_deaths > 3:
+            self._spare_pool_disabled = True
+            logger.error("spare %d died fast (exit %s); pool disabled after repeated "
+                         "immediate deaths", spare.sid, spare.proc.poll())
+            return
+        logger.warning("spare %d died (exit %s); respawning", spare.sid, spare.proc.poll())
+        self._spawn_spare()
+
+    def _take_ready_spare(self) -> Optional[_Spare]:
+        while self._spares:
+            spare = self._spares.pop(0)
+            if spare.proc.poll() is None:
+                return spare
+            self._note_spare_death(spare)  # replaced, or the pool shrinks to zero
+        return None
+
+    def spare_count(self) -> int:
+        """Live spares in the pool."""
+        return sum(1 for s in self._spares if s.proc.poll() is None)
 
     def __enter__(self) -> "Launcher":
         return self.start()
@@ -146,7 +262,9 @@ class Launcher:
         self.stop()
 
     def spawn(self, group: int) -> None:
-        """(Re)starts one replica group; clears any kill-hold on it."""
+        """(Re)starts one replica group; clears any kill-hold on it.  With a
+        hot-spare pool the group adopts a ready spare (the process that was
+        the spare goes on as the group) instead of starting cold."""
         g = self._groups[group]
         if g.proc is not None and g.proc.poll() is None:
             raise RuntimeError(f"group {group} is already running")
@@ -155,8 +273,23 @@ class Launcher:
         g.backoff_until = 0.0  # an explicit spawn overrides a pending backoff
         g.killed_by_us = False
         g.evicted = False  # a new incarnation: its death is unreported
+        spare = self._take_ready_spare() if self._spares_target and not g.env else None
+        if spare is not None:
+            tmp = spare.go_path + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(str(group))
+            os.replace(tmp, spare.go_path)  # atomic: the spare reads a whole id
+            if g.log is not None:
+                g.log.close()
+            g.proc, g.log = spare.proc, spare.log  # it keeps its spare log
+            g.spawned_at = time.monotonic()
+            logger.info("group %d adopted hot spare %d (pid %d)", group, spare.sid,
+                        spare.proc.pid)
+            self._spawn_spare()
+            return
         env = dict(self._base_env)
         env["REPLICA_GROUP_ID"] = str(group)
+        env.update(g.env)
         stdout = stderr = None
         if self._log_dir is not None:
             if g.log is not None:
@@ -186,6 +319,60 @@ class Launcher:
                 self._evict_client.close()
             self._evict_client = None  # redial at the next death
             logger.warning("lighthouse evict of group %d failed", group, exc_info=True)
+
+    def _drain_at_lighthouse(self, group: int, deadline_ms: int) -> None:
+        """Marks the group's existing incarnations draining at the
+        lighthouse (by family prefix, before the replacement exists, so its
+        fresh id is not caught): the next quorum leaves them out even when
+        the child never wired the drain contract."""
+        try:
+            if self._embedded is not None:
+                self._embedded.drain(str(group), deadline_ms)
+            elif self.lighthouse_address:
+                from torchft_tpu_torch._native import LighthouseClient
+
+                if self._evict_client is None:
+                    self._evict_client = LighthouseClient(self.lighthouse_address)
+                self._evict_client.drain(str(group), deadline_ms)
+        except Exception:  # noqa: BLE001 - the donor's own notice still reaches it
+            if self._evict_client is not None:
+                self._evict_client.close()
+            self._evict_client = None
+            logger.warning("lighthouse drain of group %d failed", group, exc_info=True)
+
+    def drain(self, group: int, deadline_s: float = 30.0) -> None:
+        """Cooperative drain of one group: the donor is told through its
+        pid-pinned notice file and marked draining at the lighthouse, and
+        the group's id goes to a replacement at once (a ready hot spare, or
+        a cold start), so the replacement's start overlaps the donor's last
+        step.  :meth:`supervise_once` reaps the donor, and past
+        ``deadline_s`` sends it SIGTERM, then SIGKILL."""
+        g = self._groups[group]
+        if g.proc is None or g.proc.poll() is not None:
+            raise RuntimeError(f"group {group} is not running; nothing to drain")
+        donor = g.proc
+        notice_path = os.path.join(self._work_dir, f"drain_{group}.json")
+        tmp = notice_path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"deadline_ms": int(deadline_s * 1000), "source": "supervisor",
+                       "pid": donor.pid}, f)
+        os.replace(tmp, notice_path)  # atomic: the watcher reads whole notices
+        self._drain_at_lighthouse(group, int(deadline_s * 1000))
+        now = time.monotonic()
+        self._draining.append(_Draining(proc=donor, log=g.log, group=group,
+                                        deadline=now + deadline_s, notice_path=notice_path,
+                                        started=now))
+        g.proc = g.log = None
+        hot = self._spares_target > 0 and self.spare_count() > 0 and not g.env
+        self.spawn(group)
+        logger.info("group %d draining (pid %d, deadline %.1fs); replacement %s", group,
+                    donor.pid, deadline_s, "adopted a hot spare" if hot else "cold-spawned")
+        self._metrics.emit("drain_handoff", group=str(group), donor_pid=donor.pid,
+                           hot_spare=hot, deadline_ms=int(deadline_s * 1000))
+
+    def draining(self) -> List[int]:
+        """Groups whose donor is still finishing a cooperative departure."""
+        return sorted({d.group for d in self._draining if d.proc.poll() is None})
 
     def kill(self, group: int, sig: int = signal.SIGKILL, hold: bool = True) -> None:
         """Kills one group (SIGKILL by default: fault injection) and evicts
@@ -249,7 +436,67 @@ class Launcher:
             g.restarts += 1
             self.spawn(i)
             restarted.append(i)
+        self._operator_drains()
+        self._reap_draining()
+        for spare in list(self._spares):
+            if spare.proc.poll() is not None:
+                self._spares.remove(spare)
+                self._note_spare_death(spare)
         return restarted
+
+    def _operator_drains(self) -> None:
+        """A pid-less ``drain_<g>.json`` in the drain directory (an
+        operator's ``echo '{}' > <log-dir>/drain_1.json``) is a request to
+        this supervisor: re-issued through :meth:`drain`, which starts the
+        replacement and pins the notice to the donor's pid."""
+        for i, g in self._groups.items():
+            if g.proc is None or g.proc.poll() is not None:
+                continue
+            try:
+                with open(os.path.join(self._work_dir, f"drain_{i}.json"), "rb") as f:
+                    raw = f.read()
+            except OSError:
+                continue  # absent, or consumed by its donor
+            deadline_s = 30.0
+            try:
+                data = json.loads(raw)
+                if data.get("pid") is not None:
+                    continue  # pinned: on its way to its donor
+                deadline_s = float(data.get("deadline_ms", 30000)) / 1000.0
+            except (ValueError, AttributeError):
+                pass  # a bare touch is a valid request
+            logger.info("group %d: operator drain request", i)
+            self.drain(i, deadline_s=deadline_s)
+
+    def _reap_draining(self) -> None:
+        """Reaps donors that finished their departure; escalates SIGTERM,
+        then SIGKILL 5 s later, to one still alive past its deadline."""
+        for d in list(self._draining):
+            code = d.proc.poll()
+            now = time.monotonic()
+            if code is not None:
+                self._draining.remove(d)
+                if d.log is not None:
+                    d.log.close()
+                try:
+                    os.remove(d.notice_path)
+                except OSError:
+                    pass
+                logger.info("group %d donor (pid %d) exited %s after %.2fs of drain", d.group,
+                            d.proc.pid, code, now - d.started)
+                self._metrics.emit("drain_donor_exit", group=str(d.group), exit_code=code,
+                                   drain_s=round(now - d.started, 3))
+            elif now > d.deadline:
+                if not d.term_sent:
+                    logger.warning("group %d donor (pid %d) alive past its drain deadline; "
+                                   "SIGTERM", d.group, d.proc.pid)
+                    d.proc.send_signal(signal.SIGTERM)
+                    d.term_sent = True
+                    d.deadline = now + 5.0
+                else:
+                    logger.warning("group %d donor (pid %d) ignored SIGTERM; SIGKILL", d.group,
+                                   d.proc.pid)
+                    d.proc.kill()
 
     def pid(self, group: int) -> Optional[int]:
         """PID of the group's current process (None while it is dead)."""
@@ -281,11 +528,15 @@ class Launcher:
         return self._groups[group].restarts
 
     def stop(self) -> None:
-        """SIGTERM every group, SIGKILL what is left after 10 s, close the
-        logs and the embedded lighthouse."""
+        """SIGTERM every group, SIGKILL what is left after 10 s and every
+        spare and draining donor at once; close the logs, the go-files, the
+        drain notices and the embedded lighthouse."""
         for g in self._groups.values():
             if g.proc is not None and g.proc.poll() is None:
                 g.proc.send_signal(signal.SIGTERM)
+        for proc in [d.proc for d in self._draining] + [s.proc for s in self._spares]:
+            if proc.poll() is None:
+                proc.kill()
         for g in self._groups.values():
             if g.proc is not None:
                 try:
@@ -296,6 +547,25 @@ class Launcher:
             if g.log is not None:
                 g.log.close()
                 g.log = None
+        for item in self._spares + self._draining:
+            try:
+                item.proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                pass
+            if item.log is not None:
+                item.log.close()
+        self._spares.clear()
+        self._draining.clear()
+        if self._work_dir_created:
+            shutil.rmtree(self._work_dir, ignore_errors=True)
+        else:
+            for pattern in ("spare_*.go", "drain_*.json"):
+                for path in glob.glob(os.path.join(self._work_dir, pattern)):
+                    try:
+                        os.remove(path)
+                    except OSError:
+                        pass
+        self._metrics.close()
         if self._evict_client is not None:
             self._evict_client.close()
             self._evict_client = None
@@ -317,6 +587,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help='"embed" (an in-process native lighthouse) or host:port')
     parser.add_argument("--min-replicas", type=int, default=1)
     parser.add_argument("--join-timeout-ms", type=int, default=2000)
+    parser.add_argument("--spares", type=int, default=0,
+                        help="hot spares: started processes that adopt a dead or draining "
+                        "group's id (they skip the start and the device's init)")
     parser.add_argument("--log-dir", default=None)
     parser.add_argument("cmd", nargs=argparse.REMAINDER,
                         help="-- <command of one replica group>")
@@ -328,7 +601,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     launcher = Launcher(
         cmd, args.groups, lighthouse=args.lighthouse, max_restarts=args.max_restarts,
         min_replicas=args.min_replicas, join_timeout_ms=args.join_timeout_ms,
-        log_dir=args.log_dir,
+        log_dir=args.log_dir, spares=args.spares,
     )
     with launcher:
         print(f"[launch] {args.groups} groups, lighthouse="

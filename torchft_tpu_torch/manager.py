@@ -22,7 +22,19 @@ training loop needs:
   - error latching: failures never raise into the train loop; they fail
     the step's commit vote;
   - commit protocol: an optimizer step lands only when every local rank of
-    the group voted success.
+    the group voted success;
+  - world-size modes: ``WorldSizeMode.FIXED_WITH_SPARES`` pins the number of
+    participants to ``fixed_world_size`` (default ``min_replica_size``);
+    a group ranked at or above it is a spare that contributes zeros;
+  - cooperative drain (:mod:`torchft_tpu_torch.drain`): ``begin_drain``
+    tells the lighthouse at once so the next quorum leaves this group out,
+    the train loop finishes the step in flight and leaves through
+    ``complete_drain``; the lighthouse's ``"is draining"`` refusal of a
+    quorum begins one too;
+  - the elastic batch engine (``TPUFT_ELASTIC_GLOBAL_BATCH``,
+    :class:`~torchft_tpu_torch.ddp.ElasticBatchScaler`): ``elastic_plan()``
+    splits a constant global batch over the participating groups, and
+    every committed ``step_summary`` carries the plan it trained under.
 
 :meth:`Manager.allreduce` takes a CUDA tensor (copied to pinned host memory
 under the timeout) or a host buffer (a CPU tensor or numpy array, handed
@@ -52,6 +64,7 @@ from __future__ import annotations
 
 import logging
 import os
+import re
 import socket
 import threading
 import time
@@ -59,6 +72,7 @@ import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 from contextlib import nullcontext
 from datetime import timedelta
+from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, cast
 
 import numpy as np
@@ -67,6 +81,7 @@ import torch
 from torchft_tpu_torch._native import ManagerClient, ManagerServer, StoreClient, StoreServer
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collective
+from torchft_tpu_torch.drain import DrainNotice, DrainWatcher
 from torchft_tpu_torch.ec import ECConfig, ECPlane
 from torchft_tpu_torch.futures import completed_future, device_get, future_timeout, then
 from torchft_tpu_torch.ha.backoff import DecorrelatedBackoff
@@ -89,6 +104,16 @@ logger = logging.getLogger("torchft_tpu_torch.manager")
 
 # The transport's last_fetch fields that ride the heal span and event.
 _FETCH_FIELDS = ("bytes", "fetch_s", "mode", "n_stripes", "workers", "crc_ms", "failovers")
+
+
+class WorldSizeMode(Enum):
+    """How the number of participating groups follows membership: with
+    ``DYNAMIC`` every up-to-date group takes part; with
+    ``FIXED_WITH_SPARES`` at most ``fixed_world_size`` do and the rest are
+    spares that contribute zeros."""
+
+    DYNAMIC = 0
+    FIXED_WITH_SPARES = 1
 
 
 class ExceededMaxRetriesError(RuntimeError):
@@ -140,6 +165,9 @@ class Manager:
         min_replica_size: minimum replica groups for a committable step.
         use_async_quorum: run the quorum concurrently with the step.
         rank/world_size: local rank / ranks per group (env RANK, WORLD_SIZE).
+        world_size_mode: ``DYNAMIC`` or ``FIXED_WITH_SPARES``.
+        fixed_world_size: the participants ``FIXED_WITH_SPARES`` pins to
+            (default ``min_replica_size``).
         store_addr/store_port: host and port of the group's rendezvous
             store, created by local rank 0 (env MASTER_ADDR / MASTER_PORT).
             An explicit ``store_addr`` is also where the store listens.
@@ -164,6 +192,8 @@ class Manager:
         connect_timeout: timedelta = timedelta(seconds=10),
         rank: Optional[int] = None,
         world_size: Optional[int] = None,
+        world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
+        fixed_world_size: Optional[int] = None,
         store_addr: Optional[str] = None,
         store_port: Optional[int] = None,
         lighthouse_addr: Optional[str] = None,
@@ -190,12 +220,17 @@ class Manager:
         self._max_retries = max_retries
         self._commit_failures = 0
         self._checkpoint_transport = checkpoint_transport
+        self._world_size_mode = world_size_mode
+        self._fixed_world_size = fixed_world_size
 
         self._rank = rank if rank is not None else int(os.environ.get("RANK", 0))
         group_world_size = (
             world_size if world_size is not None else int(os.environ.get("WORLD_SIZE", 1))
         )
         lighthouse_addr = lighthouse_addr or os.environ.get(TPUFT_LIGHTHOUSE_ENV, "")
+        # Kept for the drain notice, which dials the lighthouse with this
+        # incarnation's exact id.
+        self._lighthouse_addr = lighthouse_addr
 
         self._store_server: Optional[StoreServer] = None
         self._manager_server: Optional[ManagerServer] = None
@@ -246,6 +281,18 @@ class Manager:
         self._participating_replica_rank: Optional[int] = None
         self._participating_replica_world_size = 0
         self._last_participants: Optional[List[int]] = None
+        # The drain notice (set once) and the watcher that delivers it.
+        self._drain_notice: Optional[DrainNotice] = None
+        self._drain_watcher: Optional[DrainWatcher] = None
+        self._drain_lock = threading.Lock()
+        # The elastic batch engine (None: off) and the plan of the current
+        # participating world, with the (participants, rank) it was made
+        # for.
+        from torchft_tpu_torch.ddp import ElasticBatchScaler  # ddp imports this module
+
+        self._elastic: Optional[ElasticBatchScaler] = ElasticBatchScaler.from_env()
+        self._elastic_plan: Optional[Dict[str, Any]] = None
+        self._elastic_key: Optional[tuple] = None
 
         # The metrics stream (a no-op without TPUFT_METRICS_PATH), the step
         # spans over it, the busy-time statistics and the goodput ledger.
@@ -384,7 +431,18 @@ class Manager:
         try:
             self._quorum_inner()
         except Exception as e:  # noqa: BLE001 - latched; the step's vote fails
-            logger.exception("quorum failed: %s", e)
+            if "is draining" in str(e):
+                # The lighthouse marked this incarnation draining and refuses
+                # its quorums: a drain notice by another path.  "is draining"
+                # is the lighthouse's refusal text (native/src/lighthouse.cc);
+                # a "deadline_ms=N" in it is the grace left.
+                m = re.search(r"deadline_ms=(\d+)", str(e))
+                grace_s = int(m.group(1)) / 1000.0 if m else 30.0
+                self._log(logging.WARNING, "lighthouse declared this replica draining; "
+                          f"beginning cooperative exit (grace {grace_s:.1f}s)")
+                self.begin_drain(DrainNotice(source="lighthouse", deadline=time.time() + grace_s))
+            else:
+                logger.exception("quorum failed: %s", e)
             self.report_error(e)
             self._participating_replica_rank = None
             self._participating_replica_world_size = 0
@@ -422,6 +480,15 @@ class Manager:
         else:
             self._participating_replica_rank = quorum.replica_rank
             self._participating_replica_world_size = quorum.replica_world_size
+        if self._world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
+            # The divisor is pinned; groups ranked past it are spares.
+            fixed = self._fixed_world_size or self._min_replica_size
+            self._participating_replica_world_size = min(
+                self._participating_replica_world_size, fixed)
+            if (self._participating_replica_rank is not None
+                    and self._participating_replica_rank >= fixed):
+                self._participating_replica_rank = None
+        self._refresh_elastic_plan(quorum)
         self._metrics.emit(
             "quorum", step=self._step, quorum_id=quorum.quorum_id,
             replica_rank=quorum.replica_rank, replica_world_size=quorum.replica_world_size,
@@ -643,11 +710,35 @@ class Manager:
         self._metrics.emit(
             "membership_change", step=self._step, quorum_id=quorum.quorum_id,
             old_participants=old, new_participants=new, joined=joined, left=left,
-            transition_s=configure_ms / 1e3, mode=mode, elastic_plan=None,
+            transition_s=configure_ms / 1e3, mode=mode, elastic_plan=self._elastic_plan,
         )
         self.note_summary_fields(membership_change={
             "joined": joined, "left": left, "transition_s": configure_ms / 1e3, "mode": mode,
         })
+
+    def _refresh_elastic_plan(self, quorum: Any) -> None:
+        """Plans the constant global batch over the participating world
+        (a healing group takes no share: it contributes zeros) whenever that
+        world or this group's rank in it changed.  The JAX Manager plans
+        only when the quorum id changes, so after an asynchronous heal it
+        keeps the heal step's participant count."""
+        if self._elastic is None:
+            return
+        participants = self._participating_replica_world_size or len(
+            list(quorum.participant_replica_ranks) or range(quorum.replica_world_size))
+        key = (participants, self._participating_replica_rank)
+        if key != self._elastic_key:
+            self._elastic_plan = self._elastic.plan(participants,
+                                                    rank=self._participating_replica_rank)
+            self._elastic_key = key
+
+    def elastic_plan(self) -> Optional[Dict[str, Any]]:
+        """The elastic batch plan of the current participating world (keys
+        ``participants``, ``global_batch``, ``group_batch`` (this group's
+        share), ``microbatch``, ``accum_steps``, ``lr_scale``), or None when
+        the engine is off (``TPUFT_ELASTIC_GLOBAL_BATCH`` unset) or no
+        quorum has formed.  Read it after ``wait_quorum``."""
+        return self._elastic_plan
 
     def _manager_state_dict(self) -> Dict[str, Any]:
         return {
@@ -863,6 +954,12 @@ class Manager:
             self._d2h_bytes = self._h2d_bytes = 0
             self._summary_extra = {}
         lanes: Optional[dict] = None
+        plan = self._elastic_plan
+        if plan is not None:
+            # Every committed step's record carries the plan it trained
+            # under: the global batch must not move across churn.
+            for key in ("global_batch", "group_batch", "accum_steps", "participants"):
+                fields.setdefault(f"elastic_{key}", plan[key])
         if ar_bytes and t_first is not None:
             if t_last is None or t_last <= t_first:
                 t_last = time.monotonic()
@@ -908,7 +1005,7 @@ class Manager:
             server_ms = self._quorum_server_ms() if merged.get("quorum", 0.0) > 50.0 else None
             causes = self._ledger.observe_step(
                 vote_step, now - self._ledger_prev_commit_mono, merged, lanes=lanes,
-                committed=True, quorum_server_ms=server_ms,
+                committed=True, draining=self.drain_requested(), quorum_server_ms=server_ms,
             )
             if causes is not None:
                 fields["ledger"] = {"causes": {k: round(v, 4) for k, v in causes.items()},
@@ -995,6 +1092,86 @@ class Manager:
             lk.get("send_gbps", -1.0), lk.get("rtt_ms", -1.0),
         )
 
+    # -- cooperative drain ---------------------------------------------------
+
+    def attach_drain_watcher(self, watcher: Optional[DrainWatcher] = None) -> DrainWatcher:
+        """Wires a :class:`~torchft_tpu_torch.drain.DrainWatcher` (by
+        default one from the environment: SIGTERM, the
+        ``TPUFT_DRAIN_DIR`` notice file, the opt-in GCE poll) to
+        :meth:`begin_drain` and starts it; :meth:`shutdown` stops it."""
+        if watcher is None:
+            watcher = DrainWatcher(on_notice=self.begin_drain)
+        else:
+            watcher._on_notice = self.begin_drain
+        self._drain_watcher = watcher
+        watcher.start()
+        return watcher
+
+    def begin_drain(self, notice: Optional[DrainNotice] = None) -> None:
+        """Takes a drain notice: records it for the train loop and tells the
+        lighthouse at once (wire method 5, on its own thread, retried with
+        a decorrelated backoff until shortly before the deadline), so the
+        next quorum leaves this group out while its step in flight
+        finishes.  Idempotent; callable from any thread."""
+        if notice is None:
+            notice = DrainNotice(source="manual", deadline=time.time() + 30.0)
+        with self._drain_lock:
+            if self._drain_notice is not None:
+                return
+            self._drain_notice = notice
+        self._log(logging.WARNING, f"drain notice ({notice.source}): finishing in-flight "
+                  f"step, deadline in {notice.remaining_s():.1f}s")
+        self._metrics.emit("drain_notice", step=self._step, source=notice.source,
+                           deadline_ms=notice.deadline_ms_from_now())
+        self._set_status("draining")
+        if self._rank == 0 and self._lighthouse_addr:
+            threading.Thread(target=self._notify_lighthouse_drain, args=(notice,),
+                             name="tpuft_drain_notify", daemon=True).start()
+
+    def _notify_lighthouse_drain(self, notice: DrainNotice) -> None:
+        """The drain notice over the wire; a notice that cannot be delivered
+        by the deadline (less 2 s, within 2-10 s) degrades to the crash
+        path (the heartbeat timeout), never to a failed step."""
+        from torchft_tpu_torch._native import LighthouseClient
+
+        deadline = time.monotonic() + min(10.0, max(2.0, notice.remaining_s() - 2.0))
+        backoff = DecorrelatedBackoff(base_s=0.1, cap_s=1.5)
+        last_err: Optional[Exception] = None
+        while time.monotonic() < deadline:
+            try:
+                client = LighthouseClient(self._lighthouse_addr, connect_timeout_ms=2000)
+                try:
+                    client.drain(self._replica_id, deadline_ms=notice.deadline_ms_from_now(),
+                                 timeout_ms=2000, trace_id=self._trace_id)
+                finally:
+                    client.close()
+                return
+            except Exception as e:  # noqa: BLE001 - retried, then logged
+                last_err = e
+                sleep_s = backoff.next()
+                if time.monotonic() + sleep_s >= deadline:
+                    break
+                time.sleep(sleep_s)
+        self._log(logging.WARNING, f"lighthouse drain notice failed: {last_err}")
+
+    def drain_requested(self) -> bool:
+        """True once a drain notice arrived: the train loop finishes the
+        current step, then leaves through :meth:`complete_drain`."""
+        return self._drain_notice is not None
+
+    def drain_notice(self) -> Optional[DrainNotice]:
+        return self._drain_notice
+
+    def complete_drain(self) -> None:
+        """Marks the departure done (after the last committed step, before
+        :meth:`shutdown`); the transport serves until shutdown, so a heal
+        already assigned to this donor can finish."""
+        notice = self._drain_notice
+        self._metrics.emit("drain_complete", step=self._step,
+                           batches_committed=self._batches_committed,
+                           source=notice.source if notice is not None else None)
+        self._log(logging.INFO, f"drain complete at step {self._step}; exiting cleanly")
+
     # -- state --------------------------------------------------------------
 
     def load_state_dict(self, state_dict: Dict[str, int]) -> None:
@@ -1053,6 +1230,9 @@ class Manager:
         return self._participating_replica_rank is not None
 
     def shutdown(self) -> None:
+        if self._drain_watcher is not None:
+            self._drain_watcher.stop()
+            self._drain_watcher = None
         self._executor.shutdown(wait=True)
         self._metrics.close()
         if self._checkpoint_transport is not None:
