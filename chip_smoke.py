@@ -66,6 +66,12 @@ result):
    The heal: asserted, a chunked fetch with every buffer checksum-verified
    on a host with two cores or more; printed, its stripes, workers, GB/s
    and checksum ms, and the donor's checksum stamp.
+   Then the same schedule a second time with ``TPUFT_RING_TRANSPORT=shm``
+   in both groups: asserted as above, and every rank's ring ran on shm
+   lanes (``ring_transport``), and the run ends with the TCP run's
+   params_sha256 (one IEEE sum and one division by 2 an element, whatever
+   carries the bytes); printed, both runs' merged-step splits, and the
+   shm run's launches (``launches_main_shm`` in the kernels line).
 6. Kill and heal: ``torchft_tpu_torch.launch``'s Launcher runs two groups
    of ``python -m torchft_tpu_torch.examples.train_ddp`` on the card with
    an embedded lighthouse; after group 0 has KILL_MERGED merged commits,
@@ -81,12 +87,22 @@ result):
    flagship's gradient payload (its parameter count in f32, 537 MB)
    BARE_RING_REPEATS times in each of BARE_RING_CONFIGS: the Python engine
    on 1 lane (the earlier port's ring), the native engine on 2 lanes, the
-   native engine on 2 lanes with the bf16 wire, and the int8 and int4 wire
-   codecs on 2 lanes on each engine.  Asserted: the Python and native
-   results are bitwise equal on the f32 wire and under each codec, both
-   ranks hold the same bits, and the codecs' sums lie within two
-   quantization steps.  Printed: seconds and GB/s of payload per op, and
-   the bytes a hop.
+   bf16 wire on 2 lanes on each engine, and the int8 and int4 wire codecs
+   on 2 lanes on each engine; then over shm lanes, both engines on 2
+   lanes, the f32 and bf16 wires and int8.  Asserted: the Python and
+   native results are bitwise equal on the f32 and bf16 wires and under
+   each codec, both ranks hold the same bits, the codecs' sums lie within
+   two quantization steps, every ring ran the engine and transport asked
+   for, and each shm result is bitwise its TCP twin's.  Then, on the
+   native engine's 2 lanes: ``op="max"`` and ``"min"`` (exact); a shaped
+   link (``set_link_shaping(SHAPED_MBPS, SHAPED_RTT_MS)`` after an
+   unshaped configure; ``lane_stats()["hops"]["flat"]["shape_s"]`` > 0 on
+   both ranks, the sum still exact); a RING2D_RANKS-rank ring2d in this
+   process (bitwise equal across ranks, within (ranks - 1) roundings of
+   2^-24 of the sum of magnitudes of the exact sum, ``tiers`` row and
+   col); and allgather, broadcast, reduce_scatter, alltoall, send/recv and
+   barrier at 2 ranks, each exact against numpy.  Printed: seconds and
+   GB/s of payload per op, the bytes a hop, each op's seconds.
 8. Raw-step profile: ``torchft_tpu_torch.tools.profile_step`` runs
    ``torch.profiler`` over PROFILE_STEPS chained flagship ``full_step``s.
    Printed: wall and device ms a step, the device busy share, the top 20
@@ -800,7 +816,8 @@ def run_group(args: argparse.Namespace) -> None:
             rec["exchange"] = dict(trainer.averager.last_stats)
             rec["span_step"] = before
             ring_seen = {"ring_engine": collective.ring_engine, "lanes": collective.lanes,
-                         "wire": collective.wire_dtype}
+                         "wire": collective.wire_dtype,
+                         "transport": collective.ring_transport}
         steps.append(rec)
         print("STEP " + json.dumps(rec), flush=True)
         if not committed:
@@ -881,7 +898,10 @@ def run_group(args: argparse.Namespace) -> None:
 # -- phase 5: the parent process -----------------------------------------------
 
 
-def main_path(card: str) -> dict:
+def main_path(card: str, transport: str = "tcp") -> tuple:
+    """Phase 5 with both groups' rings on ``transport`` (the port's
+    ``TPUFT_RING_TRANSPORT``): returns the K1-K5 launches of both groups,
+    the streams' tables, and group 0's results."""
     from torchft_tpu_torch._native import LighthouseServer
 
     lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
@@ -890,7 +910,8 @@ def main_path(card: str) -> dict:
     procs, readers, results, errors = {}, {}, {}, []
 
     def start(group: int) -> None:
-        env = {**os.environ, "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_g{group}.jsonl")}
+        env = {**os.environ, "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_g{group}.jsonl"),
+               "TPUFT_RING_TRANSPORT": transport}
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--group", str(group),
              "--lighthouse", lighthouse.address(), "--run-dir", run_dir],
@@ -950,12 +971,13 @@ def main_path(card: str) -> dict:
     if r0["params_sha256"] != r1["params_sha256"]:
         raise AssertionError("the groups' final parameters differ")
     for r in (r0, r1):
-        ring = (r.get("ring_engine"), r.get("lanes"), r.get("wire"))
-        print(f"group {r['group']}: ring engine {ring[0]}, {ring[1]} lanes, {ring[2]} wire; "
-              f"averager last_stats {json.dumps(r['exchange_last_stats'])}", flush=True)
-        if ring != ("native", 2, "f32"):
+        ring = (r.get("ring_engine"), r.get("lanes"), r.get("wire"), r.get("transport"))
+        print(f"group {r['group']}: ring engine {ring[0]}, {ring[1]} lanes, {ring[2]} wire, "
+              f"{ring[3]} lanes' transport; averager last_stats "
+              f"{json.dumps(r['exchange_last_stats'])}", flush=True)
+        if ring != ("native", 2, "f32", transport):
             raise AssertionError(f"group {r['group']} ran the ring {ring}, expected the "
-                                 f"defaults ('native', 2, 'f32')")
+                                 f"defaults ('native', 2, 'f32') on {transport!r}")
     # The donor's snapshot runs on the transport's background thread; the
     # train thread waits only for the device copy to be queued.
     snap = r0["snapshot"]
@@ -1019,8 +1041,10 @@ def main_path(card: str) -> dict:
         print(f"group {r['group']} merged ft_step {r['merged_step_ms']:.1f} ms, of which the train "
               f"thread waited {split['d2h_wait_s']:.1f} ms for the copies off the card, "
               f"{split['ring_wait_s']:.1f} ms for the ring, {split['h2d_s']:.1f} ms for the "
-              f"copies back (mean of {MERGED_STEPS} merged steps; {card})", flush=True)
-    return {name: r0["launches"][name] + r1["launches"][name] for name in per_step}, stream
+              f"copies back (mean of {MERGED_STEPS} merged steps; ring lanes on {transport}; "
+              f"{card})", flush=True)
+    return ({name: r0["launches"][name] + r1["launches"][name] for name in per_step}, stream,
+            r0)
 
 
 def stream_phase(run_dir: str, results: dict, card: str) -> dict:
@@ -1179,13 +1203,25 @@ def kill_heal_phase(card: str) -> dict:
 
 # -- phase 7: the bare ring ---------------------------------------------------
 
-# (engine, lanes, wire, codec): the earlier port's ring, then the defaults,
-# then the defaults on the bf16 wire, then the int8 and int4 wire codecs on
-# 2 lanes, each on the Python engine and the native one.
-BARE_RING_CONFIGS = (("py", 1, "f32", None), ("native", 2, "f32", None),
-                     ("native", 2, "bf16", None), ("py", 2, "f32", "int8"),
-                     ("native", 2, "f32", "int8"), ("py", 2, "f32", "int4"),
-                     ("native", 2, "f32", "int4"))
+# (engine, lanes, wire, codec, transport): the earlier port's ring, then the
+# defaults, then the bf16 wire, then the int8 and int4 wire codecs on 2
+# lanes, each on the Python engine and the native one; then the transport
+# axis: shm lanes on both engines, 2 lanes, on the f32 and bf16 wires and
+# under int8, each held bit for bit against its TCP twin above.
+BARE_RING_CONFIGS = (("py", 1, "f32", None, "tcp"), ("native", 2, "f32", None, "tcp"),
+                     ("native", 2, "bf16", None, "tcp"), ("py", 2, "bf16", None, "tcp"),
+                     ("py", 2, "f32", "int8", "tcp"), ("native", 2, "f32", "int8", "tcp"),
+                     ("py", 2, "f32", "int4", "tcp"), ("native", 2, "f32", "int4", "tcp"),
+                     ("py", 2, "f32", None, "shm"), ("native", 2, "f32", None, "shm"),
+                     ("py", 2, "bf16", None, "shm"), ("native", 2, "bf16", None, "shm"),
+                     ("py", 2, "f32", "int8", "shm"), ("native", 2, "f32", "int8", "shm"))
+# The shaped link of phase 7: each direction paced at SHAPED_MBPS with
+# SHAPED_RTT_MS (set_link_shaping, after an unshaped configure).
+SHAPED_MBPS = 8000.0
+SHAPED_RTT_MS = 1.0
+# ring2d's sum of 4 addends is reassociated: within (addends - 1) roundings
+# of the exact sum, each at most 2^-24 of the sum of magnitudes.
+RING2D_RANKS = 4
 
 
 def flagship_param_count() -> int:
@@ -1199,12 +1235,39 @@ def flagship_param_count() -> int:
     return 2 * V * E + E + cfg.n_layers * layer
 
 
+def _digest(a) -> str:
+    """sha256 of an array's bytes, without a copy."""
+    import numpy as np
+
+    return hashlib.sha256(memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+                          ).hexdigest()
+
+
+def _ring_ranks(store, tag: str, cols: list, body) -> list:
+    """Configures ``cols`` as one ring under ``tag`` and runs ``body(c, r)``
+    on each rank in its own thread; shuts every rank down."""
+    n = len(cols)
+
+    def rank(r: int):
+        cols[r].configure(f"{store.address()}/{tag}", r, n)
+        return body(cols[r], r)
+
+    try:
+        with ThreadPoolExecutor(max_workers=n) as pool:
+            futs = [pool.submit(rank, r) for r in range(n)]
+            return [f.result(timeout=2 * BARE_RING_TIMEOUT_S) for f in futs]
+    finally:
+        for c in cols:
+            c.shutdown()
+
+
 def bare_ring(card: str) -> dict:
     """Two in-process ranks allreduce the flagship's gradient payload over
     127.0.0.1 in each of BARE_RING_CONFIGS, each op on a fresh copy handed
     over with ``donate=True`` (as the averager hands its pinned buffers).
     The Python and native engines' results must be bitwise equal on the f32
-    wire and under each codec."""
+    wire and under each codec, and every shm result bitwise equal to the
+    TCP result of the same engine, wire and codec."""
     import numpy as np
 
     from torchft_tpu_torch._native import StoreServer
@@ -1215,18 +1278,19 @@ def bare_ring(card: str) -> dict:
     exact = data[0] + data[1]  # two addends: one IEEE sum, in any order
     store = StoreServer(bind="127.0.0.1:0")
     report = {"payload_bytes": 4 * n, "ops": {}}
-    outs = {}
+    outs, digests = {}, {}
     try:
-        for i, (engine, lanes, wire, codec) in enumerate(BARE_RING_CONFIGS):
+        for i, (engine, lanes, wire, codec, transport) in enumerate(BARE_RING_CONFIGS):
             cols = [TCPCollective(timeout=BARE_RING_TIMEOUT_S, wire_dtype=wire, lanes=lanes,
-                                  engine=engine, host="127.0.0.1") for _ in range(2)]
+                                  engine=engine, host="127.0.0.1", transport=transport)
+                    for _ in range(2)]
             barrier = threading.Barrier(2)
 
-            def rank(r: int, cols=cols, barrier=barrier, engine=engine, i=i, codec=codec):
-                c = cols[r]
-                c.configure(f"{store.address()}/bare/{i}", r, 2)
-                if c.ring_engine != engine:
-                    raise AssertionError(f"bare ring: asked for {engine}, ran {c.ring_engine}")
+            def body(c, r: int, barrier=barrier, engine=engine, codec=codec,
+                     transport=transport):
+                if c.ring_engine != engine or c.ring_transport != transport:
+                    raise AssertionError(f"bare ring: asked for {engine} on {transport}, ran "
+                                         f"{c.ring_engine} on {c.ring_transport}")
                 kwargs = {} if codec is None else {"wire_codec": codec}
                 secs, out = [], None
                 for _ in range(BARE_RING_REPEATS):
@@ -1238,24 +1302,36 @@ def bare_ring(card: str) -> dict:
                     secs.append(time.perf_counter() - t0)
                 return secs, out
 
-            try:
-                with ThreadPoolExecutor(max_workers=2) as pool:
-                    futs = [pool.submit(rank, r) for r in range(2)]
-                    got = [f.result(timeout=2 * BARE_RING_TIMEOUT_S) for f in futs]
-            finally:
-                for c in cols:
-                    c.shutdown()
+            got = _ring_ranks(store, f"bare/{i}", cols, body)
             if got[0][1].view(np.uint32).tobytes() != got[1][1].view(np.uint32).tobytes():
-                raise AssertionError(f"bare ring {engine}/{lanes}/{wire}: the ranks differ")
+                raise AssertionError(f"bare ring {engine}/{lanes}/{wire}/{transport}: the ranks "
+                                     f"differ")
             secs = [max(a, b) for a, b in zip(got[0][0], got[1][0])]
             key = (f"{engine}, {lanes} lane{'s' if lanes > 1 else ''}, "
-                   + (f"{codec} codec" if codec else f"{wire} wire"))
-            wire_bytes = cols[0].wire_nbytes(data[0], True, codec) if codec else 4 * n
+                   + (f"{codec} codec" if codec else f"{wire} wire") + f", {transport}")
+            wire_bytes = cols[0].wire_nbytes(data[0], True, codec)
             report["ops"][key] = {"s": secs, "gb_per_s": [4 * n / s / 1e9 for s in secs],
                                   "wire_bytes_per_hop": wire_bytes}
             print(f"  {key}: " + ", ".join(f"{s:.3f} s ({4 * n / s / 1e9:.2f} GB/s)" for s in secs)
                   + f" for {4 * n / 1e6:.1f} MB of f32, {wire_bytes / 1e6:.1f} MB a hop "
                   f"({card})", flush=True)
+            digest = _digest(got[0][1])
+            if transport == "shm":
+                # The f32 sum's TCP twin is the native 2-lane run's (the
+                # Python engine's TCP run has 1 lane; both are a + b).
+                twin = digests.get(("native" if wire == "f32" and codec is None else engine, 2,
+                                    wire, codec, "tcp"))
+                same = twin is not None and twin == digest
+                print(f"    shm bitwise equal to TCP ({engine}, {wire}, {codec}): {same}",
+                      flush=True)
+                report.setdefault("shm_tcp_bitwise", {})[key] = same
+                if not same:
+                    raise AssertionError(f"bare ring {key}: the shm result differs from TCP's")
+                if wire == "f32" and codec is None and digest != _digest(exact):
+                    raise AssertionError(f"bare ring {key}: the sum is not a + b bit for bit")
+                del got
+                continue
+            digests[(engine, lanes, wire, codec, transport)] = digest
             if codec:
                 # Two quantizations at most per element (the reduce-scatter
                 # hop and the allgather owner), each within half a step.
@@ -1288,8 +1364,178 @@ def bare_ring(card: str) -> dict:
         if not same:
             raise AssertionError(f"bare ring: the Python and native engines' {what} results "
                                  f"differ")
+    same = (digests[("py", 2, "bf16", None, "tcp")] == digests[("native", 2, "bf16", None, "tcp")])
+    print(f"  py and native bf16 wire results bitwise equal: {same}", flush=True)
+    report["py_native_bitwise"]["bf16 wire"] = same
+    if not same:
+        raise AssertionError("bare ring: the Python and native engines' bf16 results differ")
+    del outs
+    report.update(ring_ops(card, data, exact))
     print("BARE_RING " + json.dumps(report), flush=True)
     return report
+
+
+def ring_ops(card: str, data: list, exact) -> dict:
+    """The rest of phase 7 on the flagship payload: max and min (exact), a
+    shaped link (``shape_s`` > 0), a 4-rank ring2d in this process, and
+    the ops beyond allreduce at 2 ranks, each checked exactly against
+    numpy; every op timed."""
+    import numpy as np
+
+    from torchft_tpu_torch._native import StoreServer
+    from torchft_tpu_torch.collectives import TCPCollective
+
+    n = data[0].size
+    store = StoreServer(bind="127.0.0.1:0")
+    out: dict = {}
+
+    def native(**kw):
+        return TCPCollective(timeout=BARE_RING_TIMEOUT_S, lanes=2, engine="native",
+                             host="127.0.0.1", **kw)
+
+    # Each timed op starts with its input copied and both ranks at a barrier.
+    pair, quad_barrier = threading.Barrier(2), threading.Barrier(RING2D_RANKS)
+    try:
+        # max and min: exact on any wire order.
+        def minmax(c, r):
+            res = {}
+            for op in ("max", "min"):
+                buf = data[r].copy()
+                pair.wait(timeout=BARE_RING_TIMEOUT_S)
+                t0 = time.perf_counter()
+                (o,) = c.allreduce([buf], op=op, donate=True).wait(
+                    timeout=BARE_RING_TIMEOUT_S)
+                res[op] = (time.perf_counter() - t0, _digest(o),
+                           _digest(np.maximum(*data) if op == "max" else np.minimum(*data)))
+            return res
+
+        got = _ring_ranks(store, "ops/minmax", [native(), native()], minmax)
+        for op in ("max", "min"):
+            secs = max(g[op][0] for g in got)
+            ok = all(g[op][1] == g[op][2] for g in got)
+            out[f"allreduce_{op}"] = {"s": secs, "exact": ok}
+            print(f"  allreduce op={op} (native, 2 lanes, f32): {secs:.3f} s, equal to "
+                  f"np.{'maximum' if op == 'max' else 'minimum'} bit for bit: {ok} ({card})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"allreduce op={op} is not exact")
+
+        # A shaped link, set after an unshaped configure.
+        def shaped(c, r):
+            c.set_link_shaping(SHAPED_MBPS, SHAPED_RTT_MS)
+            buf = data[r].copy()
+            pair.wait(timeout=BARE_RING_TIMEOUT_S)
+            t0 = time.perf_counter()
+            (o,) = c.allreduce([buf], donate=True).wait(timeout=BARE_RING_TIMEOUT_S)
+            secs = time.perf_counter() - t0
+            return secs, c.lane_stats()["hops"]["flat"]["shape_s"], _digest(o)
+
+        got = _ring_ranks(store, "ops/shaped", [native(), native()], shaped)
+        secs, shape_s = max(g[0] for g in got), min(g[1] for g in got)
+        exact_ok = all(g[2] == _digest(exact) for g in got)
+        out["shaped"] = {"mbps": SHAPED_MBPS, "rtt_ms": SHAPED_RTT_MS, "s": secs,
+                         "shape_s": [g[1] for g in got], "exact": exact_ok}
+        print(f"  shaped link {SHAPED_MBPS:.0f} Mbps / {SHAPED_RTT_MS} ms RTT (native, 2 lanes, "
+              f"f32): {secs:.3f} s, shape_s {[round(g[1], 4) for g in got]} s, a + b bit for "
+              f"bit: {exact_ok} ({card})", flush=True)
+        if not (shape_s > 0 and exact_ok):
+            raise AssertionError(f"shaped link: shape_s {shape_s}, exact {exact_ok}")
+
+        # ring2d: 4 ranks on a 2 x 2 grid.
+        rng = np.random.default_rng(21)
+        quad = data + [rng.standard_normal(n, dtype=np.float32)
+                       for _ in range(RING2D_RANKS - 2)]
+
+        def ring2d(c, r):
+            buf = quad[r].copy()
+            quad_barrier.wait(timeout=BARE_RING_TIMEOUT_S)
+            t0 = time.perf_counter()
+            (o,) = c.allreduce([buf], donate=True).wait(timeout=BARE_RING_TIMEOUT_S)
+            return time.perf_counter() - t0, o, c.topology, c.lane_stats()
+
+        got = _ring_ranks(store, "ops/ring2d",
+                          [native(topology="ring2d") for _ in range(RING2D_RANKS)], ring2d)
+        first = _digest(got[0][1])
+        consistent = all(_digest(g[1]) == first for g in got)
+        exact4 = np.zeros(n, dtype=np.float64)
+        mag = np.zeros(n, dtype=np.float64)
+        for q in quad:
+            exact4 += q
+            mag += np.abs(q)
+        err = np.abs(got[0][1].astype(np.float64) - exact4)
+        tol = (RING2D_RANKS - 1) * 2.0 ** -24 * mag
+        ratio = float((err / np.maximum(tol, np.finfo(np.float64).tiny)).max())
+        tiers = {k: v["size"] for k, v in got[0][3].get("tiers", {}).items()}
+        secs = max(g[0] for g in got)
+        out["ring2d"] = {"ranks": RING2D_RANKS, "s": secs, "replica_bitwise": consistent,
+                         "err_over_tol": ratio, "tiers": tiers,
+                         "topology": sorted({g[2] for g in got})}
+        print(f"  ring2d, {RING2D_RANKS} ranks (native, 2 lanes, f32): {secs:.3f} s, tiers "
+              f"{tiers}, bitwise across ranks: {consistent}, worst |err| / ((ranks - 1) 2^-24 "
+              f"sum|x|) {ratio:.3g} ({card})", flush=True)
+        del got, exact4, mag, err, tol
+        if not (consistent and ratio <= 1.0 and set(tiers) == {"row", "col"}
+                and out["ring2d"]["topology"] == ["ring2d"]):
+            raise AssertionError(f"ring2d: {out['ring2d']}")
+
+        # The ops beyond allreduce, at 2 ranks, exactly against numpy.
+        half = n // 2
+
+        def ops(c, r):
+            times, res = {}, {}
+
+            def timed(name, fn):
+                pair.wait(timeout=BARE_RING_TIMEOUT_S)
+                t0 = time.perf_counter()
+                v = fn()
+                times[name] = time.perf_counter() - t0
+                return v
+
+            ag = timed("allgather", lambda: c.allgather(data[r]).wait(timeout=BARE_RING_TIMEOUT_S))
+            res["allgather"] = [_digest(a) for a in ag] == [_digest(d) for d in data]
+            del ag
+            bc = timed("broadcast", lambda: c.broadcast(data[r], root=1).wait(
+                timeout=BARE_RING_TIMEOUT_S))
+            res["broadcast"] = _digest(bc) == _digest(data[1])
+            del bc
+            rs = timed("reduce_scatter", lambda: c.reduce_scatter(
+                [data[r][:half], data[r][half:2 * half]]).wait(timeout=BARE_RING_TIMEOUT_S))
+            want = data[0][r * half:(r + 1) * half] + data[1][r * half:(r + 1) * half]
+            res["reduce_scatter"] = _digest(rs) == _digest(want)
+            del rs, want
+            a2a = timed("alltoall", lambda: c.alltoall([data[r][:half], data[r][half:2 * half]])
+                        .wait(timeout=BARE_RING_TIMEOUT_S))
+            res["alltoall"] = [_digest(a) for a in a2a] == [
+                _digest(data[src][r * half:(r + 1) * half]) for src in range(2)]
+            del a2a
+
+            def p2p():
+                sent = c.send(data[r], 1 - r, tag=7)
+                got = c.recv(data[r].shape, np.float32, 1 - r, tag=7).wait(
+                    timeout=BARE_RING_TIMEOUT_S)
+                sent.wait(timeout=BARE_RING_TIMEOUT_S)
+                return got
+
+            rv = timed("send_recv", p2p)
+            res["send_recv"] = _digest(rv) == _digest(data[1 - r])
+            del rv
+            timed("barrier", lambda: c.barrier().wait(timeout=BARE_RING_TIMEOUT_S))
+            res["barrier"] = True
+            return times, res
+
+        got = _ring_ranks(store, "ops/rest", [native(), native()], ops)
+        out["other_ops"] = {}
+        for name in got[0][0]:
+            secs = max(g[0][name] for g in got)
+            ok = all(g[1][name] for g in got)
+            out["other_ops"][name] = {"s": secs, "exact": ok}
+            print(f"  {name} (native, 2 lanes, 2 ranks, {4 * n / 1e6:.1f} MB a rank): "
+                  f"{secs:.3f} s, exact: {ok} ({card})", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} is not exact")
+    finally:
+        store.shutdown()
+    return out
 
 
 # -- phase 8: the raw-step profile ---------------------------------------------
@@ -2699,13 +2945,28 @@ def main() -> int:
     print("rms_norm_pallas entry point, flagship activations", flush=True)
     launches = {"rms_norm": rms_entry_point()["rms_norm"]}
 
-    # 5. Flagship training.
+    # 5. Flagship training, on TCP lanes and then on shm lanes.
     print("main path: lighthouse + 2 replica groups, flagship config", flush=True)
-    main_launches, _ = main_path(card)
+    main_launches, _, tcp_run = main_path(card)
     launches.update(main_launches)
     missing = [n for n in KERNELS if launches.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")
+    print("main path over shm lanes: the same schedule, TPUFT_RING_TRANSPORT=shm in both "
+          "groups", flush=True)
+    shm_launches, _, shm_run = main_path(card, "shm")
+    missing = [n for n in main_launches if shm_launches.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the shm run: {missing}")
+    for name, run in (("tcp", tcp_run), ("shm", shm_run)):
+        split = run["merged_split_ms"]
+        print(f"merged step on {name} lanes (group 0): {run['merged_step_ms']:.1f} ms; copies off "
+              f"the card {split['d2h_wait_s']:.1f} ms, ring wait {split['ring_wait_s']:.1f} ms, "
+              f"copies back {split['h2d_s']:.1f} ms ({card})", flush=True)
+    print(f"params_sha256 on shm lanes {shm_run['params_sha256']}, on TCP lanes "
+          f"{tcp_run['params_sha256']}", flush=True)
+    if shm_run["params_sha256"] != tcp_run["params_sha256"]:
+        raise AssertionError("the shm run ended with other parameters than the TCP run")
 
     # 6. Kill and heal through the launcher and the train_ddp example.
     print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
@@ -2714,7 +2975,9 @@ def main() -> int:
 
     # 7. The bare ring on the card's host.
     print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
-          f"{BARE_RING_REPEATS} allreduces a configuration", flush=True)
+          f"{BARE_RING_REPEATS} allreduces a configuration on TCP and shm lanes; then max / "
+          f"min, a shaped link, a {RING2D_RANKS}-rank ring2d and the ops beyond allreduce",
+          flush=True)
     bare_ring(card)
 
     # 8. The raw-step profile.
@@ -2759,6 +3022,7 @@ def main() -> int:
             "launches": launches[name],
             "launches_on": "rms_norm_pallas entry point" if name == "rms_norm"
                            else "flagship FT training",
+            "launches_main_shm": shm_launches.get(name, 0),
             "launches_diloco": diloco_launches.get(name, 0),
             "launches_healing": healing_launches.get(name, 0),
             "launches_elastic": elastic_launches.get(name, 0),

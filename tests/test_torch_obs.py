@@ -16,7 +16,9 @@
 - Hops: a port ring on each engine keeps records with exactly the JAX
   hop-record keys and aggregates that count its hops; ``TPUFT_HOP_SAMPLE=0``
   keeps the aggregates and drops the timeline; ``lane_totals`` never goes
-  backwards across a reconfigure.
+  backwards across a reconfigure; under ring2d ``lane_stats()`` has the
+  JAX collective's keys, ``tiers`` and per-tier hops; a shaped link's
+  sleep is ``shape_s`` on either engine.
 - Profile: ``tools/profile_step`` parses a Chrome trace in
   ``torch.profiler``'s layout, refuses one without device events, and
   reports a live CPU capture's device part as absent.
@@ -473,6 +475,76 @@ def test_ring_hop_records_and_aggregates(ref, engine, sample, monkeypatch) -> No
                 assert tuple(rec) == ref["collectives"].HOP_RECORD_FIELDS
                 assert rec["tier"] == 0 and rec["lane"] in (0, 1) and rec["nbytes"] > 0
             assert [r["ts"] for r in records] == sorted(r["ts"] for r in records)
+
+
+def _ring_world(make, world: int, body):
+    """``world`` in-process ranks made by ``make()``, configured on a fresh
+    store; each rank's ``body(c, rank)``."""
+    from torchft_tpu_torch import _native
+
+    store = _native.StoreServer(bind="127.0.0.1:0")
+    cols = [make() for _ in range(world)]
+
+    def rank(r: int):
+        cols[r].configure(f"{store.address()}/hops/world", r, world)
+        return body(cols[r], r)
+
+    try:
+        with ThreadPoolExecutor(world) as pool:
+            return [f.result(timeout=60) for f in [pool.submit(rank, r) for r in range(world)]]
+    finally:
+        for c in cols:
+            c.shutdown()
+        store.shutdown()
+
+
+@pytest.mark.parametrize("engine", ["py", "native"])
+def test_ring2d_lane_stats_layout_equals_the_jax_collectives(ref, engine, monkeypatch) -> None:
+    """Under ring2d ``lane_stats()`` has the JAX collective's keys, its
+    ``tiers`` (each tier's size and per-lane counters) and per-tier
+    ``hops``, and the hops of each tier count the ring2d pass's hops."""
+    monkeypatch.setenv("TPUFT_HOP_SAMPLE", "1")
+    rng = np.random.default_rng(41)
+    data = [rng.standard_normal(12_000).astype(np.float32) for _ in range(4)]
+
+    def body(c, r):
+        c.allreduce([data[r]]).wait(timeout=30)
+        return c.lane_stats(), c.hop_records()
+
+    port = _ring_world(lambda: port_collectives.TCPCollective(
+        timeout=30.0, lanes=2, engine=engine, chunk_bytes=4 << 10, host="127.0.0.1",
+        topology="ring2d"), 4, body)
+    jax = _ring_world(lambda: ref["collectives"].TCPCollective(
+        timeout=30.0, lanes=2, engine=engine, chunk_bytes=4 << 10, topology="ring2d",
+        transport="tcp"), 4, body)
+    for (ps, precs), (js, jrecs) in zip(port, jax):
+        assert set(ps) == set(js) and ps["topology"] == js["topology"] == "ring2d"
+        assert set(ps["tiers"]) == set(js["tiers"]) == {"row", "col"}
+        for name in ("row", "col"):
+            assert set(ps["tiers"][name]) == set(js["tiers"][name])
+            assert ps["tiers"][name]["size"] == js["tiers"][name]["size"] == 2
+            assert ps["tiers"][name]["sent"] == js["tiers"][name]["sent"], name
+            assert ps["hops"][name]["hops"] == js["hops"][name]["hops"] > 0, name
+        assert set(ps["hops"]) == set(js["hops"]) == {"flat", "row", "col"}
+        for name in ps["hops"]:
+            assert set(ps["hops"][name]) == set(js["hops"][name])
+        assert {r["tier"] for r in precs} == {r["tier"] for r in jrecs} == {1, 2}
+
+
+@pytest.mark.parametrize("engine", ["py", "native"])
+def test_shaped_ring_reports_shape_s(engine, monkeypatch) -> None:
+    """Under ``TPUFT_SHAPED_LINK`` the pacer's sleep is the flat tier's
+    ``shape_s`` on either engine, and it is banked into ``lane_totals``."""
+    monkeypatch.setenv("TPUFT_SHAPED_LINK", "200:2")
+
+    def body(c, r):
+        c.allreduce([np.ones(50_000, np.float32)]).wait(timeout=30)
+        return c.lane_stats()["hops"]["flat"]["shape_s"], c.lane_totals(), c.ring_engine
+
+    for shape_s, totals, ran in _ring_world(lambda: port_collectives.TCPCollective(
+            timeout=30.0, lanes=2, engine=engine, host="127.0.0.1"), 2, body):
+        assert ran == engine and shape_s > 0.0
+        assert totals["hops"]["flat"]["shape_s"] == pytest.approx(shape_s, rel=1e-6)
 
 
 @pytest.mark.parametrize("engine", ["py", "native"])

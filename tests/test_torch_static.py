@@ -56,6 +56,33 @@ def test_port_imports_nothing_of_jax_or_the_jax_package() -> None:
     assert {k: v for k, v in bad.items() if v} == {}
 
 
+def test_the_collective_plane_stands_alone() -> None:
+    """The modules of the collective plane (the ring, its native binding,
+    the futures) and ``chip_smoke.py`` are scanned, import nothing of JAX,
+    the JAX package or ``ml_dtypes``, and the ring unpickles peers' frames
+    with its own restricted unpickler only."""
+    import pickle
+
+    from torchft_tpu_torch import collectives
+
+    for rel in ("torchft_tpu_torch/collectives.py", "torchft_tpu_torch/_native.py",
+                "torchft_tpu_torch/futures.py", "chip_smoke.py"):
+        path = os.path.join(REPO, rel)
+        assert os.path.join(REPO, rel) in set(_port_files()), rel
+        assert not set(_imported_roots(path)) & FORBIDDEN, rel
+    import torchft_tpu_torch
+
+    for name in ("LinkShaper", "ErrorSwallowingCollective", "ManagedCollective"):
+        assert name in collectives.__all__, name
+    for name in ("ErrorSwallowingCollective", "ManagedCollective"):
+        assert getattr(torchft_tpu_torch, name) is getattr(collectives, name)
+        assert name in torchft_tpu_torch.__all__
+    src = open(os.path.join(REPO, "torchft_tpu_torch", "collectives.py")).read()
+    assert "pickle.loads" not in src
+    with pytest.raises(pickle.UnpicklingError, match="only numpy"):
+        collectives._frame_loads(pickle.dumps(os.system))
+
+
 def test_every_port_module_imports_without_cuda() -> None:
     import torchft_tpu_torch
 

@@ -1,14 +1,17 @@
 """Shared helpers for the PyTorch port's tests (tests/test_torch_*.py).
 
 The port's tests hold it against the JAX package.  Importing the JAX
-package builds its native core on first import (cmake into native/build),
-and concurrent test workers race on that build, which can leave
+package builds its native core on first import (cmake and ninja into
+native/build, with the C++ test binary that tests/test_native_core.py
+runs), and concurrent test workers race on that build, which can leave
 native/build unusable.  So the reference is imported here, inside fixtures
-only, under a cross-process lock; when the JAX package's native artifacts
-are missing they are first provisioned by the package's own documented
-toolchain-less recipe (native/gen_pb_local.py's Python module, and the
-same native sources built with plain g++ — the port's build of them), and
-a failed import is retried once.
+only, under a cross-process lock, and builds itself there.  Only where
+cmake or ninja is missing are the JAX package's native artifacts
+provisioned first, by its own documented toolchain-less recipe
+(native/gen_pb_local.py's Python module, and the same native sources built
+with plain g++, the port's build of them): a library copied in beside a
+toolchain would leave native/build unmade.  A failed import is retried
+once.
 """
 
 from __future__ import annotations
@@ -31,8 +34,12 @@ _JAX_PB2 = os.path.join(REPO, "torchft_tpu", "proto", "tpuft_pb2.py")
 
 def _provision_reference_native() -> None:
     """Writes the JAX package's generated native artifacts (both listed in
-    .gitignore) when they are missing."""
+    .gitignore) when they are missing and no cmake / ninja toolchain can
+    build them."""
     from torchft_tpu_torch._build import native_lib_path
+
+    if shutil.which("cmake") is not None and shutil.which("ninja") is not None:
+        return
 
     if not os.path.exists(_JAX_PB2):
         spec = importlib.util.spec_from_file_location(

@@ -11,7 +11,13 @@ nothing of it, and speaks the same wire to the same native coordination
 core (``native/``).
 """
 
-from torchft_tpu_torch.collectives import Collective, DummyCollective, TCPCollective
+from torchft_tpu_torch.collectives import (
+    Collective,
+    DummyCollective,
+    ErrorSwallowingCollective,
+    ManagedCollective,
+    TCPCollective,
+)
 from torchft_tpu_torch.ddp import GradientAverager
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.optim import Optimizer
@@ -19,7 +25,9 @@ from torchft_tpu_torch.optim import Optimizer
 __all__ = [
     "Collective",
     "DummyCollective",
+    "ErrorSwallowingCollective",
     "GradientAverager",
+    "ManagedCollective",
     "Manager",
     "Optimizer",
     "TCPCollective",

@@ -14,8 +14,8 @@ needs: the lighthouse server (with its evict and drain), a lighthouse
 client for evicts and drain notices, the manager server and client (quorum, checkpoint metadata, commit
 vote, heartbeat telemetry and goodput ledger), the servers' flight
 recorders, the rendezvous store, and the GIL-free ring data plane
-(:class:`RingEngine`, ``native/src/ring.h``) on the flat ring with its hop
-recorder.
+(:class:`RingEngine`, ``native/src/ring.h``): the flat ring and the 2-D
+topology's tiers, with its hop recorder, shm lanes and link pacers.
 """
 
 from __future__ import annotations
@@ -119,9 +119,9 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def _declare_ring(lib: ctypes.CDLL) -> str:
-    """Declares the ``tf_ring_*`` symbols the port binds (the flat ring
-    and its hop recorder: no shm or shaper calls); returns why they are
-    missing, or "" when every one is there."""
+    """Declares the ``tf_ring_*`` symbols the port binds (the ring's
+    tiers, its hop recorder, shm lanes and link pacers); returns why they
+    are missing, or "" when every one is there."""
     vp, i32, u32, u64, dbl = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint32,
                               ctypes.c_uint64, ctypes.c_double)
     errp = ctypes.POINTER(ctypes.c_char_p)
@@ -141,7 +141,11 @@ def _declare_ring(lib: ctypes.CDLL) -> str:
             vp, i32, i32, i32, i32, i32p, u32p, u32, u32, i32, i32, i32, u64p, u64p, dbl,
             errp,
         ]),
+        "tf_ring_set_shm": (ctypes.c_int, [vp, i32, i32, i32, ctypes.c_char_p, u64, errp]),
         "tf_ring_counters": (ctypes.c_int, [vp, i32, u64p, u64p, i32]),
+        "tf_ring_shaper_counters": (None, [vp, i32, i32, u64p, u64p]),
+        "tf_ring_shaper_wait_s": (dbl, [vp, i32, i32]),
+        "tf_ring_set_shaper": (None, [vp, i32, i32, dbl, dbl]),
         "tf_ring_link_bytes": (u64, [vp, i32, i32, i32]),
         "tf_ring_set_hop": (None, [vp, i32, i32]),
         "tf_ring_hop_stats": (ctypes.c_int, [vp, i32, ctypes.POINTER(dbl)]),
@@ -585,44 +589,56 @@ class StoreClient:
 
 
 class RingEngine:
-    """GIL-free ring data plane (``native/src/ring.h``) over the flat ring.
+    """GIL-free ring data plane (``native/src/ring.h``).
 
     Owns dup()'d copies of :class:`~torchft_tpu_torch.collectives.TCPCollective`'s
-    lane sockets and runs the per-hop hot loop natively: scatter-gather
-    socket I/O over the caller's f32 buffers, the tag demux, and the bf16,
-    int8 and int4 wire codecs, with the same frames, codec bytes and combine
-    order as the Python engine (the two interoperate on one ring, and with the JAX
-    package's engines).  Every call releases the GIL for its whole duration
-    (ctypes), which is the point: a striped allreduce does no interpreter
-    work on the wire path.  Direction 0 is next (sends), 1 prev (receives).
+    lane sockets, for the flat ring and the 2-D topology's row and column
+    tiers, and runs the per-hop hot loop natively: scatter-gather socket
+    I/O over the caller's f32 buffers (or a same-host lane's shared-memory
+    ring), the tag demux, the per-direction link pacer, and the bf16, int8
+    and int4 wire codecs, with the same frames, codec bytes and combine
+    order as the Python engine (the two interoperate on one ring, and with
+    the JAX package's engines).  Every call releases the GIL for its whole
+    duration (ctypes), which is the point: a striped allreduce does no
+    interpreter work on the wire path.  Direction 0 is next (sends), 1 prev
+    (receives).
     """
 
+    # Tiers, ring-pass modes, ops and wires (native/src/ring.h enums).
     TIER_FLAT = 0
-    # Ring-pass modes, ops and wires (native/src/ring.h enums).
+    TIER_ROW = 1
+    TIER_COL = 2
     PASS_FULL = 0
+    PASS_RS = 1
+    PASS_AG = 2
     OP_SUM = 0
+    OP_MAX = 1
+    OP_MIN = 2
     WIRE_RAW = 0
     WIRE_BF16 = 1
     WIRE_INT8 = 2
     WIRE_INT4 = 3
 
-    def __init__(self, lanes: int) -> None:
+    def __init__(self, lanes: int, shaper_mbps: float = 0.0, shaper_rtt_ms: float = 0.0) -> None:
+        """``shaper_mbps`` > 0 paces every tier-direction's sends at that
+        rate plus half ``shaper_rtt_ms`` a frame (``TPUFT_SHAPED_LINK``'s
+        model); 0 leaves the links unpaced."""
         reason = ring_engine_unavailable_reason()
         if reason:
             raise RuntimeError(reason)
         self._lib = _lib()
-        self._ptr = self._lib.tf_ring_new(int(lanes), 0.0, 0.0)
+        self._ptr = self._lib.tf_ring_new(int(lanes), float(shaper_mbps), float(shaper_rtt_ms))
         self._lanes = int(lanes)
         # Python -> native crossings on the data path (ring_pass and
         # ring_pass_multi calls): one per allreduce with the batched entry.
         self.pass_calls = 0
 
     def set_tier(self, tier: int, next_fds: List[int], prev_fds: List[int]) -> None:
-        """Registers the flat ring's lane sockets, one per lane and
-        direction (the engine dup()s them; the Python sockets stay owned,
-        and closed, by the collective)."""
-        if tier != self.TIER_FLAT:
-            raise ValueError("the port's ring engine runs the flat ring only")
+        """Registers one tier's lane sockets, one per lane and direction
+        (the engine dup()s them; the Python sockets stay owned, and closed,
+        by the collective)."""
+        if tier not in (self.TIER_FLAT, self.TIER_ROW, self.TIER_COL):
+            raise ValueError(f"unknown ring tier {tier}")
         n = len(next_fds)
         if len(prev_fds) != n:
             raise ValueError("next and prev need one fd per lane each")
@@ -631,6 +647,34 @@ class RingEngine:
         err = ctypes.c_char_p()
         if self._lib.tf_ring_set_tier(self._ptr, tier, n, nxt, prv, ctypes.byref(err)) != 0:
             raise RuntimeError(_take_error(err))
+
+    def set_shm(self, tier: int, direction: int, lane: int, path: str, token: int) -> None:
+        """Moves one lane link's frames onto a same-host shared-memory ring
+        (the segment the rendezvous negotiated; its TCP socket stays open as
+        the liveness and abort channel).  Raises when the segment's magic
+        or generation token does not match (a dead peer's stale segment)."""
+        err = ctypes.c_char_p()
+        rc = self._lib.tf_ring_set_shm(self._ptr, int(tier), int(direction), int(lane),
+                                       path.encode(), int(token) & 0xFFFFFFFFFFFFFFFF,
+                                       ctypes.byref(err))
+        if rc != 0:
+            raise RuntimeError(_take_error(err))
+
+    def shaper_counters(self, tier: int, direction: int) -> "tuple[int, int]":
+        """(bytes, frames) through one tier-direction's shared pacer."""
+        b, f = ctypes.c_uint64(), ctypes.c_uint64()
+        self._lib.tf_ring_shaper_counters(self._ptr, int(tier), int(direction),
+                                          ctypes.byref(b), ctypes.byref(f))
+        return int(b.value), int(f.value)
+
+    def shaper_wait_s(self, tier: int, direction: int) -> float:
+        """Seconds one tier-direction's pacer slept."""
+        return float(self._lib.tf_ring_shaper_wait_s(self._ptr, int(tier), int(direction)))
+
+    def set_shaper(self, tier: int, direction: int, mbps: float, rtt_ms: float) -> None:
+        """Re-paces one tier-direction mid-run; ``mbps`` <= 0 disables it."""
+        self._lib.tf_ring_set_shaper(self._ptr, int(tier), int(direction), float(mbps),
+                                     float(rtt_ms))
 
     @staticmethod
     def _raise(rc: int, err: "ctypes.c_char_p") -> None:

@@ -18,7 +18,8 @@ import itertools
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Callable, Optional, TypeVar
+from contextlib import contextmanager
+from typing import Any, Callable, Iterator, Optional, TypeVar
 
 import torch
 
@@ -125,6 +126,17 @@ def future_wait(fut: Future, timeout: float) -> Any:
         if isinstance(e, TimeoutError):
             raise
         raise TimeoutError(f"future did not complete within {timeout}s") from None
+
+
+@contextmanager
+def context_timeout(callback: Callable[[], None], timeout: float) -> Iterator[None]:
+    """Runs ``callback`` (an abort, typically) if the with-block has not
+    finished within ``timeout`` seconds."""
+    handle = _TIMEOUTS.register(timeout, callback)
+    try:
+        yield
+    finally:
+        _TIMEOUTS.cancel(handle)
 
 
 def then(fut: Future, fn: Callable[[Any], T]) -> Future:
