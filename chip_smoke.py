@@ -65,7 +65,14 @@ result):
    ``snapshot_wait`` is under 10% of the ``snapshot`` span; printed, both.
    The heal: asserted, a chunked fetch with every buffer checksum-verified
    on a host with two cores or more; printed, its stripes, workers, GB/s
-   and checksum ms, and the donor's checksum stamp.
+   and checksum ms, and the donor's checksum stamp.  The worker
+   ``/metrics`` endpoint (``TPUFT_WORKER_METRICS_PORT`` 0 on 127.0.0.1):
+   each group logs its port and scrapes it over HTTP after the heal step
+   and after the last merged step; asserted, it serves, no counter or
+   histogram series falls, the hop histograms' ``_count`` is above 0, and
+   the ``tpuft_worker_lane_*`` and ``tpuft_worker_hops_total`` series equal
+   the ring's ``lane_totals()`` at the scrape; printed, each scrape's bytes,
+   lines and ms.
    Then the same schedule a second time with ``TPUFT_RING_TRANSPORT=shm``
    in both groups: asserted as above, and every rank's ring ran on shm
    lanes (``ring_transport``), and the run ends with the TCP run's
@@ -128,7 +135,9 @@ result):
    to 0 before the rounds and read after), the device codec path ran (int8
    bytes + 4 a fragment off the card), each round's wire bytes are at most
    0.27 of f32, the streams hold ``outer_sync`` spans and
-   ``obs.trace.validate_trace`` is clean.  Printed: inner-step ms with a
+   ``obs.trace.validate_trace`` is clean, and one scrape of each group's
+   worker ``/metrics`` shows ``tpuft_semisync_*`` beside ``tpuft_worker_*``
+   on the Manager's port, with no second port bound.  Printed: inner-step ms with a
    round in flight and in the solo round, the round boundary's and the
    outer apply's ms, the drain waits, wire and D2H bytes a round.
 11. Healing: a lighthouse and three groups as processes on the card,
@@ -154,8 +163,9 @@ result):
    peak device memory.
 12. Elastic: ``torchft_tpu_torch.launch``'s Launcher runs three groups
    of this script's ``--elastic-group`` mode and one hot spare on the card
-   (an external lighthouse, one metrics stream, the native 2-lane ring on
-   the f32 wire), each training the flagship at full width and depth under
+   (its embedded lighthouse with the straggler sentinel and the incident
+   watcher in dry-run, one metrics stream, the native 2-lane ring on the
+   f32 wire), each training the flagship at full width and depth under
    the elastic batch engine (``TPUFT_ELASTIC_GLOBAL_BATCH`` 48,
    ``TPUFT_ELASTIC_MICROBATCH`` 16: one microstep of 16 a group at three
    participants, 16 + 8 at two).  A group goes through the port's
@@ -164,7 +174,12 @@ result):
    watcher attached).  (a) ``Launcher.drain(2)`` while group 2's step is in
    flight: the spare adopts group 2 and heals; (b) SIGKILL of group 1
    ELASTIC_KILL_DELAY_S into a step: the refilled spare adopts it and
-   heals.  Asserted: (a) the donor commits
+   heals; (c) group 0 turns slow, a pid-pinned ``straggle_0.json``
+   (``maybe_straggle``, STRAGGLE_SLEEP_S a step in the busy part): the
+   lighthouse's sentinel (ELASTIC_LIGHTHOUSE_ENV) alerts, the launcher
+   rotates it out to the refilled spare, the watcher bundles the alert.
+   Every group scrapes its worker ``/metrics`` after every step (monotonic
+   across its reconfigures, lane totals equal to the ring's).  Asserted: (a) the donor commits
    its step in flight, exits 0 through ``complete_drain`` with its marker,
    and the lighthouse's next quorum leaves it out; no survivor fails a
    commit from the first three-way merge to the SIGKILL; every committed
@@ -175,11 +190,21 @@ result):
    the adopted spare and it healed; (b) one adoption and a heal; every
    merged step ends with one params_sha256; K1-K5 launch 12 / 12 / 12 /
    1 / 1 times a microstep in every process; committed steps ran the
-   native 2-lane ring on the f32 wire.  Printed: each transition's
-   ``obs.report.deadwindow`` dead time, its reconfigures' modes and ms, the
-   drain notice to the donor's exit, adoption and fault to the first
-   merged commit (the SIGKILL's beside phases 6 and 11's cold restarts),
-   each process's peak device memory.
+   native 2-lane ring on the f32 wire; (c) an active straggler alert named
+   group 0's incarnation, the launcher emitted one ``straggler_drain``, for
+   it, the refilled spare adopted group 0 and healed, the sleep stayed with
+   the victim's pid, the replacement ran ELASTIC_MERGED merged commits, no
+   survivor failed a commit, ``watcher_journal.jsonl`` holds a dry-run
+   ``straggler`` drain of group 0 and a bundle's verdict names it.
+   Printed: each transition's ``obs.report.deadwindow`` dead time, its
+   reconfigures' modes and ms, the drain notice to the donor's exit,
+   adoption and fault to the first merged commit (the SIGKILL's beside
+   phases 6 and 11's cold restarts), each process's peak device memory;
+   (c)'s injection to the alert (seconds and the victim's steps), the
+   alert to ``straggler_drain``, the notice to the donor's exit, the
+   adoption to the first merged commit, the merged step's wall before,
+   during and after, the journal and the bundle's verdict; the scrapes'
+   ms and bytes.
 13. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
    healing run as ``launches_healing`` and on the elastic run as
@@ -721,6 +746,53 @@ def rms_entry_point() -> dict:
 
 # -- phase 5: one replica group (run as its own process) ---------------------
 
+# The worker /metrics endpoint of every flagship group: any free port, on
+# IPv4 loopback (the default bind is ::1, which a host may lack).
+WORKER_METRICS_ENV = {"TPUFT_WORKER_METRICS_PORT": "0", "TPUFT_WORKER_METRICS_BIND": "127.0.0.1"}
+COUNTER_SUFFIXES = ("_total", "_count", "_sum", "_bucket")
+
+
+def worker_scrape(manager, prev: dict = None, check_lanes: bool = True) -> dict:
+    """One HTTP scrape of the group's worker ``/metrics`` (the Manager's
+    endpoint; it must be serving), held against the ring's ``lane_totals()``
+    read just after it (with ``check_lanes``, where no ring op can run
+    between the two: the step is over), and against ``prev``, the last
+    scrape of the same endpoint: no counter or histogram series falls.  Returns the samples, the text's bytes and
+    lines, the scrape's ms and the hop histograms' summed ``_count``."""
+    import urllib.request
+
+    wm = manager.worker_metrics
+    if not wm.serving:
+        raise AssertionError(f"{manager.replica_id()}: the worker /metrics endpoint is not "
+                             f"serving")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{wm.port}/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    ms = (time.perf_counter() - t0) * 1e3
+    samples = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            samples[key] = float(value)
+    lt = manager.collective().lane_totals() if check_lanes else {"tiers": {}}
+    rid = manager.replica_id()
+    for tier, t in lt["tiers"].items():
+        lab = f'{{replica="{rid}",tier="{tier}"}}'
+        got = tuple(samples.get(f"{name}{lab}") for name in (
+            "tpuft_worker_lane_sent_bytes_total", "tpuft_worker_lane_recv_bytes_total",
+            "tpuft_worker_hops_total"))
+        want = (t["sent_bytes"], t["recv_bytes"], lt["hops"][tier]["hops"])
+        if got != want:
+            raise AssertionError(f"{rid}: the scrape's lane totals of tier {tier} {got} are not "
+                                 f"the ring's lane_totals {want}")
+    for key, v in (prev or {}).get("samples", {}).items():
+        if key.split("{")[0].endswith(COUNTER_SUFFIXES) and samples.get(key, -1.0) < v:
+            raise AssertionError(f"{rid}: {key} fell from {v} to {samples.get(key)}")
+    hop_count = sum(v for k, v in samples.items()
+                    if k.startswith("tpuft_worker_hop_latency_seconds_count"))
+    return {"samples": samples, "bytes": len(text.encode()), "lines": len(text.splitlines()),
+            "ms": ms, "hop_count": hop_count, "port": wm.port}
+
 
 def run_group(args: argparse.Namespace) -> None:
     import logging
@@ -780,10 +852,14 @@ def run_group(args: argparse.Namespace) -> None:
     )
     trainer = TrainStep(model, opt, loss_fn, manager)
     data = torch.Generator(device=dev).manual_seed(7 + group)
+    if not manager.worker_metrics.serving:
+        raise AssertionError(f"group {group}: the worker /metrics endpoint is not serving")
+    print(f"WORKER_METRICS group {group} port {manager.worker_metrics.port}", flush=True)
 
     reset_launch_counts()
     steps, merged, healed = [], 0, 0
     ring_seen: dict = {}
+    scrapes: list = []
     while merged < MERGED_STEPS:
         if len(steps) > 100:
             raise RuntimeError("group never merged with its peer")
@@ -820,6 +896,13 @@ def run_group(args: argparse.Namespace) -> None:
                          "transport": collective.ring_transport}
         steps.append(rec)
         print("STEP " + json.dumps(rec), flush=True)
+        # Scrapes: at the first step on the two-group ring (group 1's heal
+        # step) and after the last merged step.
+        if collective.size() == 2 and (not scrapes or merged + (participants == 2)
+                                       == MERGED_STEPS):
+            sc = worker_scrape(manager, scrapes[-1] if scrapes else None)
+            sc["step"] = manager.current_step()
+            scrapes.append(sc)
         if not committed:
             raise RuntimeError(f"group {group}: step {before} did not commit")
         if not math.isfinite(loss_v):
@@ -881,6 +964,8 @@ def run_group(args: argparse.Namespace) -> None:
     result["snapshot"] = dict(transport.last_snapshot)
     result["fetch"] = dict(transport.last_fetch)
     result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    result["worker_scrapes"] = [{k: v for k, v in sc.items() if k != "samples"}
+                                for sc in scrapes]
     manager.shutdown()
     if group == 0:
         # The compute alone: TrainStep.full_step (forward, backward, AdamW;
@@ -911,7 +996,7 @@ def main_path(card: str, transport: str = "tcp") -> tuple:
 
     def start(group: int) -> None:
         env = {**os.environ, "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_g{group}.jsonl"),
-               "TPUFT_RING_TRANSPORT": transport}
+               "TPUFT_RING_TRANSPORT": transport, **WORKER_METRICS_ENV}
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--group", str(group),
              "--lighthouse", lighthouse.address(), "--run-dir", run_dir],
@@ -1008,6 +1093,18 @@ def main_path(card: str, transport: str = "tcp") -> tuple:
                                        or not n_bufs):
         raise AssertionError(f"the single-donor heal on a {os.cpu_count()}-core host was not a "
                              f"checksummed chunked fetch: {fetch}")
+    for r in (r0, r1):
+        sc = r["worker_scrapes"]
+        if len(sc) != 2 or sc[-1]["hop_count"] <= 0:
+            raise AssertionError(f"group {r['group']}: worker /metrics scrapes {sc}: expected one "
+                                 f"after the heal step and one after the last merged step, with "
+                                 f"hop histogram counts")
+        print(f"group {r['group']} worker /metrics (port {sc[0]['port']}): scrapes at steps "
+              f"{[x['step'] for x in sc]}, "
+              + ", ".join(f"{x['bytes']} bytes / {x['lines']} lines in {x['ms']:.2f} ms"
+                          for x in sc)
+              + f"; hop latency counts {[x['hop_count'] for x in sc]}; counters monotonic, lane "
+              f"totals equal to lane_totals() ({card})", flush=True)
     same = r0["params_sha256"] == PREVIOUS_PARAMS_SHA256
     print(f"params_sha256 {r0['params_sha256']}; previous tree's {PREVIOUS_PARAMS_SHA256}: "
           f"{'equal' if same else 'DIFFERENT'}", flush=True)
@@ -1838,6 +1935,14 @@ def run_diloco_group(args: argparse.Namespace) -> None:
                 open(os.path.join(run_dir, "g0_ready"), "w").close()
                 wait_for(os.path.join(run_dir, "g1_up"))
         counts = launch_counts()
+        # The semi-sync section rides the Manager's worker endpoint; the
+        # DiLoCo exporter binds no port of its own.
+        sc = worker_scrape(manager, check_lanes=False)
+        scrape = {"port": sc["port"], "bytes": sc["bytes"], "ms": sc["ms"],
+                  "semisync_series": sum(1 for k in sc["samples"]
+                                         if k.startswith("tpuft_semisync_")),
+                  "worker_series": sum(1 for k in sc["samples"] if k.startswith("tpuft_worker_")),
+                  "second_port": algo.metrics._server is not None}
 
     def sha(tensors) -> str:
         h = hashlib.sha256()
@@ -1867,6 +1972,7 @@ def run_diloco_group(args: argparse.Namespace) -> None:
         "engine": collective.ring_engine, "lanes": collective.lanes,
         "codec_paths": sorted({type(c).__name__ for c in algo._codecs}),
         "losses_final": rounds[-1]["losses"][-1],
+        "worker_scrape": scrape,
     }
     manager.shutdown()
     print("RESULT " + json.dumps(result), flush=True)
@@ -1886,7 +1992,7 @@ def diloco_phase(card: str, device: str = "cuda") -> dict:
     procs, readers, results = {}, {}, {}
 
     def start(group: int) -> None:
-        env = {**os.environ,
+        env = {**os.environ, **WORKER_METRICS_ENV,
                "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_d{group}.jsonl")}
         proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--diloco-group", str(group),
@@ -1959,6 +2065,14 @@ def diloco_phase(card: str, device: str = "cuda") -> dict:
         if (r["engine"], r["lanes"]) != ("native", 2) or r["codec_paths"] != ["_Int8EFCodec"]:
             raise AssertionError(f"DiLoCo group {r['group']}: ring {r['engine']}/{r['lanes']}, "
                                  f"codecs {r['codec_paths']}")
+        sc = r["worker_scrape"]
+        if sc["semisync_series"] == 0 or sc["worker_series"] == 0 or sc["second_port"]:
+            raise AssertionError(f"DiLoCo group {r['group']}: the worker endpoint's scrape {sc}: "
+                                 f"expected tpuft_semisync_* beside tpuft_worker_* on one port")
+        print(f"  group {r['group']} worker /metrics (port {sc['port']}): "
+              f"{sc['semisync_series']} tpuft_semisync_* and {sc['worker_series']} tpuft_worker_* "
+              f"series on the Manager's port, no second port; {sc['bytes']} bytes in "
+              f"{sc['ms']:.2f} ms ({card})", flush=True)
     f32_bytes = r0["fragment_f32_bytes"]
     for g, evs in streams.items():
         phases = {e["phase"] for e in evs if e["event"] == "span"}
@@ -2475,6 +2589,21 @@ ELASTIC_MERGED = 2         # merged commits of every group before each event
 ELASTIC_TIMEOUT_S = 420.0
 ELASTIC_DRAIN_DEADLINE_S = 60.0
 ELASTIC_KILL_DELAY_S = 0.3  # from group 1's step start to its SIGKILL
+# (c) the straggler: group 0 sleeps this much more in every step, in the
+# busy part (after the backward, before the averager).  With the busy-time
+# EWMA's alpha of 0.5 the victim's ratio to the median reaches 1.5 at its
+# second slow step wherever a step's busy time (three processes' compute
+# on one card, and the step's parameter sha256) is under 3 s.
+STRAGGLE_SLEEP_S = 2.0
+# The sentinel's knobs, read by the embedded lighthouse at its construction;
+# the lighthouse does not drain by itself (the launcher's sentinel does);
+# the watcher's flap guard spans a second; and the goodput-floor trigger is
+# held off: a dip recorded at the straggler alert's step would open that
+# step's bundle first (first evidence wins), and the bundle's verdict would
+# be the dip's.
+ELASTIC_LIGHTHOUSE_ENV = {"TPUFT_STRAGGLER_RATIO": "1.5", "TPUFT_STRAGGLER_GRACE_STEPS": "3",
+                          "TPUFT_STRAGGLER_AUTO_DRAIN": "0", "TPUFT_WATCHER_DEBOUNCE_S": "1",
+                          "TPUFT_GOODPUT_WARMUP_OBS": "1000000"}
 
 
 def run_elastic_group(args: argparse.Namespace) -> None:
@@ -2495,7 +2624,12 @@ def run_elastic_group(args: argparse.Namespace) -> None:
     import torch
 
     from torchft_tpu_torch import GradientAverager
-    from torchft_tpu_torch.examples._common import TrainGate, make_manager, replica_env
+    from torchft_tpu_torch.examples._common import (
+        TrainGate,
+        make_manager,
+        maybe_straggle,
+        replica_env,
+    )
     from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
     from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -2512,6 +2646,10 @@ def run_elastic_group(args: argparse.Namespace) -> None:
         lambda: {"model": model.state_dict(), "optim": opt.state_dict()},
         lambda sd: (model.load_state_dict(sd["model"]), opt.load_state_dict(sd["optim"])),
         group, min_replicas=1, timeout_s=180.0, init_sync=False)
+    if not manager.worker_metrics.serving:
+        raise AssertionError(f"elastic group {group}: the worker /metrics endpoint is not serving")
+    print(f"WORKER_METRICS group {group} port {manager.worker_metrics.port}", flush=True)
+    scrape = None
     averager = GradientAverager(manager)
     params = [p for p in model.parameters() if p.requires_grad]
     data = torch.Generator(device=dev).manual_seed(500 + group)
@@ -2549,6 +2687,8 @@ def run_elastic_group(args: argparse.Namespace) -> None:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # (c)'s injection point, outside every FT span (a no-op elsewhere).
+        straggle_s = maybe_straggle(group)
         averager.allreduce([p.grad for p in params])
         committed = manager.should_commit()
         if committed:
@@ -2557,6 +2697,9 @@ def run_elastic_group(args: argparse.Namespace) -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize()
         steps_run += 1
+        # The worker endpoint after every step, across every reconfigure of
+        # this incarnation: monotonic, lane totals equal to the ring's.
+        scrape = worker_scrape(manager, scrape)
         col = manager.collective()
         rec = {"group": group, "rid": manager.replica_id(), "pid": os.getpid(), "before": before,
                "step": manager.current_step(), "committed": committed,
@@ -2564,7 +2707,10 @@ def run_elastic_group(args: argparse.Namespace) -> None:
                "microsteps": microsteps, "steps_run": steps_run, "loss": loss_v,
                "t0": t0, "t": time.time(), "launches": launch_counts(),
                "ring": [col.ring_engine, col.lanes, col.wire_dtype, col.size()],
-               "configure": dict(col.last_configure),
+               "configure": dict(col.last_configure), "straggle_s": straggle_s,
+               "scrape": {k: scrape[k] for k in ("ms", "bytes", "hop_count")},
+               "reconfigures": scrape["samples"].get(
+                   f'tpuft_worker_reconfigures_total{{replica="{manager.replica_id()}"}}', 0.0),
                "peak_mem": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0}
         if committed:
             flat = torch.cat([p.detach().reshape(-1).view(torch.uint8) for p in params])
@@ -2617,36 +2763,61 @@ class _LogTail:
 
 def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
     """The flagship under the port's Launcher: three groups, one hot spare,
-    an external lighthouse, one metrics stream, the elastic engine at a
+    the launcher's embedded lighthouse with the straggler sentinel and the
+    incident watcher (dry-run), one metrics stream, the elastic engine at a
     global batch of 48.  (a) ``Launcher.drain(2)``: the donor finishes its
     step and exits, the spare adopts group 2 and heals.  (b) SIGKILL of
-    group 1: the refilled spare adopts it and heals.  ``cold`` holds the
-    cold-restart seconds of phases 6 and 11 to print beside (b)'s.  Returns
-    the K1-K5 launches of every process."""
-    from torchft_tpu_torch._native import LighthouseServer
-    from torchft_tpu_torch.launch import Launcher
+    group 1: the refilled spare adopts it and heals.  (c) Group 0 turns
+    slow (a pid-pinned sleep in every step): the lighthouse's sentinel
+    raises a straggler alert, the launcher rotates it out through a drain,
+    the refilled spare adopts group 0 and heals, and the watcher bundles the
+    alert and journals its recommendation.  ``cold`` holds the cold-restart
+    seconds of phases 6 and 11 to print beside (b)'s.  Returns the K1-K5
+    launches of every process."""
+    from torchft_tpu_torch.launch import Launcher, fetch_alerts
     from torchft_tpu_torch.metrics import MetricsLogger
     from torchft_tpu_torch.obs import report
 
-    # A long straggler wait: a departure here is a drain or an evicted
-    # SIGKILL, which no quorum waits for, so it holds back only a group
-    # still finishing its heal step (a short one lets two groups re-form
-    # without it while it heals, and it falls behind again).
-    lighthouse = LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0",
-                                  min_replicas=2, join_timeout_ms=60000)
     run_dir = tempfile.mkdtemp(prefix="tpuft_elastic_")
     metrics_path = os.path.join(run_dir, "metrics.jsonl")
-    driver = MetricsLogger(metrics_path, "chip_smoke")
+    fault_log = MetricsLogger(metrics_path, "chip_smoke")
     tail = _LogTail(run_dir)
     env = {"TPUFT_METRICS_PATH": metrics_path,
            "TPUFT_ELASTIC_GLOBAL_BATCH": str(ELASTIC_GLOBAL_BATCH),
            "TPUFT_ELASTIC_MICROBATCH": str(ELASTIC_MICROBATCH),
-           "TPUFT_RING_ENGINE": "native"}
-    launcher = Launcher([sys.executable, os.path.abspath(__file__), "--elastic-group",
-                         "--run-dir", run_dir, "--device", device],
-                        num_groups=3, lighthouse=lighthouse.address(), max_restarts=2,
-                        log_dir=run_dir, env=env, cwd=HERE, spares=1)
+           "TPUFT_RING_ENGINE": "native", "TPUFT_STRAGGLE_DIR": run_dir, **WORKER_METRICS_ENV}
+    prior = {k: os.environ.get(k) for k in ELASTIC_LIGHTHOUSE_ENV}
+    os.environ.update(ELASTIC_LIGHTHOUSE_ENV)
+    # A long straggler wait: a departure here is a drain or an evicted
+    # SIGKILL, which no quorum waits for, so it holds back only a group
+    # still finishing its heal step (a short one lets two groups re-form
+    # without it while it heals, and it falls behind again).
+    try:
+        launcher = Launcher([sys.executable, os.path.abspath(__file__), "--elastic-group",
+                             "--run-dir", run_dir, "--device", device],
+                            num_groups=3, lighthouse="embed", min_replicas=2,
+                            join_timeout_ms=60000, max_restarts=2, log_dir=run_dir, env=env,
+                            cwd=HERE, spares=1, straggler_auto_drain=True,
+                            incident_watcher=True, watcher_act=False)
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     ev: dict = {}
+    alerts: dict = {}
+    last_alert_poll = [0.0]
+
+    def victim_alerted(rid: str) -> bool:
+        """Polls the lighthouse's alerts (5 a second) and keeps each active
+        straggler alert the first time it is seen."""
+        if time.monotonic() - last_alert_poll[0] >= 0.2:
+            last_alert_poll[0] = time.monotonic()
+            for a in (fetch_alerts(launcher.lighthouse_http_address) or {}).get("alerts", []):
+                if a.get("kind") == "straggler" and a.get("active") and a["id"] not in alerts:
+                    alerts[a["id"]] = dict(a, seen=time.time())
+        return any(a["replica_id"] == rid for a in alerts.values())
 
     def wait(cond, what: str) -> None:
         deadline = time.monotonic() + ELASTIC_TIMEOUT_S
@@ -2689,7 +2860,7 @@ def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
              "the donor never began a step")
         drain_spare = launcher._spares[0]
         ev["notice"] = time.time()
-        driver.emit("fault", kind="drain", group="2")
+        fault_log.emit("fault", kind="drain", group="2")
         launcher.drain(2, deadline_s=ELASTIC_DRAIN_DEADLINE_S)
         ev["adopt_a"] = time.time()
         if launcher.pid(2) != drain_spare.proc.pid:
@@ -2705,7 +2876,7 @@ def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
              "group 1 never began a step")
         time.sleep(ELASTIC_KILL_DELAY_S)
         ev["kill"] = time.time()
-        driver.emit("fault", kind="kill", group="1")
+        fault_log.emit("fault", kind="kill", group="1")
         launcher.kill(1, hold=False)
         if launcher.supervise_once() != [1] or launcher.pid(1) != kill_spare.proc.pid:
             raise AssertionError("the killed group's id did not go to the hot spare")
@@ -2713,6 +2884,29 @@ def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
         wait(lambda: len(rids(1)) == 2
              and len(merged(lambda r: r["rid"] == rids(1)[1])) >= ELASTIC_MERGED,
              "the killed group's replacement never ran merged")
+        # (c) Group 0, which (a) and (b) left alone, turns slow: from now on
+        # its incarnation sleeps STRAGGLE_SLEEP_S more in every step.
+        wait(spare_ready, "the spare pool never refilled after (b)")
+        victim_rid, victim_pid = rids(0)[0], launcher.pid(0)
+        straggle_spare = launcher._spares[0]
+        if len(rids(0)) != 1 or victim_pid is None:
+            raise AssertionError(f"(c) group 0 is not its first incarnation: {rids(0)}")
+        path = os.path.join(run_dir, "straggle_0.json")
+        with open(path + ".tmp", "w", encoding="utf-8") as f:
+            json.dump({"sleep_s": STRAGGLE_SLEEP_S, "pid": victim_pid}, f)
+        os.replace(path + ".tmp", path)
+        ev["inject"] = time.time()
+        fault_log.emit("fault", kind="straggler", group="0")
+        fault_log.emit("straggler_injected", group="0", sleep_s=STRAGGLE_SLEEP_S, pid=victim_pid)
+        wait(lambda: victim_alerted(victim_rid), "the straggler was never alerted")
+        wait(lambda: launcher.pid(0) not in (None, victim_pid),
+             "the straggler was never rotated out")
+        ev["adopt_c"] = time.time()
+        if launcher.pid(0) != straggle_spare.proc.pid:
+            raise AssertionError("(c) the straggler's slot did not go to the hot spare")
+        wait(lambda: len(rids(0)) == 2 and not launcher.draining()
+             and len(merged(lambda r: r["rid"] == rids(0)[1])) >= ELASTIC_MERGED,
+             "the straggler's replacement never ran merged")
         with open(os.path.join(run_dir, "stop"), "w") as f:
             f.write(str(max(r["step"] for r in tail.recs) + 2))
         wait(lambda: all(launcher.pid(g) is None for g in range(3)),
@@ -2720,22 +2914,33 @@ def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
         if not launcher.all_exited_clean():
             raise AssertionError("a group exited non-zero at the stop step")
         tail.poll()
-        flight = lighthouse.flight()
+        flight = launcher._embedded.flight()
         events = report.read_events([metrics_path])
         logs = {name: tail.text(name) for name in tail.lines}
         restarts = launcher.restarts(1)
+        # The watcher's journal and bundles live in the run directory.
+        journal_path = os.path.join(run_dir, "watcher_journal.jsonl")
+        with open(journal_path, encoding="utf-8") as f:
+            journal = [json.loads(line) for line in f]
+        bundles = {}
+        for name in sorted(os.listdir(run_dir)):
+            if name.startswith("incident_"):
+                with open(os.path.join(run_dir, name, "incident.json"), encoding="utf-8") as f:
+                    bundles[name] = json.load(f)
     finally:
         launcher.stop()
-        driver.close()
-        lighthouse.shutdown()
+        fault_log.close()
         shutil.rmtree(run_dir, ignore_errors=True)
-    ev["spares"] = (drain_spare.sid, kill_spare.sid)
+    ev["spares"] = (drain_spare.sid, kill_spare.sid, straggle_spare.sid)
     ev["restarts_1"] = restarts
-    return elastic_checks(card, cold, tail.recs, events, flight, logs, ev, donor_rid, device)
+    ev["victim"] = {"rid": victim_rid, "pid": victim_pid}
+    ev["alerts"] = list(alerts.values())
+    return elastic_checks(card, cold, tail.recs, events, flight, logs, ev, donor_rid, device,
+                          journal, bundles)
 
 
 def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict, logs: dict,
-                   ev: dict, donor_rid: str, device: str) -> dict:
+                   ev: dict, donor_rid: str, device: str, journal: list, bundles: dict) -> dict:
     """Phase 12's assertions and prints; returns the K1-K5 launches of all
     its processes."""
     from torchft_tpu_torch.models import flagship_config
@@ -2751,6 +2956,8 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
     order = sorted(by_rid, key=lambda rid: by_rid[rid][0]["t"])
     repl_a = [rid for rid in order if by_rid[rid][0]["group"] == 2][1]
     repl_b = [rid for rid in order if by_rid[rid][0]["group"] == 1][1]
+    victim = ev["victim"]["rid"]
+    repl_c = [rid for rid in order if by_rid[rid][0]["group"] == 0][1]
     survivors_a = [rid for rid in order if by_rid[rid][0]["group"] in (0, 1)
                    and by_rid[rid][0]["t"] < ev["kill"]]
 
@@ -2796,8 +3003,9 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
         raise AssertionError("(a) the donor printed no drain marker")
     exits = [e for e in events if e["event"] == "drain_donor_exit"]
     handoffs = [e for e in events if e["event"] == "drain_handoff"]
-    if [e["exit_code"] for e in exits] != [0] or [e["hot_spare"] for e in handoffs] != [True]:
-        raise AssertionError(f"(a) donor exits {exits}, handoffs {handoffs}")
+    if ([(e["group"], e["exit_code"]) for e in exits] != [("2", 0), ("0", 0)]
+            or [(e["group"], e["hot_spare"]) for e in handoffs] != [("2", True), ("0", True)]):
+        raise AssertionError(f"(a), (c) donor exits {exits}, handoffs {handoffs}")
     # The lighthouse's first quorum after the drain mark leaves the donor out.
     flights = sorted(flight.get("events", []), key=lambda e: e["seq"])
     mark = next(e["seq"] for e in flights if e["kind"] == "replica_drain"
@@ -2847,6 +3055,59 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
             or "healing from replica" not in spare_log or ev["restarts_1"] != 1):
         raise AssertionError("(b) the killed group was not restarted once by the adopted spare")
 
+    # (c) The straggler: an active straggler alert named group 0's
+    # incarnation; the launcher's sentinel emitted one straggler_drain, for
+    # it; the refilled spare adopted group 0 and healed; the sleep stayed
+    # with the victim's pid; no survivor failed a commit; the watcher
+    # journaled a dry-run drain of group 0 and bundled a verdict naming it.
+    alert = next((a for a in ev["alerts"] if a["replica_id"] == victim), None)
+    if alert is None:
+        raise AssertionError(f"(c) no active straggler alert named {victim}: {ev['alerts']}")
+    sd = [e for e in events if e["event"] == "straggler_drain"]
+    if [(e["group"], e["replica_id"]) for e in sd] != [("0", victim)]:
+        raise AssertionError(f"(c) straggler_drain events {sd}, expected one for {victim}")
+    spare_log = logs[f"spare_{ev['spares'][2]}.log"]
+    if ("adopted replica group 0" not in spare_log or "healing from replica" not in spare_log
+            or by_rid[repl_c][0]["log"] != f"spare_{ev['spares'][2]}.log"):
+        raise AssertionError("(c) the straggler's replacement is not the adopted, healed spare")
+    slept = sorted({r["straggle_s"] for r in by_rid[victim] if r["t0"] >= ev["inject"]})
+    if slept != [STRAGGLE_SLEEP_S] or any(r["straggle_s"] for r in by_rid[victim]
+                                          if r["t"] < ev["inject"]):
+        raise AssertionError(f"(c) the victim's sleeps {slept}")
+    if any(r["straggle_s"] for r in by_rid[repl_c]):
+        raise AssertionError("(c) the sleep followed the slot to the replacement")
+    survivors_c = [repl_a, repl_b]  # groups 2 and 1 since (a) and (b)
+    failed = [r for rid in survivors_c for r in by_rid[rid]
+              if not r["committed"] and r["t"] >= ev["inject"]]
+    if failed:
+        raise AssertionError(f"(c) survivors failed commits: {failed}")
+    if len([r for r in by_rid[repl_c] if r["committed"] and r["participants"] == 3]) < \
+            ELASTIC_MERGED:
+        raise AssertionError("(c) the replacement ran fewer than ELASTIC_MERGED merged commits")
+    entries = [e for e in journal if e["kind"] == "straggler"]
+    if not any(e["policy"] == "drain" and e["acted"] is False and e["target"] == "0"
+               for e in entries):
+        raise AssertionError(f"(c) the watcher journaled no dry-run drain of group 0: {journal}")
+    named = [b for b, m in bundles.items() if (m.get("verdict") or {}).get("kind") == "straggler"
+             and m["verdict"].get("replica") == "0"]
+    if not named:
+        raise AssertionError(f"(c) no bundle's verdict names group 0: "
+                             f"{ {b: m.get('verdict', {}).get('kind') for b, m in bundles.items()} }")
+    print(f"  (c) watcher journal: " + "; ".join(
+        f"{e['kind']} -> {e['policy']} {e['target']} (acted {e['acted']}, {e['bundle']})"
+        for e in journal) + f"; bundles {sorted(bundles)}; {named[0]}'s verdict "
+        f"{json.dumps({k: v for k, v in bundles[named[0]]['verdict'].items() if k != 'incident'})}",
+        flush=True)
+
+    # Every step scraped its worker endpoint (monotonic across the
+    # incarnation's reconfigures, lane totals equal to the ring's).
+    sc = sorted(r["scrape"]["ms"] for r in recs)
+    print(f"  worker /metrics: {len(recs)} scrapes, median {sc[len(sc) // 2]:.2f} ms, max "
+          f"{sc[-1]:.2f} ms, {max(r['scrape']['bytes'] for r in recs)} bytes at most; "
+          + ", ".join(f"{rid[:12]} reconfigures {by_rid[rid][0]['reconfigures']:.0f} -> "
+                      f"{by_rid[rid][-1]['reconfigures']:.0f}" for rid in order)
+          + f" ({card})", flush=True)
+
     # Prints: each transition's dead time, configure mode and ms, the
     # drain's handoff, the adoptions' recovery.
     commits = report.commit_timelines(events)
@@ -2879,6 +3140,49 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
           f"the cold restarts of this run: phase 11 "
           f"{', '.join(f'{v:.3f}' for v in cold.get('heal', []))} s (flagship), phase 6 "
           f"{cold.get('kill_heal', float('nan')):.3f} s (conv net) ({card})", flush=True)
+    # (c)'s timeline.
+    raised = alert["raised_ms"] / 1e3
+    to_alert = [r for r in by_rid[victim] if r["t0"] >= ev["inject"] and r["t"] <= raised]
+    drain_ts = sd[0]["ts"]
+    exit_c = next(e for e in exits if e["group"] == "0")
+    handoff_c = next(e for e in handoffs if e["group"] == "0")
+    first_merged_c = min(r["t"] for r in by_rid[repl_c] if r["committed"]
+                         and r["participants"] == 3)
+
+    def med(xs: list) -> float:
+        return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+    def walls(lo: float, hi: float) -> list:
+        """The survivors' merged steps at three participants in [lo, hi]."""
+        return [r["t"] - r["t0"] for rid in survivors_c for r in by_rid[rid]
+                if r["committed"] and r["participants"] == 3 and lo <= r["t0"] and r["t"] <= hi]
+
+    first_merged_b = min(r["t"] for r in by_rid[repl_b] if r["committed"]
+                         and r["participants"] == 3)
+    w_before = walls(first_merged_b, ev["inject"])
+    w_during = walls(ev["inject"], drain_ts)
+    w_after = walls(first_merged_c, float("inf"))
+    dw = report.deadwindow(commits, [(ev["inject"], "0")])
+    busy = [(e["ts"], e.get("step_time_ms_ewma")) for e in events
+            if e["event"] == "step_summary" and e["replica_id"] == victim and e.get("committed")]
+    busy_before = [b for ts, b in busy if ts < ev["inject"]]
+    busy_during = [b for ts, b in busy if ts >= ev["inject"]]
+    print(f"  (c) straggler of group 0 ({victim[:12]}, {STRAGGLE_SLEEP_S} s a step): injection -> "
+          f"alert {raised - ev['inject']:.3f} s, {len(to_alert)} of its steps (ratio "
+          f"{alert.get('ratio')}, step time {alert.get('step_time_ms')} ms; busy EWMA "
+          f"{busy_before[-1] if busy_before else None} ms before, "
+          f"{max(busy_during) if busy_during else None} ms at most after); alert -> "
+          f"straggler_drain {drain_ts - raised:.3f} s; drain notice -> donor exit "
+          f"{exit_c['drain_s']:.3f} s; adoption -> first merged commit "
+          f"{first_merged_c - handoff_c['ts']:.3f} s; merged step wall (median) before "
+          f"{med(w_before):.3f} s ({len(w_before)}), during the straggle {med(w_during):.3f} s "
+          f"({len(w_during)}), after the rotation {med(w_after):.3f} s ({len(w_after)}); "
+          f"obs.report.deadwindow dead time {dw['dead_time_s']:.3f} s ({card})", flush=True)
+    ev.update({"alert_s": raised - ev["inject"], "alert_steps": len(to_alert),
+               "alert_to_drain_s": drain_ts - raised, "donor_exit_c_s": exit_c["drain_s"],
+               "adopt_to_merged_c_s": first_merged_c - handoff_c["ts"],
+               "wall_before_s": med(w_before), "wall_during_s": med(w_during),
+               "wall_after_s": med(w_after), "dead_0": dw["dead_time_s"]})
     print("ELASTIC " + json.dumps({k: v for k, v in ev.items() if k not in ("spares",)}),
           flush=True)
     return launches
@@ -3005,7 +3309,8 @@ def main() -> int:
     # 12. The elastic plane on the flagship.
     print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship config, elastic global batch "
           f"{ELASTIC_GLOBAL_BATCH} (microbatch {ELASTIC_MICROBATCH}); a cooperative drain, "
-          f"then a SIGKILL, each handed to the spare", flush=True)
+          f"then a SIGKILL, each handed to the spare, then a straggler rotated out by the "
+          f"sentinel", flush=True)
     elastic_launches = elastic_phase(card, {"heal": [heal_recovery["kill_b"],
                                                      heal_recovery["kill_c"]],
                                             "kill_heal": kill_heal["recovery_s"]})

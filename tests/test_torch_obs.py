@@ -414,6 +414,21 @@ def test_trace_export_quick_passes() -> None:
     assert summary["ok"] and summary["hop_slices"] > 0 and summary["control_plane_tracks"] > 0
 
 
+def test_trace_export_quick_incident_bundle_round_trip() -> None:
+    """The port's ``--quick`` writes, finalizes and reads back a synthetic
+    kill's incident bundle whose verdict names the victim, as the JAX
+    tool's does; its summary equals the JAX tool's but for the output path."""
+    outs = []
+    for cmd in ([sys.executable, "-m", "torchft_tpu_torch.tools.trace_export"],
+                [sys.executable, os.path.join(REPO, "tools", "trace_export.py")]):
+        r = subprocess.run(cmd + ["--quick", "-o", os.devnull], capture_output=True, text=True,
+                           timeout=120, cwd=REPO, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        assert r.returncode == 0, r.stderr
+        outs.append({k: v for k, v in json.loads(r.stdout).items() if k != "out"})
+    assert outs[0]["incident_bundle_ok"] is True
+    assert outs[0] == outs[1]
+
+
 # -- hops ----------------------------------------------------------------------
 
 

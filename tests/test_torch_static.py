@@ -83,6 +83,25 @@ def test_the_collective_plane_stands_alone() -> None:
         collectives._frame_loads(pickle.dumps(os.system))
 
 
+def test_the_detect_and_act_plane_stands_alone() -> None:
+    """The worker endpoint, incident capture, the watcher, the incident CLI
+    and the launcher are scanned and import nothing of JAX or the JAX
+    package (``obs/incident.py`` and ``obs/watcher.py`` are the port's own
+    copies of pure-Python JAX modules); their entry points are exported."""
+    scanned = set(_port_files())
+    for rel in ("obs/prom.py", "obs/incident.py", "obs/watcher.py", "tools/incident.py",
+                "launch.py", "examples/_common.py"):
+        path = os.path.join(REPO, "torchft_tpu_torch", rel)
+        assert path in scanned, rel
+        assert not set(_imported_roots(path)) & FORBIDDEN, rel
+        assert "torchft_tpu." not in open(path).read().replace("torchft_tpu_torch", ""), rel
+    from torchft_tpu_torch import launch, obs
+    from torchft_tpu_torch.obs import watcher
+
+    assert "fetch_alerts" in launch.__all__ and "WorkerMetrics" in obs.__all__
+    assert set(watcher.__all__) == {"IncidentWatcher", "POLICY_BY_KIND", "main"}
+
+
 def test_every_port_module_imports_without_cuda() -> None:
     import torchft_tpu_torch
 
@@ -92,6 +111,8 @@ def test_every_port_module_imports_without_cuda() -> None:
     ]
     assert "torchft_tpu_torch.ops.attention" in names
     assert "torchft_tpu_torch.drain.watcher" in names
+    for name in ("obs.prom", "obs.incident", "obs.watcher", "tools.incident"):
+        assert f"torchft_tpu_torch.{name}" in names, name
     for name in names:
         importlib.import_module(name)
 

@@ -1,15 +1,17 @@
 """Shared mechanics of the example trainers: the launcher's environment
-contract (with the hot-spare branch), the Manager wiring (with the drain
-watcher), when a train loop is done (a drain among the exits), and the
-FINAL digest.  Each example keeps its own train loop inline.
+contract (with the hot-spare branch), the straggler injection, the Manager
+wiring (with the drain watcher), when a train loop is done (a drain among
+the exits), and the FINAL digest.  Each example keeps its own train loop
+inline.
 
-The counterpart of ``examples/_common.py``, without the straggler
-injection.
+The counterpart of ``examples/_common.py`` (whose JAX platform pin and
+compile cache have no counterpart here).
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 import time
 from datetime import timedelta
@@ -59,6 +61,34 @@ def replica_env(device: Optional[Any] = None) -> Tuple[int, int]:
         int(gid or 0),
         int(os.environ.get("NUM_REPLICA_GROUPS", 2)),
     )
+
+
+def maybe_straggle(replica_group: int) -> float:
+    """Fault injection of the straggler scenario: where
+    ``<TPUFT_STRAGGLE_DIR>/straggle_<group>.json`` names this process's pid,
+    the step sleeps its ``sleep_s`` more, a degraded-but-alive host (the
+    failure no heartbeat timeout catches).  Call it in the busy part of the
+    step, outside every FT span (after the backward, before the averager),
+    or the sentinel's busy-time EWMA does not see it.  The notice must name
+    a pid: a replacement adopting the group id is a healthy host and does
+    not inherit the slowness.  Returns the seconds slept (0: none)."""
+    d = os.environ.get("TPUFT_STRAGGLE_DIR")
+    if not d:
+        return 0.0
+    try:
+        with open(os.path.join(d, f"straggle_{replica_group}.json"), "r",
+                  encoding="utf-8") as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return 0.0
+    pid = data.get("pid")
+    # A pid-less notice would pin the slowness to every incarnation.
+    if pid is None or int(pid) != os.getpid():
+        return 0.0
+    sleep_s = float(data.get("sleep_s", 0.0))
+    if sleep_s > 0.0:
+        time.sleep(sleep_s)
+    return sleep_s
 
 
 def make_manager(

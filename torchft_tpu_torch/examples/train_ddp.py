@@ -66,6 +66,7 @@ def main() -> None:
     from torchft_tpu_torch.examples._common import (
         TrainGate,
         make_manager,
+        maybe_straggle,
         params_digest,
         replica_env,
     )
@@ -111,6 +112,9 @@ def main() -> None:
             sel = torch.tensor(idx, device=dev)
             loss = convnet_loss(model, dataset_x[sel], dataset_y[sel])
             loss.backward()
+            # The straggler scenario's injection point (a no-op outside it):
+            # a sleep here is slow compute on this host.
+            maybe_straggle(replica_group)
             averager.allreduce([p.grad for p in params])
             committed = opt.step()
             gate.note_commit(committed)

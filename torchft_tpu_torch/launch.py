@@ -1,12 +1,12 @@
 """Replica-group launcher and restart supervisor.
 
-The counterpart of ``torchft_tpu/launch.py``, without the straggler
-sentinel, the incident watcher and the JobSet spec.  ``Launcher`` starts one
-process per replica group with the environment contract every group reads
-(``REPLICA_GROUP_ID``, ``NUM_REPLICA_GROUPS``, ``TPUFT_LIGHTHOUSE``,
-``MASTER_ADDR``, ``TPUFT_DRAIN_DIR``), optionally runs the native lighthouse
-in-process, and restarts a group that died: the new process is a new
-incarnation that rejoins through the lighthouse and heals from a live peer.
+The counterpart of ``torchft_tpu/launch.py``, without the JobSet spec.
+``Launcher`` starts one process per replica group with the environment
+contract every group reads (``REPLICA_GROUP_ID``, ``NUM_REPLICA_GROUPS``,
+``TPUFT_LIGHTHOUSE``, ``MASTER_ADDR``, ``TPUFT_DRAIN_DIR``), optionally
+runs the native lighthouse in-process, and restarts a group that died: the
+new process is a new incarnation that rejoins through the lighthouse and
+heals from a live peer.
 A dead or killed group is evicted at the lighthouse once per incarnation,
 so the survivors' next quorum does not wait out the heartbeat timeout, and
 a group that dies within seconds of its start is restarted with
@@ -20,6 +20,15 @@ writing its go-file, and the pool is refilled.  Cooperative drain
 directory): the group's id goes to a replacement at once while the donor,
 told through its pid-pinned notice file, finishes its step and exits;
 past its deadline it is sent SIGTERM, then SIGKILL.
+
+Detect and act, with an embedded lighthouse: the straggler sentinel
+(``straggler_auto_drain``, ``TPUFT_STRAGGLER_AUTO_DRAIN=1``) rotates a
+group that the lighthouse's ``/alerts.json`` names a straggler out
+through :meth:`Launcher.drain`; the incident watcher (``incident_watcher``,
+``--incident-watcher``, ``TPUFT_INCIDENT_WATCHER=1``) captures an evidence
+bundle for each trigger on ``/incident.json`` and journals what it
+recommends to ``watcher_journal.jsonl`` in the log directory, acting (a
+drain) only with ``watcher_act`` (``--watcher-act``, ``TPUFT_WATCHER_ACT=1``).
 
 CLI::
 
@@ -59,7 +68,27 @@ logger = logging.getLogger(__name__)
 # and restarted with exponential backoff rather than at once.
 _MIN_UPTIME_S = 5.0
 
-__all__ = ["Launcher", "main"]
+__all__ = ["Launcher", "fetch_alerts", "main"]
+
+
+def fetch_alerts(http_address: str, timeout: float = 2.0) -> Optional[dict]:
+    """The lighthouse's alert feed (``GET /alerts.json``) from a
+    ``host:port`` HTTP address, or None on any failure: the callers poll
+    inside supervision or measurement loops, where a missed fetch means
+    "later".  Dials 127.0.0.1 at the advertised port (an embedded
+    lighthouse binds loopback, and the advertised host name may not
+    resolve)."""
+    import urllib.request
+
+    if not http_address:
+        return None
+    port = http_address.rsplit(":", 1)[-1]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/alerts.json",
+                                    timeout=timeout) as resp:
+            return json.loads(resp.read().decode())
+    except Exception:  # noqa: BLE001 - see the docstring
+        return None
 
 
 @dataclass
@@ -128,6 +157,18 @@ class Launcher:
         cwd: working directory of the groups.
         spares: hot-spare pool size.  The command must resolve its group
             id through the examples' ``replica_env`` contract.
+        straggler_auto_drain: act on the lighthouse's straggler alerts
+            (embedded lighthouse only): :meth:`supervise_once` polls
+            ``/alerts.json`` and rotates a confirmed straggler out through
+            :meth:`drain`, so a degraded-but-alive host costs one handoff
+            instead of slowing every synchronous step for the rest of the
+            job.  Default: ``TPUFT_STRAGGLER_AUTO_DRAIN=1``.
+        incident_watcher: run the incident watcher (embedded lighthouse
+            only): bundles and ``watcher_journal.jsonl`` in the log
+            directory.  Default: ``TPUFT_INCIDENT_WATCHER=1``.
+        watcher_act: let the watcher execute its one actionable policy,
+            a drain through :meth:`drain`; dry-run otherwise.  Default:
+            ``TPUFT_WATCHER_ACT=1``.
     """
 
     def __init__(
@@ -143,6 +184,9 @@ class Launcher:
         env: Optional[Dict[str, Optional[str]]] = None,
         cwd: Optional[str] = None,
         spares: int = 0,
+        straggler_auto_drain: Optional[bool] = None,
+        incident_watcher: Optional[bool] = None,
+        watcher_act: Optional[bool] = None,
     ) -> None:
         self._cmd = list(cmd)
         self._num_groups = num_groups
@@ -158,6 +202,18 @@ class Launcher:
         self._spare_fast_deaths = 0
         self._spare_pool_disabled = False
         self._draining: List[_Draining] = []
+        if straggler_auto_drain is None:
+            straggler_auto_drain = os.environ.get("TPUFT_STRAGGLER_AUTO_DRAIN", "") == "1"
+        self._straggler_auto_drain = straggler_auto_drain
+        self._sentinel_last_poll = 0.0
+        self._handled_alerts: set = set()
+        if incident_watcher is None:
+            incident_watcher = os.environ.get("TPUFT_INCIDENT_WATCHER", "") == "1"
+        if watcher_act is None:
+            watcher_act = os.environ.get("TPUFT_WATCHER_ACT", "") == "1"
+        self._incident_watcher_enabled = incident_watcher
+        self._watcher_act = watcher_act
+        self._watcher = None  # built at the first supervise pass
         self.lighthouse_http_address = ""
         if lighthouse == "embed":
             from torchft_tpu_torch._native import LighthouseServer
@@ -442,7 +498,97 @@ class Launcher:
             if spare.proc.poll() is not None:
                 self._spares.remove(spare)
                 self._note_spare_death(spare)
+        self._sentinel_once()
+        self._watcher_once()
         return restarted
+
+    def _drain_or_refill(self, group: int) -> None:
+        """:meth:`drain`, or where the donor already left (the lighthouse's
+        own drain mark aborts its quorum joins, and a cooperative Manager
+        exits cleanly on that) a replacement for the slot."""
+        try:
+            self.drain(group, deadline_s=30.0)
+        except RuntimeError:
+            g = self._groups[group]
+            if g.proc is None or g.proc.poll() is not None:
+                self.spawn(group)
+
+    def _sentinel_once(self) -> None:
+        """Acts on the lighthouse's straggler alerts (``/alerts.json``,
+        polled at most once a second): an active, unhandled ``straggler``
+        alert for a group of this supervisor rotates it out through the
+        cooperative drain.  The lighthouse detects (it sees every group's
+        pace), the supervisor acts (it owns the spares).  While a configured
+        spare pool is empty the alert is left for the next poll: rotating
+        without a warm replacement trades a slow step for a cold start."""
+        if not self._straggler_auto_drain or not self.lighthouse_http_address:
+            return
+        now = time.monotonic()
+        if now - self._sentinel_last_poll < 1.0:
+            return
+        self._sentinel_last_poll = now
+        alerts = fetch_alerts(self.lighthouse_http_address)
+        if alerts is None:
+            return  # a missed poll; the next one retries
+        for alert in alerts.get("alerts", []):
+            if not alert.get("active") or alert.get("kind") != "straggler":
+                continue
+            if alert.get("id") in self._handled_alerts:
+                continue
+            try:
+                group = int(str(alert.get("replica_id", "")).split(":", 1)[0])
+            except ValueError:
+                continue
+            if group not in self._groups:
+                continue
+            g = self._groups[group]
+            # The alert names an incarnation; the slot may hold a younger
+            # process (the alerted one died and was replaced before its
+            # alert resolved), which must not be drained over it.  The
+            # clocks differ (the alert's epoch ms, the spawn's monotonic
+            # time), so compare ages, with 1 s of slack for the skew.
+            alert_age = time.time() - float(alert.get("raised_ms", 0)) / 1e3
+            proc_age = now - g.spawned_at if g.proc is not None else float("inf")
+            if proc_age + 1.0 < alert_age:
+                self._handled_alerts.add(alert.get("id"))  # stale: never act
+                continue
+            if self._spares_target > 0 and self.spare_count() == 0:
+                continue  # the pool is refilling; retried at the next poll
+            self._handled_alerts.add(alert.get("id"))
+            logger.warning("group %d (%s) confirmed straggler (%.2fx median, step time %.0f ms); "
+                           "rotating out via cooperative drain", group, alert.get("replica_id"),
+                           float(alert.get("ratio", 0.0)), float(alert.get("step_time_ms", 0.0)))
+            self._metrics.emit("straggler_drain", group=str(group),
+                               replica_id=alert.get("replica_id"), alert_id=alert.get("id"),
+                               ratio=alert.get("ratio"), step_time_ms=alert.get("step_time_ms"))
+            self._drain_or_refill(group)
+
+    def _watcher_once(self) -> None:
+        """One incident-watcher pass (built at the first call, throttled by
+        the watcher itself): bundles and ``watcher_journal.jsonl`` in the
+        log directory; its one action, a drain, goes through
+        :meth:`drain`, so the departing group gets a replacement.  A
+        failing pass is logged: the watcher never takes the run down."""
+        if not self._incident_watcher_enabled or not self.lighthouse_http_address:
+            return
+        try:
+            if self._watcher is None:
+                from torchft_tpu_torch.obs.watcher import IncidentWatcher
+
+                def drain_group(target: str) -> None:
+                    group = int(target)
+                    if group not in self._groups:
+                        raise ValueError(f"unknown group {target}")
+                    self._drain_or_refill(group)
+
+                metrics_path = self._base_env.get("TPUFT_METRICS_PATH")
+                self._watcher = IncidentWatcher(
+                    [self.lighthouse_http_address], self._work_dir, act=self._watcher_act,
+                    metrics_paths=[metrics_path] if metrics_path else [],
+                    drain_cb=drain_group)
+            self._watcher.poll_once()
+        except Exception:  # noqa: BLE001 - see the docstring
+            logger.exception("incident watcher poll failed")
 
     def _operator_drains(self) -> None:
         """A pid-less ``drain_<g>.json`` in the drain directory (an
@@ -591,6 +737,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="hot spares: started processes that adopt a dead or draining "
                         "group's id (they skip the start and the device's init)")
     parser.add_argument("--log-dir", default=None)
+    parser.add_argument("--incident-watcher", action="store_true",
+                        help="run the incident watcher against the embedded lighthouse: "
+                        "bundles and watcher_journal.jsonl in the log dir; dry-run unless "
+                        "--watcher-act (also TPUFT_INCIDENT_WATCHER=1)")
+    parser.add_argument("--watcher-act", action="store_true",
+                        help="let the watcher execute its one actionable policy (a "
+                        "cooperative drain); the rest stays dry-run (also TPUFT_WATCHER_ACT=1)")
     parser.add_argument("cmd", nargs=argparse.REMAINDER,
                         help="-- <command of one replica group>")
     args = parser.parse_args(argv)
@@ -602,6 +755,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         cmd, args.groups, lighthouse=args.lighthouse, max_restarts=args.max_restarts,
         min_replicas=args.min_replicas, join_timeout_ms=args.join_timeout_ms,
         log_dir=args.log_dir, spares=args.spares,
+        incident_watcher=args.incident_watcher or None, watcher_act=args.watcher_act or None,
     )
     with launcher:
         print(f"[launch] {args.groups} groups, lighthouse="

@@ -57,11 +57,16 @@ lighthouse heartbeats (``set_status``) and the ledger's counters fields
 stream (captured at ``start_quorum``), so the HTTP transport's device copy
 of the state is ordered before the step's optimizer update; the train
 thread's wait for that call is a ``snapshot_wait`` span (charged), the
-transport's background flatten the overlapped ``snapshot``.
+transport's background flatten the overlapped ``snapshot``.  With
+``TPUFT_WORKER_METRICS_PORT`` set the Manager serves the worker
+``/metrics`` endpoint (:attr:`Manager.worker_metrics`, the JAX Manager's
+series), and with ``TPUFT_HOP_DUMP_DIR`` set it leaves the ring's hop
+timeline there at shutdown.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
@@ -88,6 +93,13 @@ from torchft_tpu_torch.ha.backoff import DecorrelatedBackoff
 from torchft_tpu_torch.metrics import MetricsLogger
 from torchft_tpu_torch.obs.flight import mint_trace_id
 from torchft_tpu_torch.obs.ledger import StepLedger
+from torchft_tpu_torch.obs.prom import (
+    HOP_BYTES_BOUNDS,
+    HOP_LATENCY_BOUNDS,
+    WorkerMetrics,
+    bucketize,
+    render_histogram_counts,
+)
 from torchft_tpu_torch.obs.spans import SpanTracker, StepTimeStats
 
 MANAGER_ADDR_KEY = "manager_addr"
@@ -317,6 +329,9 @@ class Manager:
         self._ar_gbps = 0.0
         self._d2h_bytes = 0
         self._h2d_bytes = 0
+        # Lifetime transfer totals (the worker endpoint's counters).
+        self._d2h_bytes_total = 0
+        self._h2d_bytes_total = 0
         self._summary_extra: Dict[str, object] = {}
         # Per-neighbour link health from the ring's hop deltas (heartbeat
         # fields 11-13).
@@ -351,6 +366,23 @@ class Manager:
         if self._ec is not None:
             checkpoint_transport.attach_shard_store(self._ec.store)
             checkpoint_transport.set_snapshot_hook(self._ec.on_snapshot)
+
+        # The worker /metrics endpoint (obs/prom.py): step pace, transfer
+        # totals, the ring's monotonic lane and hop counters, the link-health
+        # EWMAs, the ledger, and the subsystems' sections (the semi-sync
+        # plane's tpuft_semisync_*).  The provider runs at scrape time, on
+        # the HTTP thread, and reads host counters only.  serve() is a no-op
+        # unless TPUFT_WORKER_METRICS_PORT (or the deprecated
+        # TPUFT_SEMISYNC_METRICS_PORT) is set.
+        self._worker_metrics = WorkerMetrics(replica_id=self._replica_id,
+                                             provider=self._worker_metrics_snapshot)
+        # The hop histograms' cumulative buckets, per (tier, lane), folded at
+        # scrape time from the ring's retained hop timeline.
+        self._hop_hist: Dict[tuple, dict] = {}
+        self._hop_hist_last_ts = 0.0
+        self._hop_hist_lock = threading.Lock()
+        self._worker_metrics.add_section(self._render_hop_histograms)
+        self._worker_metrics.serve()
 
     def _dial_peer_transport(self, manager_addr: str) -> str:
         """A peer manager's checkpoint-transport URL for this local rank
@@ -862,12 +894,14 @@ class Manager:
         (``d2h_bytes`` on its ``step_summary``)."""
         with self._ar_lock:
             self._d2h_bytes += int(nbytes)
+            self._d2h_bytes_total += int(nbytes)
 
     def note_h2d(self, nbytes: int) -> None:
         """Adds bytes copied back onto the device to the step in flight
         (``h2d_bytes`` on its ``step_summary``)."""
         with self._ar_lock:
             self._h2d_bytes += int(nbytes)
+            self._h2d_bytes_total += int(nbytes)
 
     def note_summary_fields(self, **fields: object) -> None:
         """Merges fields into the step in flight's ``step_summary``."""
@@ -1202,6 +1236,179 @@ class Manager:
         """The goodput ledger's cumulative cause totals."""
         return self._ledger
 
+    # -- the worker /metrics endpoint -------------------------------------------
+
+    @property
+    def worker_metrics(self) -> WorkerMetrics:
+        """The worker ``/metrics`` endpoint; subsystems with an exposition
+        of their own (the semi-sync engine) add a section here instead of
+        opening a second port."""
+        return self._worker_metrics
+
+    def _worker_metrics_snapshot(self) -> list:
+        """The endpoint's series, read at scrape time (the JAX Manager's
+        names, kinds, labels and help strings)."""
+        series: list = []
+
+        def g(name, help_, value, kind="gauge", labels=()):
+            series.append((name, kind, help_, labels, value))
+
+        g("tpuft_worker_step", "current training step", self._step)
+        g("tpuft_worker_step_time_ms_ewma", "rolling per-step busy-time EWMA, ms",
+          self._step_stats.snapshot()["ewma"])
+        with self._ar_lock:
+            d2h, h2d = self._d2h_bytes_total, self._h2d_bytes_total
+        g("tpuft_worker_d2h_bytes_total", "device->host fetch bytes (lifetime)", d2h,
+          kind="counter")
+        g("tpuft_worker_h2d_bytes_total", "host->device scatter-back bytes (lifetime)", h2d,
+          kind="counter")
+        lane_totals = getattr(self._collective, "lane_totals", None)
+        lt = None
+        if callable(lane_totals):
+            try:
+                lt = lane_totals()
+            except Exception:  # noqa: BLE001 - telemetry only
+                lt = None
+        if lt:
+            g("tpuft_worker_reconfigures_total", "collective reconfigurations banked",
+              lt["reconfigures"], kind="counter")
+            # Metric-major, so each family renders contiguous.
+            tiers = sorted((lt.get("tiers") or {}).items())
+            for tname, t in tiers:
+                g("tpuft_worker_lane_sent_bytes_total",
+                  "ring wire bytes sent per tier (monotonic across reconfigures — banked at "
+                  "the source)", t["sent_bytes"], kind="counter", labels=(("tier", tname),))
+            for tname, t in tiers:
+                g("tpuft_worker_lane_recv_bytes_total",
+                  "ring wire bytes received per tier (monotonic)", t["recv_bytes"],
+                  kind="counter", labels=(("tier", tname),))
+            hop_tiers = sorted((lt.get("hops") or {}).items())
+            for tname, h in hop_tiers:
+                g("tpuft_worker_hops_total", "ring hops per tier (monotonic)", h["hops"],
+                  kind="counter", labels=(("tier", tname),))
+            for key, metric in (("send_block_s", "tpuft_worker_hop_send_block_seconds_total"),
+                                ("recv_wait_s", "tpuft_worker_hop_recv_wait_seconds_total"),
+                                ("combine_s", "tpuft_worker_hop_combine_seconds_total"),
+                                ("shape_s", "tpuft_worker_hop_shaping_seconds_total")):
+                for tname, h in hop_tiers:
+                    g(metric, "per-hop stall seconds per tier (monotonic)",
+                      round(float(h.get(key, 0.0)), 6), kind="counter",
+                      labels=(("tier", tname),))
+        ew = self._link_ewma
+        if ew:
+            g("tpuft_link_recv_gbps", "inbound ring-edge goodput EWMA (worker-side view)",
+              round(ew.get("recv_gbps", 0.0), 4))
+            g("tpuft_link_send_gbps", "outbound ring-edge goodput EWMA (worker-side view)",
+              round(ew.get("send_gbps", 0.0), 4))
+            g("tpuft_link_hop_rtt_ms", "mean per-hop recv-wait, ms",
+              round(ew.get("rtt_ms", 0.0), 3))
+        led = self._ledger.snapshot()
+        if led["steps"]:
+            g("tpuft_worker_goodput_ratio",
+              "cumulative productive fraction of accounted step wall",
+              led["goodput_ratio"] if led["goodput_ratio"] is not None else -1.0)
+            g("tpuft_worker_compute_seconds_total",
+              "productive seconds accounted by the goodput ledger", led["compute_s"],
+              kind="counter")
+            for cause, v in sorted(led["lost_s"].items()):
+                g("tpuft_worker_lost_seconds_total",
+                  "lost seconds per ledger cause (pinned taxonomy, obs/ledger.py CAUSES)",
+                  v, kind="counter", labels=(("cause", cause),))
+        return series
+
+    def _render_hop_histograms(self) -> str:
+        """The endpoint's hop latency and wire-byte histograms per ring
+        tier (and bytes per lane), folded from the ring's retained hop
+        timeline.  Monotonic across scrapes over that sliding ring: each
+        scrape folds only the records newer than the last scrape's
+        high-water timestamp into cumulative buckets (records that fall off
+        the ring between scrapes are missed, never subtracted)."""
+        hop_records = getattr(self._collective, "hop_records", None)
+        if not callable(hop_records):
+            return ""
+        try:
+            recs = hop_records()
+        except Exception:  # noqa: BLE001 - telemetry only
+            return ""
+        with self._hop_hist_lock:
+            last_ts = self._hop_hist_last_ts
+            for r in recs:
+                ts = float(r.get("ts", 0.0))
+                if ts <= last_ts:
+                    continue
+                # A record without a lane field folds into lane 0.
+                slot = self._hop_hist.setdefault(
+                    (int(r.get("tier", 0)), int(r.get("lane", 0))),
+                    {"lat": [0] * (len(HOP_LATENCY_BOUNDS) + 1), "lat_sum": 0.0,
+                     "bytes": [0] * (len(HOP_BYTES_BOUNDS) + 1), "bytes_sum": 0.0})
+                lat = (float(r.get("send_s", 0.0)) + float(r.get("recv_s", 0.0))
+                       + float(r.get("comb_s", 0.0)))
+                _, dsum = bucketize(HOP_LATENCY_BOUNDS, (lat,), slot["lat"])
+                slot["lat_sum"] += dsum
+                _, dsum = bucketize(HOP_BYTES_BOUNDS, (float(r.get("nbytes", 0)),),
+                                    slot["bytes"])
+                slot["bytes_sum"] += dsum
+                self._hop_hist_last_ts = max(self._hop_hist_last_ts, ts)
+            if not self._hop_hist:
+                return ""
+            # The tier families sum their lanes (sums of monotonic buckets
+            # stay monotonic); the lane family has one series a slot.
+            lat_series, byte_series, lane_byte_series = [], [], []
+            for tier in sorted({t for t, _ in self._hop_hist}):
+                labels = (("replica", self._replica_id), ("tier", str(tier)))
+                lat = [0] * (len(HOP_LATENCY_BOUNDS) + 1)
+                byts = [0] * (len(HOP_BYTES_BOUNDS) + 1)
+                lat_sum = bytes_sum = 0.0
+                for (t, _lane), slot in self._hop_hist.items():
+                    if t != tier:
+                        continue
+                    lat = [a + b for a, b in zip(lat, slot["lat"])]
+                    lat_sum += slot["lat_sum"]
+                    byts = [a + b for a, b in zip(byts, slot["bytes"])]
+                    bytes_sum += slot["bytes_sum"]
+                lat_series.append((labels, lat, lat_sum))
+                byte_series.append((labels, byts, bytes_sum))
+            for tier, lane in sorted(self._hop_hist):
+                slot = self._hop_hist[(tier, lane)]
+                lane_byte_series.append(((("replica", self._replica_id), ("tier", str(tier)),
+                                          ("lane", str(lane))),
+                                         list(slot["bytes"]), slot["bytes_sum"]))
+        out = render_histogram_counts(
+            "tpuft_worker_hop_latency_seconds",
+            "per-hop wall time (send-block + recv-wait + combine) from the retained hop "
+            "timeline, per ring tier (sampled per TPUFT_HOP_SAMPLE; monotonic across scrapes)",
+            HOP_LATENCY_BOUNDS, lat_series)
+        out += render_histogram_counts(
+            "tpuft_worker_hop_wire_bytes",
+            "per-hop wire payload bytes from the retained hop timeline, per ring tier "
+            "(monotonic across scrapes)",
+            HOP_BYTES_BOUNDS, byte_series)
+        out += render_histogram_counts(
+            "tpuft_hop_bytes",
+            "per-hop wire payload bytes split per ring tier AND lane, from the retained hop "
+            "timeline (monotonic across scrapes) — the lane split exposes striped-ring byte "
+            "skew the per-tier histogram averages away",
+            HOP_BYTES_BOUNDS, lane_byte_series)
+        return out
+
+    def _dump_hops(self) -> None:
+        """Writes the ring's retained hop timeline to
+        ``$TPUFT_HOP_DUMP_DIR/hops_<replica_id>.json`` (best effort: the dump
+        never fails shutdown).  The records carry wall-clock ``ts``, so the
+        trace export and the incident bundles align them with the stream."""
+        dump_dir = os.environ.get("TPUFT_HOP_DUMP_DIR", "")
+        hop_records = getattr(self._collective, "hop_records", None)
+        if not dump_dir or not callable(hop_records):
+            return
+        try:
+            records = hop_records()
+            path = os.path.join(
+                dump_dir, f"hops_{self._replica_id.replace('/', '_').replace(':', '_')}.json")
+            with open(path, "w") as f:
+                json.dump({"replica_id": self._replica_id, "records": records}, f)
+        except Exception:  # noqa: BLE001 - see the docstring
+            pass
+
     @property
     def timeout(self) -> timedelta:
         """The deadline of every data-plane wait."""
@@ -1233,6 +1440,8 @@ class Manager:
         if self._drain_watcher is not None:
             self._drain_watcher.stop()
             self._drain_watcher = None
+        self._dump_hops()
+        self._worker_metrics.close()
         self._executor.shutdown(wait=True)
         self._metrics.close()
         if self._checkpoint_transport is not None:

@@ -1,8 +1,7 @@
-"""Observability: step-scoped tracing, goodput attribution, trace export.
+"""Observability: step-scoped tracing, goodput attribution, trace export,
+the worker ``/metrics`` endpoint, incident capture and the watcher.
 
-The port's copy of ``torchft_tpu/obs`` (the producers and consumers; the
-worker ``/metrics`` exposition, incident capture and the watcher are not
-ported):
+The port's copy of ``torchft_tpu/obs``:
 
 - :mod:`torchft_tpu_torch.obs.spans` — the producer side: ``SpanTracker``
   wraps each Manager and averager phase in a span and emits one
@@ -22,10 +21,25 @@ ported):
   Chrome/Perfetto trace.  CLI::
 
       python -m torchft_tpu_torch.tools.trace_export metrics.jsonl [...]
+
+- :mod:`torchft_tpu_torch.obs.prom` — ``WorkerMetrics``, one pull-based
+  ``/metrics`` per worker (``TPUFT_WORKER_METRICS_PORT`` / ``_BIND``) the
+  Manager serves, and the histogram helpers.
+- :mod:`torchft_tpu_torch.obs.incident` — incident bundles from the
+  lighthouse's ``/incident.json`` triggers, and their verdicts.  CLI::
+
+      python -m torchft_tpu_torch.tools.incident capture|verdict ...
+
+- :mod:`torchft_tpu_torch.obs.watcher` — the incident watcher: bundles,
+  flap-guarded recommendations journaled to ``watcher_journal.jsonl``, a
+  drain only when told to act.  CLI::
+
+      python -m torchft_tpu_torch.obs.watcher --lighthouse <http address>
 """
 
 from torchft_tpu_torch.obs.flight import FLIGHT_EVENTS, mint_trace_id
 from torchft_tpu_torch.obs.ledger import CAUSES, LOST_CAUSES, StepLedger
+from torchft_tpu_torch.obs.prom import WorkerMetrics
 from torchft_tpu_torch.obs.spans import SpanTracker, StepTimeStats
 
 __all__ = [
@@ -35,5 +49,6 @@ __all__ = [
     "SpanTracker",
     "StepLedger",
     "StepTimeStats",
+    "WorkerMetrics",
     "mint_trace_id",
 ]

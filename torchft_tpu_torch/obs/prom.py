@@ -1,0 +1,285 @@
+"""Unified worker-side Prometheus exposition: ONE ``/metrics`` per worker.
+
+The lighthouse's native ``GET /metrics`` covers the control plane; this is
+the worker's own endpoint, covering everything a single replica group can
+report about itself: step pace, device<->host transfer totals, the ring
+data plane's lane/hop counters (monotonic across reconfigures — sourced
+from ``TCPCollective.lane_totals()``, which banks each generation's
+counters at abort so scrapes never see a counter go backwards), and the
+per-neighbor link-health estimates the slow-link sentinel scores.
+
+Design: the endpoint holds no per-step state of its own — a ``provider``
+callback (the Manager's ``_worker_metrics_snapshot``) is invoked at SCRAPE
+time and returns the series list, so an unscraped endpoint costs the train
+loop nothing.  Subsystems with their own exposition (the semisync plane's
+``tpuft_semisync_*``) register a render callable via :meth:`add_section`
+instead of opening a second port — the fold that retires the
+semisync-only exporter.
+
+Ports: ``TPUFT_WORKER_METRICS_PORT`` (0 = ephemeral).  The pre-unification
+``TPUFT_SEMISYNC_METRICS_PORT`` is honored as a DEPRECATED alias (one
+warning per process) so existing deployments keep scraping.
+
+The counterpart of ``torchft_tpu/obs/prom.py``: the same series, bucket
+bounds, text and knobs, served by the port's ``http.py``.  A provider reads
+host counters only: it never touches a CUDA tensor or synchronises a
+stream, since it runs on the HTTP thread.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
+
+__all__ = [
+    "WorkerMetrics",
+    "bucketize",
+    "render_histogram",
+    "render_histogram_counts",
+    "HOP_LATENCY_BOUNDS",
+    "HOP_BYTES_BOUNDS",
+    "TPUFT_WORKER_METRICS_PORT_ENV",
+    "TPUFT_WORKER_METRICS_BIND_ENV",
+]
+
+TPUFT_WORKER_METRICS_PORT_ENV = "TPUFT_WORKER_METRICS_PORT"
+TPUFT_WORKER_METRICS_BIND_ENV = "TPUFT_WORKER_METRICS_BIND"
+# Deprecated aliases (the semisync-only exporter this endpoint absorbed).
+_LEGACY_PORT_ENV = "TPUFT_SEMISYNC_METRICS_PORT"
+_LEGACY_BIND_ENV = "TPUFT_SEMISYNC_METRICS_BIND"
+
+# One series: (name, kind, help, labels, value).  ``labels`` is a list of
+# (key, value) pairs; the replica label is added by the renderer.
+Series = Tuple[str, str, str, Sequence[Tuple[str, str]], float]
+
+_alias_warned = False
+
+
+def _prom_escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+# Shared bucket bounds for the worker-side hop histograms (docs/wire.md
+# "Worker /metrics"): latency covers a loopback hop (~100 µs) to a
+# shaped-WAN hop (~10 s); bytes cover a control frame to a whole-bucket
+# stripe.  Built at SCRAPE time from the ring engines' retained hop
+# timeline (TCPCollective.hop_records) — no new recording cost on the
+# data path.
+HOP_LATENCY_BOUNDS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+HOP_BYTES_BOUNDS = (
+    1024.0, 4096.0, 16384.0, 65536.0, 262144.0, 1048576.0, 4194304.0,
+    16777216.0, 67108864.0, 268435456.0,
+)
+
+
+def bucketize(
+    bounds: Sequence[float], values: Sequence[float],
+    counts: Optional[List[int]] = None,
+) -> Tuple[List[int], float]:
+    """Folds raw observations into per-bucket (non-cumulative) counts over
+    ``bounds`` (+Inf slot last); pass an existing ``counts`` list to
+    ACCUMULATE — the monotonic-histogram building block.  Returns
+    (counts, sum-of-values-added)."""
+    if counts is None:
+        counts = [0] * (len(bounds) + 1)
+    total = 0.0
+    for v in values:
+        total += float(v)
+        for i, b in enumerate(bounds):
+            if v <= b:
+                counts[i] += 1
+                break
+        else:
+            counts[len(bounds)] += 1
+    return counts, total
+
+
+def render_histogram_counts(
+    name: str,
+    help_: str,
+    bounds: Sequence[float],
+    series: Sequence[Tuple[Sequence[Tuple[str, str]], Sequence[int], float]],
+) -> str:
+    """Prometheus text-format histogram family from per-bucket counts
+    (``bucketize`` output): HELP/TYPE once, then cumulative
+    ``_bucket{...,le="..."}`` / ``_sum`` / ``_count`` per (labels, counts,
+    sum) triple.  The worker endpoint's counterpart of the native
+    ``ExposeHistogram`` (flight.h).  Callers exposing these as TYPE
+    histogram must feed MONOTONIC counts (accumulate across scrapes) —
+    Prometheus reads any decrease as a counter reset."""
+    def le_value(b: float) -> str:
+        # The label must ROUND-TRIP to the exact bound bucketize compared
+        # against: %g truncates to 6 significant digits, which renders
+        # 1048576 as "1.04858e+06" — a boundary that does not exist, so
+        # quantile interpolation and le-matching rules silently break.
+        return str(int(b)) if float(b).is_integer() else repr(float(b))
+
+    lines: List[str] = [f"# HELP {name} {help_}", f"# TYPE {name} histogram"]
+    for labels, counts, total in series:
+        pairs = [f'{k}="{_prom_escape(str(v))}"' for k, v in labels]
+        prefix = ",".join(pairs)
+        cum = 0
+        for i, b in enumerate(bounds):
+            cum += counts[i]
+            le = f'le="{le_value(b)}"'
+            label = "{" + (prefix + "," if prefix else "") + le + "}"
+            lines.append(f"{name}_bucket{label} {cum}")
+        cum += counts[len(bounds)]
+        label = "{" + (prefix + "," if prefix else "") + 'le="+Inf"' + "}"
+        lines.append(f"{name}_bucket{label} {cum}")
+        suffix = "{" + prefix + "}" if prefix else ""
+        lines.append(f"{name}_sum{suffix} {round(total, 6)}")
+        lines.append(f"{name}_count{suffix} {cum}")
+    return "\n".join(lines) + "\n"
+
+
+def render_histogram(
+    name: str,
+    help_: str,
+    bounds: Sequence[float],
+    series: Sequence[Tuple[Sequence[Tuple[str, str]], Sequence[float]]],
+) -> str:
+    """One-shot convenience over :func:`bucketize` +
+    :func:`render_histogram_counts` for raw observations.  Only suitable
+    for single renders of a complete value set — repeated scrapes over a
+    SLIDING window must accumulate via ``bucketize`` instead, or the
+    exposed counters go backwards."""
+    folded = []
+    for labels, values in series:
+        counts, total = bucketize(bounds, values)
+        folded.append((labels, counts, total))
+    return render_histogram_counts(name, help_, bounds, folded)
+
+
+class WorkerMetrics:
+    """Pull-based worker ``/metrics`` endpoint.
+
+    ``provider`` is called per scrape and returns the series list;
+    exceptions are swallowed (metrics must never fail training — same
+    contract as the semisync exporter this replaces).
+    """
+
+    def __init__(
+        self,
+        replica_id: str = "",
+        provider: Optional[Callable[[], List[Series]]] = None,
+    ) -> None:
+        self.replica_id = replica_id
+        self._provider = provider
+        self._lock = threading.Lock()
+        self._sections: List[Callable[[], str]] = []
+        self._server = None
+
+    def add_section(self, render: Callable[[], str]) -> None:
+        """Registers a subsystem's own text-format exposition (e.g. the
+        semisync plane's ``tpuft_semisync_*``) to be appended per scrape."""
+        with self._lock:
+            self._sections.append(render)
+
+    @property
+    def serving(self) -> bool:
+        return self._server is not None
+
+    @property
+    def port(self) -> Optional[int]:
+        """The bound port while serving, else None."""
+        server = self._server
+        return server.server_address[1] if server is not None else None
+
+    def render_prometheus(self) -> str:
+        lines: List[str] = []
+        series: List[Series] = []
+        if self._provider is not None:
+            try:
+                series = list(self._provider())
+            except Exception:  # noqa: BLE001 — metrics must not fail training
+                series = []
+        seen_help = set()
+        for name, kind, help_, labels, value in series:
+            if name not in seen_help:
+                seen_help.add(name)
+                lines.append(f"# HELP {name} {help_}")
+                lines.append(f"# TYPE {name} {kind}")
+            pairs = []
+            if self.replica_id:
+                pairs.append(f'replica="{_prom_escape(self.replica_id)}"')
+            for k, v in labels:
+                pairs.append(f'{k}="{_prom_escape(str(v))}"')
+            label = "{" + ",".join(pairs) + "}" if pairs else ""
+            lines.append(f"{name}{label} {value}")
+        out = "\n".join(lines) + ("\n" if lines else "")
+        with self._lock:
+            sections = list(self._sections)
+        for render in sections:
+            try:
+                out += render()
+            except Exception:  # noqa: BLE001
+                pass
+        return out
+
+    # -- HTTP exposition ----------------------------------------------------
+
+    def serve(
+        self, port: Optional[int] = None, bind: Optional[str] = None
+    ) -> Optional[int]:
+        """Starts the daemon ``GET /metrics`` server.  ``port=None`` reads
+        ``TPUFT_WORKER_METRICS_PORT``, falling back to the deprecated
+        ``TPUFT_SEMISYNC_METRICS_PORT`` alias (unset/empty = disabled,
+        0 = ephemeral) — when the alias supplies the port, its companion
+        ``TPUFT_SEMISYNC_METRICS_BIND`` supplies the bind too, so an
+        existing non-loopback deployment keeps scraping.  ``bind``
+        defaults to loopback (``::1``) — the endpoint is unauthenticated,
+        so wider binds are an explicit operator choice.  Returns the
+        bound port, or None when disabled.  Never raises."""
+        global _alias_warned
+        legacy = False
+        if port is None:
+            raw = os.environ.get(TPUFT_WORKER_METRICS_PORT_ENV, "")
+            if not raw.strip():
+                raw = os.environ.get(_LEGACY_PORT_ENV, "")
+                if raw.strip():
+                    legacy = True
+                    if not _alias_warned:
+                        _alias_warned = True
+                        logging.getLogger("torchft_tpu_torch.obs.prom").warning(
+                            "%s is deprecated; the worker /metrics endpoint "
+                            "is unified — set %s instead (serving the "
+                            "unified exposition on the legacy port for now)",
+                            _LEGACY_PORT_ENV,
+                            TPUFT_WORKER_METRICS_PORT_ENV,
+                        )
+            if not raw.strip():
+                return None
+            try:
+                port = int(raw)
+            except ValueError:
+                return None
+        if bind is None:
+            bind = os.environ.get(TPUFT_WORKER_METRICS_BIND_ENV, "").strip()
+            if not bind and legacy:
+                bind = os.environ.get(_LEGACY_BIND_ENV, "").strip()
+            bind = bind or "::1"
+        from torchft_tpu_torch.http import serve_text_exposition
+
+        server = serve_text_exposition(
+            self.render_prometheus, port, bind,
+            thread_name="tpuft_worker_metrics",
+        )
+        if server is None:
+            return None
+        self._server = server
+        return server.server_address[1]
+
+    def close(self) -> None:
+        server, self._server = self._server, None
+        if server is not None:
+            try:
+                server.shutdown()
+                server.server_close()
+            except Exception:  # noqa: BLE001
+                pass

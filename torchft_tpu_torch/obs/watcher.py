@@ -1,0 +1,282 @@
+"""IncidentWatcher: the production-side incident loop.
+
+The counterpart of ``torchft_tpu/obs/watcher.py``, on the port's
+:mod:`torchft_tpu_torch.obs.incident`; its journal lines are the JAX
+watcher's.  It polls a
+lighthouse's ``GET /incident.json`` + ``GET /alerts.json`` (failing over
+across an address list and following HA-standby redirects), auto-captures
+an evidence bundle for every fresh trigger, computes the verdict, maps
+the verdict kind to a *recommended* remediation policy through a
+debounced flap guard, and appends every decision to a machine-readable
+``watcher_journal.jsonl``.
+
+The watcher RECOMMENDS, it does not remediate: dry-run is the default,
+and ``--act`` gates the one action that exists (the cooperative drain);
+the other policy kinds it names (re-stripe / respawn / rebalance) are
+recommendations only.  The journal is the contract either way: one line
+per decision, so a remediation loop (or an operator) replays exactly what
+the watcher saw and when.
+
+Journal record::
+
+    {"ts": epoch_s, "incident_id": N, "reason": ..., "kind": ...,
+     "target": "<group>", "policy": "drain", "acted": false,
+     "bundle": "incident_<step>", "verdict": {...}}
+
+Flap guard: one journal entry per (policy, target) pair per
+``TPUFT_WATCHER_DEBOUNCE_S`` window (default 30 s) — a goodput_floor and
+its slo_burn alert both naming the same victim within a window record
+ONE recommendation, and a flapping sentinel cannot journal-spam.
+
+Run standalone (``python -m torchft_tpu_torch.obs.watcher --lighthouse
+...``) or let :mod:`torchft_tpu_torch.launch` embed it
+(``--incident-watcher``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import urllib.request
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from torchft_tpu_torch.obs.incident import (
+    _http_base,
+    capture_bundle,
+    fetch_json,
+    finalize_bundle,
+)
+
+__all__ = ["IncidentWatcher", "POLICY_BY_KIND", "main"]
+
+# Verdict kind -> recommended remediation policy.  Only "drain" is
+# actionable (the cooperative-drain path exists end to end); the rest name
+# a remediation for an operator.
+POLICY_BY_KIND: Dict[str, str] = {
+    "kill": "respawn",        # supervisor restarts the dead group
+    "region_loss": "rebalance",  # shift quorum floor / spares across regions
+    "straggler": "drain",     # rotate the slow host out cooperatively
+    "slow_link": "re-stripe", # move ring striping off the degraded edge
+    "redundancy": "re-stripe",  # re-encode to restore shard coverage
+    "goodput_dip": "drain",   # culprit-named dip: rotate the culprit out
+    "slo_burn": "drain",      # sustained burn: rotate the culprit out
+}
+
+
+class IncidentWatcher:
+    """Polls the incident feed, captures bundles, journals recommendations.
+
+    Args:
+        addresses: lighthouse HTTP addresses, tried in order (leader +
+            standbys; standby GETs redirect to the leader, so any live
+            address works — the list is for the address that is DOWN).
+        workdir: bundle + journal directory.
+        act: when True, a "drain" recommendation is executed (via
+            ``drain_cb`` when given, else ``POST /replica/<group>/drain``
+            against the serving lighthouse).  Everything else is always
+            dry-run.
+        metrics_paths: span JSONL streams to tail into each bundle.
+        poll_interval_s / debounce_s: poll throttle and flap-guard window
+            (defaults from TPUFT_WATCHER_POLL_S / TPUFT_WATCHER_DEBOUNCE_S).
+        drain_cb: ``fn(group) -> None`` used for --act drains (the
+            launcher wires its own ``Launcher.drain``).
+        fetch / clock: injectables for unit tests — ``fetch(address,
+            path)`` replaces the HTTP client, ``clock()`` replaces
+            ``time.monotonic``.
+    """
+
+    def __init__(
+        self,
+        addresses: Sequence[str],
+        workdir: str,
+        *,
+        act: bool = False,
+        metrics_paths: Sequence[str] = (),
+        poll_interval_s: Optional[float] = None,
+        debounce_s: Optional[float] = None,
+        drain_cb: Optional[Callable[[str], None]] = None,
+        fetch: Optional[Callable[[str, str], Optional[dict]]] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        self.addresses = [a for a in addresses if a]
+        if not self.addresses:
+            raise ValueError("IncidentWatcher needs at least one address")
+        self.workdir = workdir
+        self.act = act
+        self.metrics_paths = list(metrics_paths)
+        self.poll_interval_s = (
+            poll_interval_s
+            if poll_interval_s is not None
+            else _env_float("TPUFT_WATCHER_POLL_S", 2.0)
+        )
+        self.debounce_s = (
+            debounce_s
+            if debounce_s is not None
+            else _env_float("TPUFT_WATCHER_DEBOUNCE_S", 30.0)
+        )
+        self._drain_cb = drain_cb
+        self._fetch = fetch or fetch_json
+        self._clock = clock
+        self._seen: set = set()
+        self._last_poll = float("-inf")
+        self._last_action: Dict[Tuple[str, str], float] = {}
+        self._good_addr = 0  # index of the last address that answered
+        self.journal_path = os.path.join(workdir, "watcher_journal.jsonl")
+
+    # -- feed access --------------------------------------------------------
+
+    def _get(self, path: str) -> Optional[dict]:
+        """Fetch with failover: start from the last good address, walk the
+        list; remember whoever answers."""
+        n = len(self.addresses)
+        for off in range(n):
+            i = (self._good_addr + off) % n
+            doc = self._fetch(self.addresses[i], path)
+            if doc is not None:
+                self._good_addr = i
+                return doc
+        return None
+
+    def serving_address(self) -> str:
+        return self.addresses[self._good_addr]
+
+    # -- the loop body ------------------------------------------------------
+
+    def poll_once(self, force: bool = False) -> List[dict]:
+        """One watcher iteration (internally throttled to
+        ``poll_interval_s`` unless ``force``).  Returns the journal
+        records appended this call."""
+        now = self._clock()
+        if not force and now - self._last_poll < self.poll_interval_s:
+            return []
+        self._last_poll = now
+        feed = self._get("/incident.json")
+        if not feed:
+            return []
+        appended: List[dict] = []
+        for rec in feed.get("incidents", []):
+            if not isinstance(rec, dict):
+                continue
+            rid = rec.get("id")
+            if rid in self._seen:
+                continue
+            self._seen.add(rid)
+            entry = self._handle_trigger(rec)
+            if entry is not None:
+                appended.append(entry)
+        return appended
+
+    def run(self, stop: Optional[Callable[[], bool]] = None) -> None:
+        """Blocking loop for standalone use; ``stop()`` (when given) is
+        checked each interval."""
+        while not (stop and stop()):
+            self.poll_once(force=True)
+            time.sleep(self.poll_interval_s)
+
+    # -- internals ----------------------------------------------------------
+
+    def _handle_trigger(self, incident: dict) -> Optional[dict]:
+        os.makedirs(self.workdir, exist_ok=True)
+        bundle = capture_bundle(
+            self.workdir,
+            self.serving_address(),
+            incident,
+            metrics_paths=self.metrics_paths,
+        )
+        manifest = finalize_bundle(bundle, self.workdir)
+        v = manifest.get("verdict") or {}
+        kind = str(v.get("kind", "unknown"))
+        policy = POLICY_BY_KIND.get(kind)
+        if policy is None:
+            return None  # unknown verdict: evidence captured, no recommendation
+        target = str(v.get("replica") or incident.get("replica_id") or "cluster")
+        # Flap guard: a (policy, target) pair recommends once per debounce
+        # window — suppressed repeats journal NOTHING (the bundle already
+        # recorded the repeat trigger in its manifest).
+        now = self._clock()
+        key = (policy, target)
+        last = self._last_action.get(key)
+        if last is not None and now - last < self.debounce_s:
+            return None
+        self._last_action[key] = now
+        acted = False
+        if self.act and policy == "drain" and target and target != "cluster":
+            acted = self._do_drain(target)
+        entry = {
+            "ts": time.time(),
+            "incident_id": incident.get("id"),
+            "reason": incident.get("reason"),
+            "kind": kind,
+            "target": target,
+            "policy": policy,
+            "acted": acted,
+            "bundle": os.path.basename(bundle),
+            "verdict": v,
+        }
+        with open(self.journal_path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(entry) + "\n")
+        return entry
+
+    def _do_drain(self, group: str) -> bool:
+        """Execute the one actionable policy.  Never raises — a failed
+        drain is journaled as acted=false and the next confirming trigger
+        (past the debounce) retries."""
+        try:
+            if self._drain_cb is not None:
+                self._drain_cb(group)
+                return True
+            url = (
+                _http_base(self.serving_address())
+                + f"/replica/{group}:/drain?deadline_ms=30000"
+            )
+            req = urllib.request.Request(url, data=b"", method="POST")
+            with urllib.request.urlopen(req, timeout=5) as resp:
+                return 200 <= resp.status < 300
+        except Exception:  # noqa: BLE001
+            return False
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        v = float(os.environ.get(name, ""))
+        return v if v > 0 else default
+    except ValueError:
+        return default
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        description="Watch a lighthouse's incident feed: capture bundles, "
+        "journal flap-guarded remediation recommendations."
+    )
+    p.add_argument(
+        "--lighthouse",
+        required=True,
+        help="comma-separated lighthouse HTTP addresses (leader first)",
+    )
+    p.add_argument("--workdir", default=".", help="bundle + journal directory")
+    p.add_argument(
+        "--metrics",
+        default="",
+        help="comma-separated span JSONL paths to tail into bundles",
+    )
+    p.add_argument(
+        "--act",
+        action="store_true",
+        help="execute 'drain' recommendations (everything else stays dry-run)",
+    )
+    args = p.parse_args(argv)
+    w = IncidentWatcher(
+        [a.strip() for a in args.lighthouse.split(",") if a.strip()],
+        args.workdir,
+        act=args.act,
+        metrics_paths=[m for m in args.metrics.split(",") if m],
+    )
+    w.run()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,9 +17,9 @@ group, one track per incarnation, phase slices with ``step`` and
 
 ``--quick`` builds a synthetic 2-replica stream (worker spans, the
 lighthouse's flight view and a hop timeline), exports it, validates the
-trace and prints a JSON summary; it exits non-zero on any problem.  (The
-JAX tool's incident-bundle round trip is left out: incident capture is
-not ported.)
+trace, writes a synthetic kill's incident bundle from the same stream and
+reads back its verdict (``incident_bundle_ok``: it must name the victim),
+and prints a JSON summary; it exits non-zero on any problem.
 """
 
 from __future__ import annotations
@@ -28,10 +28,37 @@ import argparse
 import glob
 import json
 import os
+import shutil
 import sys
 import tempfile
 
+from torchft_tpu_torch.obs import incident as obs_incident
 from torchft_tpu_torch.obs import trace as obs_trace
+
+
+def incident_roundtrip(events: list) -> bool:
+    """A synthetic kill's bundle (the stream as its span tail, a
+    ``replica_stale`` trigger for group 1 at step 4) written, finalized and
+    read back: True when the verdict names the victim.  Raises on a
+    bundle that cannot be written or read."""
+    broot = tempfile.mkdtemp(prefix="tpuft_incident_quick_")
+    try:
+        bundle = os.path.join(broot, "incident_4")
+        os.makedirs(bundle)
+        with open(os.path.join(bundle, "spans_tail.jsonl"), "w", encoding="utf-8") as f:
+            for ev in events:
+                f.write(json.dumps(ev) + "\n")
+        trig = {"id": 1, "reason": "replica_stale", "replica_id": "1:b1", "step": 4,
+                "ts_ms": 1_700_000_002_400, "detail": 500.0}
+        with open(os.path.join(bundle, "incident.json"), "w", encoding="utf-8") as f:
+            json.dump({"schema": 1, "incidents": [trig],
+                       "artifacts": {"spans_tail.jsonl": "tail"}}, f)
+        v = obs_incident.finalize_bundle(bundle, broot).get("verdict", {})
+        return bool(v.get("kind") == "kill" and v.get("replica") == "1"
+                    and v.get("lost_s") is not None
+                    and obs_incident.load_bundle(bundle)["manifest"]["incidents"])
+    finally:
+        shutil.rmtree(broot, ignore_errors=True)
 
 
 def quick(out: str, align: bool) -> dict:
@@ -55,6 +82,13 @@ def quick(out: str, align: bool) -> dict:
     hop_slices = sum(1 for ev in built["traceEvents"] if ev.get("cat") == "hop")
     if not hop_slices:
         problems.append("no hop slices in --quick trace")
+    incident_ok = False
+    try:
+        incident_ok = incident_roundtrip(events)
+    except Exception as e:  # noqa: BLE001 - reported in the summary, which fails
+        problems.append(f"incident bundle roundtrip raised: {e}")
+    if not incident_ok and not problems:
+        problems.append("incident bundle verdict failed to name the victim")
     with open(out, "w", encoding="utf-8") as f:
         json.dump(built, f)
     return {
@@ -66,6 +100,7 @@ def quick(out: str, align: bool) -> dict:
         "control_plane_tracks": len(cp_tracks),
         "data_plane_tracks": dp_tracks,
         "hop_slices": hop_slices,
+        "incident_bundle_ok": incident_ok,
         "problems": problems,
     }
 
