@@ -89,7 +89,12 @@ result):
    the survivor's uncommitted steps, its step ms alone and merged.  Both
    groups write one metrics stream, into which the drive writes a
    ``fault`` record at the kill (asserted); ``obs.report.deadwindow``'s
-   dead time is printed beside ``recovery_s``.
+   dead time is printed beside ``recovery_s``.  Then the disk resume
+   (``stop_and_resume``): the same two groups with ``--ckpt_dir`` run to
+   RESUME_STEPS and stop, and a second job resumes both from disk.
+   Asserted: both groups of the second job print "resumed from disk
+   checkpoint step=RESUME_STEPS" and end at twice the steps with one
+   params_sha256.
 7. Bare ring on the card's host: two in-process ranks allreduce the
    flagship's gradient payload (its parameter count in f32, 537 MB)
    BARE_RING_REPEATS times in each of BARE_RING_CONFIGS: the Python engine
@@ -205,11 +210,53 @@ result):
    adoption to the first merged commit, the merged step's wall before,
    during and after, the journal and the bundle's verdict; the scrapes'
    ms and bytes.
-13. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
+13. Durable state and isolated communication: a lighthouse and two
+   flagship groups (one seed, the native 2-lane ring on TCP, the f32
+   wire), each drawing its batches through a ``StatefulDataLoader`` over a
+   seeded host token table (DURABLE_ROWS rows of seq + 1 tokens, the
+   loader's position in the saved state), its Manager given a
+   ``CollectiveTransport`` through ``set_checkpoint_transport``, every
+   membership callback printed.  (a) DURABLE_STEPS merged steps without
+   interruption, on a lighthouse of its own while (b)'s first incarnation
+   runs beside it.  (b) The same schedule under ``ManagedDiskCheckpoint``
+   (every DURABLE_EVERY, keep DURABLE_KEEP): both groups hold at step
+   DURABLE_STEPS / 2 once that checkpoint is durable and are SIGKILLed; a
+   torn newer file and a stray ``.tmp`` are planted in group 0's directory;
+   both restart and resume from disk.  (c) Group 1 is SIGKILLed, its
+   directory deleted, and it restarts cold: it heals from group 0 over the
+   collective transport.  (d) Group 1 restarts on ``BabyTCPCollective``
+   (``max_retries=2``); after DURABLE_MERGED merged commits it SIGKILLs its
+   own baby child during an allreduce; it fails its votes until
+   ``ExceededMaxRetriesError`` and exits (the membership, and so the quorum
+   id, is unchanged: nothing reconfigures, as in the JAX package), and it
+   is restarted on the baby collective once more.  Asserted: (a) one
+   params_sha256 on both groups; (b) each restored state's sha256 is the
+   one taken at its save, the restored model tensors are on the card, the
+   loaders resume where they were saved, no heal at the first quorum, and
+   both groups end step DURABLE_STEPS with (a)'s params_sha256; each
+   checkpoint is the state's bytes; (c) one heal over the collective, its
+   ``heal`` span carrying the state's bytes, the healed group's
+   params_sha256 equal to group 0's at that step, then DURABLE_MERGED
+   merged commits at one params_sha256; every process's membership
+   callbacks equal its ``membership_change`` events; (d) the op in flight
+   fails within the baby's timeout naming the child's exit code, the
+   process keeps its pid, every later vote fails with the latched error,
+   group 0's vote at that step fails too, the child is not respawned, the
+   process exits with ``ExceededMaxRetriesError``, and after the restart
+   DURABLE_MERGED merged commits at one params_sha256; K1-K5 launch 12 /
+   12 / 12 / 1 / 1 times a step in every process.  Printed: each save's
+   bytes, flatten (enqueue), backpressure stall and durable-write ms; the
+   restart to "resumed" seconds; the collective heal's seconds and GB/s
+   beside phase 11's HTTP striped transfer; the merged step with the baby
+   collective against without; the baby's configure ms; the child's
+   SIGKILL to the failed op, to the exception, to the exit and to the next
+   merged commit.
+14. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
-   healing run as ``launches_healing`` and on the elastic run as
-   ``launches_elastic``), the run's seconds, then the last line,
-   ``{"ok": true, "device": {...}}``.
+   healing run as ``launches_healing``, on the elastic run as
+   ``launches_elastic`` and on the durable run as ``launches_durable``),
+   the run's seconds, then the last line, ``{"ok": true, "device":
+   {...}}``.
 """
 
 from __future__ import annotations
@@ -221,6 +268,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -242,7 +290,7 @@ RMS_CALLS = 3             # rms_norm_pallas calls of the entry-point phase
 KILL_STEPS = 2000         # train_ddp's --steps in the kill-and-heal phase
 KILL_MERGED = 30          # group 0's merged commits before the kill
 KILL_TIMEOUT_S = 420.0
-BARE_RING_REPEATS = 3     # allreduces per configuration in the bare-ring phase
+BARE_RING_REPEATS = 2     # allreduces per configuration in the bare-ring phase
 BARE_RING_TIMEOUT_S = 300.0
 # params_sha256 of phase 5 on the previous tree (the single-lane Python
 # ring), printed beside this run's.
@@ -1295,6 +1343,32 @@ def kill_heal_phase(card: str) -> dict:
           f"({card})", flush=True)
     r["cold_start_s"] = cold_start_s
     print("KILL_HEAL " + json.dumps(r), flush=True)
+    return r
+
+
+RESUME_STEPS = 20          # train_ddp's --steps in the first job of the disk resume
+RESUME_EVERY = 10         # its --ckpt_every
+
+
+def resume_phase(card: str) -> dict:
+    """Phase 6's disk resume: the train_ddp example's two groups under the
+    Launcher with ``--ckpt_dir`` run to RESUME_STEPS and stop; a second job
+    resumes both from disk ("resumed from disk checkpoint step=...") and
+    runs on to twice the steps, both groups ending with one
+    params_sha256."""
+    from torchft_tpu_torch.examples.kill_heal import stop_and_resume
+
+    log_dir = tempfile.mkdtemp(prefix="tpuft_resume_")
+    try:
+        r = stop_and_resume("cuda", log_dir, steps=RESUME_STEPS, ckpt_every=RESUME_EVERY,
+                            timeout_s=KILL_TIMEOUT_S)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    print(f"  first job: both groups FINAL at step {r['first']['final_step']} in "
+          f"{r['first']['seconds']:.3f} s; second job: both 'resumed from disk checkpoint "
+          f"step={r['resumed_step']}', FINAL at step {r['resumed']['final_step']} with "
+          f"params_sha256 {r['resumed']['params_sha256'][:16]}… in "
+          f"{r['resumed']['seconds']:.3f} s ({card})", flush=True)
     return r
 
 
@@ -2578,6 +2652,7 @@ def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: flo
     print("HEALING " + json.dumps({"modes": modes, "striped": fa, "failover": fc,
                                    "reconstruct": recon[0], "encode_ms": enc,
                                    "crc_stamp_ms": crc_ms, "phase_s": phase_s}), flush=True)
+    recovery["http_striped"] = {k: modes["striped"][k] for k in ("fetch_s", "gb_per_s", "bytes")}
     return launches, recovery
 
 
@@ -2600,10 +2675,13 @@ STRAGGLE_SLEEP_S = 2.0
 # the watcher's flap guard spans a second; and the goodput-floor trigger is
 # held off: a dip recorded at the straggler alert's step would open that
 # step's bundle first (first evidence wins), and the bundle's verdict would
-# be the dip's.
+# be the dip's.  The slow-link sentinel is held off too: the straggler's
+# inbound links read as degraded, and the lighthouse raises no straggler
+# alert for a replica that an active slow-link alert names.
 ELASTIC_LIGHTHOUSE_ENV = {"TPUFT_STRAGGLER_RATIO": "1.5", "TPUFT_STRAGGLER_GRACE_STEPS": "3",
                           "TPUFT_STRAGGLER_AUTO_DRAIN": "0", "TPUFT_WATCHER_DEBOUNCE_S": "1",
-                          "TPUFT_GOODPUT_WARMUP_OBS": "1000000"}
+                          "TPUFT_GOODPUT_WARMUP_OBS": "1000000",
+                          "TPUFT_LINK_GRACE_STEPS": "1000000"}
 
 
 def run_elastic_group(args: argparse.Namespace) -> None:
@@ -2911,7 +2989,17 @@ def elastic_phase(card: str, cold: dict, device: str = "cuda") -> dict:
             f.write(str(max(r["step"] for r in tail.recs) + 2))
         wait(lambda: all(launcher.pid(g) is None for g in range(3)),
              "the groups never stopped")
+        # The last exit may land between the wait's supervise pass and its
+        # check: one more pass records it.
+        launcher.supervise_once()
         if not launcher.all_exited_clean():
+            tail.poll()
+            for g in range(3):
+                print(f"  group {g}: exit code {launcher._groups[g].proc.returncode}",
+                      flush=True)
+            for name in sorted(tail.lines):
+                for _, line in tail.lines[name][-15:]:
+                    print(f"  [{name}] {line}", flush=True)
             raise AssertionError("a group exited non-zero at the stop step")
         tail.poll()
         flight = launcher._embedded.flight()
@@ -3188,6 +3276,661 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
     return launches
 
 
+# -- phase 13: durable state and isolated communication on the flagship -----------
+
+DURABLE_STEPS = 8           # N: run (a)'s merged steps; (b) stops at N / 2 and resumes to N
+DURABLE_EVERY = 2           # ManagedDiskCheckpoint(every=, keep=) of (b)
+DURABLE_KEEP = 2
+DURABLE_MERGED = 3          # merged commits in (c) and (d) before each event and at the end
+DURABLE_ROWS = 2048         # rows of the seeded host token table, seq + 1 tokens each
+DURABLE_BATCH = 16          # a group's batch (the flagship's)
+DURABLE_TIMEOUT_S = 420.0
+DURABLE_BABY_TIMEOUT_S = 120.0   # the baby collective's configure and op deadline
+DURABLE_HEARTBEAT_MS = 2000      # the phase's lighthouse declares a silent group dead after
+DURABLE_SOLO_PAUSE_S = 0.5       # a group's pause after a step it ran alone
+
+
+def state_digest(state) -> str:
+    """sha256 of a state dict's serialized leaves (every tensor's bytes, in
+    the port's flatten order, and every plain value)."""
+    from torchft_tpu_torch.checkpointing.serialization import flatten_state_dict
+
+    meta, buffers = flatten_state_dict(state)
+    h = hashlib.sha256()
+    for kind, value in meta.leaves:
+        if kind == "tensor":
+            h.update(repr(meta.tensors[value]).encode())
+            h.update(memoryview(buffers[value]))
+        else:
+            h.update(repr(value).encode())
+    return h.hexdigest()
+
+
+def run_durable_group(args: argparse.Namespace) -> None:
+    """One replica group of phase 13: the flagship (one seed for both
+    groups, so no step-0 sync) drawing its batches through a
+    ``StatefulDataLoader`` over a seeded host token table, its state the
+    model's, AdamW's and the loader's.  Its Manager gets a
+    ``CollectiveTransport`` through ``set_checkpoint_transport`` and prints
+    every membership callback.  ``cfg_<g>_<k>.json`` in the run directory
+    sets the incarnation: ``ckpt_dir`` (a ``ManagedDiskCheckpoint``,
+    restored before the first quorum), ``hold_at`` (stop there once that
+    step's checkpoint is durable, print its digest and wait for the
+    SIGKILL), ``baby`` (a ``BabyTCPCollective`` with ``max_retries=2``) and
+    ``kill_child`` (SIGKILL the baby's child during an allreduce after
+    DURABLE_MERGED merged commits).  Files steer it: ``go_<k>`` (the first
+    quorum, once the parent saw every ``ready_<g>_<k>``), ``ckpt_off``
+    (saves stop) and ``stop`` (leave at that step)."""
+    import logging
+    import signal
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.baby import BabyTCPCollective
+    from torchft_tpu_torch.checkpointing import CollectiveTransport, ManagedDiskCheckpoint
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.data import DistributedSampler, StatefulDataLoader
+    from torchft_tpu_torch.manager import ExceededMaxRetriesError, Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep
+
+    group, inc, run_dir = args.durable_group, args.incarnation, args.run_dir
+    path = lambda name: os.path.join(run_dir, name)  # noqa: E731
+    with open(path(f"cfg_{group}_{inc}.json")) as f:
+        conf = json.load(f)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"[d{group}.{inc}] %(message)s")
+    # The collective first: a baby's forkserver then imports while the model
+    # is built.
+    baby = bool(conf.get("baby"))
+    collective = (BabyTCPCollective(timeout=DURABLE_BABY_TIMEOUT_S, host="127.0.0.1") if baby
+                  else TCPCollective(timeout=180.0, host="127.0.0.1"))
+    cfg, _, seq = flagship_config()
+    dev = resolve_device(args.device)
+    model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(4000))
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    table = np.random.default_rng(4100).integers(0, cfg.vocab_size, (DURABLE_ROWS, seq + 1),
+                                                 dtype=np.int64)
+    loader = StatefulDataLoader(DistributedSampler(DURABLE_ROWS, group, 2, shuffle=True,
+                                                   seed=4200), batch_size=DURABLE_BATCH)
+    batches = iter(loader)
+    restored: dict = {}
+    digest_next = [bool(conf.get("ckpt_dir"))]
+
+    def save():
+        return {"model": model.state_dict(), "optim": opt.state_dict(),
+                "loader": loader.state_dict()}
+
+    def load(sd) -> None:
+        nonlocal batches
+        if digest_next[0]:
+            # The disk restore: the digest and placement of what came back.
+            restored["digest"] = state_digest(sd)
+            restored["model_devices"] = sorted({str(t.device) for t in sd["model"].values()})
+        model.load_state_dict(sd["model"])
+        opt.load_state_dict(sd["optim"])
+        loader.load_state_dict(sd["loader"])
+        batches = iter(loader)
+
+    timeout = timedelta(seconds=180)
+    manager = Manager(
+        collective=collective, load_state_dict=load, state_dict=save, min_replica_size=1,
+        rank=0, world_size=1, replica_id=f"durable_g{group}", lighthouse_addr=args.lighthouse,
+        store_addr="127.0.0.1", manager_bind="127.0.0.1:0", timeout=timeout,
+        quorum_timeout=timeout, init_sync=False, max_retries=2 if baby else None,
+    )
+    transport = CollectiveTransport(collective, timeout=180.0, state_dict_fn=save)
+    manager.set_checkpoint_transport(transport)
+    manager.register_membership_callback(
+        lambda payload: print("MEMBERSHIP " + json.dumps(payload), flush=True))
+    trainer = TrainStep(model, opt, loss_fn, manager)
+    mdc = None
+    if conf.get("ckpt_dir"):
+        mdc = ManagedDiskCheckpoint(manager, save, load,
+                                    os.path.join(conf["ckpt_dir"], f"group_{group}"),
+                                    every=DURABLE_EVERY, keep=DURABLE_KEEP)
+        t0 = time.time()
+        step = mdc.restore()
+        digest_next[0] = False
+        if step is not None:
+            print(f"[group {group}] resumed from disk checkpoint step={step}", flush=True)
+            print("RESUMED " + json.dumps({"step": step, "t": time.time(), "restore_s":
+                                           time.time() - t0, "loader": loader.state_dict(),
+                                           "device": dev.type, **restored}), flush=True)
+    open(path(f"ready_{group}_{inc}"), "w").close()
+    deadline = time.monotonic() + DURABLE_TIMEOUT_S
+    while not os.path.exists(path(f"go_{inc}")):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"durable group {group}: go_{inc} never appeared")
+        time.sleep(0.02)
+
+    def params_sha() -> str:
+        h = hashlib.sha256()
+        for name, p in model.state_dict().items():
+            h.update(name.encode())
+            h.update(p.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+                     .tobytes())
+        return h.hexdigest()
+
+    def kill_child_in_flight() -> None:
+        """Wraps the baby's allreduce once: the first bucket's op is
+        submitted, then the child gets SIGKILL; the op's failure is timed
+        from it."""
+        allreduce = collective.allreduce
+
+        def and_kill(*a, **kw):
+            collective.allreduce = allreduce
+            work = allreduce(*a, **kw)
+            child = collective.child_pid()
+            t_kill = time.time()
+            os.kill(child, signal.SIGKILL)
+
+            def failed(fut) -> None:
+                print("OPFAIL " + json.dumps({"dt": time.time() - t_kill,
+                                              "exc": repr(fut.exception())}), flush=True)
+
+            work.add_done_callback(failed)
+            print("CHILD_KILLED " + json.dumps({"child": child, "t": t_kill, "pid": os.getpid(),
+                                                "step": manager.current_step()}), flush=True)
+            return work
+
+        collective.allreduce = and_kill
+
+    reset_launch_counts()
+    fetch = transport.last_fetch
+    merged = steps_run = 0
+    child_killed = False
+    try:
+        while True:
+            step = manager.current_step()
+            stop = _read_int(path("stop"))
+            if stop is not None and step >= stop:
+                break
+            if steps_run > 2000:
+                raise RuntimeError(f"durable group {group}: never reached the stop step")
+            manager.start_quorum()
+            if baby and conf.get("kill_child") and merged >= DURABLE_MERGED and not child_killed:
+                kill_child_in_flight()
+                child_killed = True
+            rows = next(batches, None)
+            if rows is None:  # the epoch ended: the next one starts
+                batches = iter(loader)
+                rows = next(batches)
+            batch = torch.from_numpy(table[rows]).to(dev)
+            t0 = time.perf_counter()
+            try:
+                loss, committed = trainer.ft_step({"tokens": batch[:, :-1].contiguous(),
+                                                   "targets": batch[:, 1:].contiguous()})
+            except ExceededMaxRetriesError as e:
+                print("EXCEEDED " + json.dumps({"t": time.time(), "error": repr(e),
+                                                "errored": repr(collective.errored()),
+                                                "pid": os.getpid()}), flush=True)
+                raise
+            loss_v = float(loss)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            steps_run += 1
+            rec = {"group": group, "inc": inc, "before": step, "step": manager.current_step(),
+                   "committed": committed, "participants": manager.num_participants(),
+                   "loss": loss_v, "step_s": step_s, "t": time.time(), "pid": os.getpid(),
+                   "launches": launch_counts(), "loader": loader.state_dict(),
+                   "errored": repr(collective.errored()) if collective.errored() else None,
+                   "healed": manager.current_step() - step > 1,
+                   "peak_mem": torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0}
+            if baby:
+                rec["configure"] = dict(collective.last_configure)
+            if transport.last_fetch is not fetch:
+                fetch = transport.last_fetch
+                rec["fetch"] = dict(fetch)
+            if committed:
+                merged += manager.num_participants() == 2
+                rec["sha"] = params_sha()
+                if not math.isfinite(loss_v):
+                    raise RuntimeError(f"durable group {group}: loss {loss_v} is not finite")
+                if mdc is not None and not os.path.exists(path("ckpt_off")):
+                    # The last save, its write done by now, then this step's.
+                    rec["saves"] = [dict(mdc.checkpointer.last_save)]
+                    t_save = time.perf_counter()
+                    mdc.maybe_save(committed)
+                    rec["save_call_ms"] = (time.perf_counter() - t_save) * 1e3
+                    rec["saves"].append(dict(mdc.checkpointer.last_save))
+            print("STEP " + json.dumps(rec), flush=True)
+            if manager.num_participants() < 2:
+                # Alone while the other group restarts: a slow pace, so the
+                # survivor's steps do not crowd the card.
+                time.sleep(DURABLE_SOLO_PAUSE_S)
+            if committed and conf.get("hold_at") == manager.current_step():
+                t0 = time.perf_counter()
+                mdc.checkpointer.wait()
+                print("DURABLE " + json.dumps({
+                    "step": manager.current_step(), "wait_s": time.perf_counter() - t0,
+                    "save": dict(mdc.checkpointer.last_save), "digest": state_digest(save()),
+                    "loader": loader.state_dict(), "t": time.time()}), flush=True)
+                while True:  # until the parent's SIGKILL
+                    time.sleep(1.0)
+    finally:
+        if mdc is not None:
+            mdc.shutdown()
+        manager.shutdown()
+    print("FINAL " + json.dumps({"group": group, "inc": inc, "step": manager.current_step(),
+                                 "sha": params_sha()}), flush=True)
+
+
+def durable_phase(card: str, http_striped: dict, device: str = "cuda") -> dict:
+    """A lighthouse and two flagship groups: (a) DURABLE_STEPS merged steps
+    without interruption (on a second lighthouse, beside (b)'s first
+    incarnation); (b) the same schedule under ManagedDiskCheckpoint
+    (every 2, keep 2), both groups SIGKILLed at N / 2 once that checkpoint is
+    durable, a torn newer file and a stray .tmp planted in group 0's
+    directory, both restarted from disk; (c) group 1 SIGKILLed, its
+    directory deleted, restarted cold: it heals from group 0 over
+    CollectiveTransport; (d) group 1 restarted on BabyTCPCollective, its
+    child SIGKILLed during an allreduce, and after the reference's sequence
+    (failed votes on both groups, ExceededMaxRetriesError) restarted once
+    more.  Returns the K1-K5 launches of all its processes."""
+    from torchft_tpu_torch._native import LighthouseServer
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.obs import report
+
+    n_params = flagship_param_count()
+    state_bytes = 12 * n_params  # f32 weights and AdamW's two moments
+    run_dir = tempfile.mkdtemp(prefix="tpuft_durable_")
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    # keep=2 files a group, a third in flight as .tmp, for two groups.
+    need = 2 * (DURABLE_KEEP + 1) * state_bytes
+    free = shutil.disk_usage(run_dir).free
+    print(f"  disk: {free / 1e9:.1f} GB free under {run_dir}, {need / 1e9:.1f} GB needed "
+          f"(2 groups x (keep {DURABLE_KEEP} + 1 in flight) x {state_bytes / 1e9:.3f} GB)",
+          flush=True)
+    if free < need:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        raise RuntimeError(f"phase 13 needs {need / 1e9:.1f} GB free under {run_dir}, "
+                           f"{free / 1e9:.1f} GB are")
+    lighthouse, lighthouse_ref = (
+        LighthouseServer(bind="127.0.0.1:0", http_bind="127.0.0.1:0", min_replicas=1,
+                         join_timeout_ms=1000, heartbeat_timeout_ms=DURABLE_HEARTBEAT_MS)
+        for _ in range(2))
+    procs, recs, lines, starts = {}, {}, {}, {}
+    lock = threading.Lock()
+    expected_exit = set()
+    N, half = DURABLE_STEPS, DURABLE_STEPS // 2
+
+    def start(g: int, k: int, conf: dict, sync: bool, lh=None) -> None:
+        with open(os.path.join(run_dir, f"cfg_{g}_{k}.json"), "w") as f:
+            json.dump(conf, f)
+        env = {**os.environ,
+               "TPUFT_METRICS_PATH": os.path.join(run_dir, f"metrics_{g}_{k}.jsonl")}
+        starts[(g, k)] = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--durable-group", str(g),
+             "--incarnation", str(k), "--lighthouse", (lh or lighthouse).address(), "--run-dir",
+             run_dir, "--device", device], stdout=subprocess.PIPE, text=True, cwd=HERE, env=env)
+        procs[(g, k)], recs[(g, k)], lines[(g, k)] = proc, [], []
+
+        def read() -> None:
+            for line in proc.stdout:
+                line = line.rstrip("\n")
+                head, _, body = line.partition(" ")
+                with lock:
+                    if head in ("STEP", "MEMBERSHIP", "RESUMED", "DURABLE", "CHILD_KILLED",
+                                "OPFAIL", "EXCEEDED", "FINAL"):
+                        lines[(g, k)].append((head, json.loads(body)))
+                        if head == "STEP":
+                            recs[(g, k)].append(json.loads(body))
+                if head == "STEP":
+                    rec = json.loads(body)
+                    short = {x: rec.get(x) for x in ("step", "committed", "participants",
+                                                     "loss", "step_s")}
+                    print(f"  [d{g}.{k}] STEP {json.dumps(short)}", flush=True)
+                elif head != "MEMBERSHIP":
+                    print(f"  [d{g}.{k}] {line}", flush=True)
+
+        threading.Thread(target=read, daemon=True).start()
+        if not sync:
+            write(f"go_{k}", 1)
+
+    def write(name: str, value) -> None:
+        tmp = os.path.join(run_dir, name + ".tmp")
+        with open(tmp, "w") as f:
+            f.write(str(value))
+        os.replace(tmp, os.path.join(run_dir, name))
+
+    def wait(cond, what: str) -> None:
+        deadline = time.monotonic() + DURABLE_TIMEOUT_S
+        while not cond():
+            for key, p in procs.items():
+                if p.poll() not in (None, 0) and key not in expected_exit:
+                    raise RuntimeError(f"durable group {key} exited with {p.returncode}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"durable phase: {what}")
+            time.sleep(0.02)
+
+    def go(k: int) -> None:
+        wait(lambda: all(os.path.exists(os.path.join(run_dir, f"ready_{g}_{k}"))
+                         for g in (0, 1)), f"incarnation {k} never got ready")
+        # Both Managers heartbeat before either asks for a quorum, so the
+        # lighthouse waits for both (its split-brain guard).
+        time.sleep(JOIN_GRACE_S)
+        write(f"go_{k}", 1)
+
+    def got(key, head: str) -> list:
+        with lock:
+            return [body for h, body in lines[key] if h == head]
+
+    def kill(key) -> float:
+        t = time.time()
+        expected_exit.add(key)
+        procs[key].kill()
+        procs[key].wait()
+        lighthouse.evict(f"durable_g{key[0]}")  # the next quorum need not wait it out
+        return t
+
+    def finish(keys) -> None:
+        for key in keys:
+            rc = procs[key].wait(timeout=DURABLE_TIMEOUT_S)
+            if rc != 0:
+                raise RuntimeError(f"durable group {key} exited with {rc}")
+
+    def n_merged(key) -> int:
+        with lock:
+            return len(merged(recs, key))
+
+    def top_step() -> int:
+        with lock:
+            return max((r["step"] for rs in recs.values() for r in rs), default=0)
+
+    t_phase = time.monotonic()
+    events = {}
+    try:
+        # (a) The reference run on a lighthouse of its own, beside (b)'s
+        # first incarnation: the same schedule, held at N / 2 once that
+        # step's checkpoint is durable.  Four processes share the card.
+        write("stop", N)
+        for g in (0, 1):
+            start(g, 0, {}, sync=True, lh=lighthouse_ref)
+            start(g, 1, {"ckpt_dir": ckpt_dir, "hold_at": half}, sync=True)
+        go(0)
+        go(1)
+        finish([(0, 0), (1, 0)])
+        ref = {g: got((g, 0), "FINAL")[0] for g in (0, 1)}
+        os.remove(os.path.join(run_dir, "stop"))
+        wait(lambda: all(got((g, 1), "DURABLE") for g in (0, 1)),
+             f"the groups' step-{half} checkpoints never became durable")
+        for g in (0, 1):
+            kill((g, 1))
+        g0_dir = os.path.join(ckpt_dir, "group_0")
+        whole = os.path.join(g0_dir, f"step_{half:012d}.tpuft")
+        torn = os.path.join(g0_dir, f"step_{half + 2:012d}.tpuft")
+        with open(whole, "rb") as src, open(torn, "wb") as dst:
+            dst.write(src.read(os.path.getsize(whole) // 2))
+        with open(os.path.join(g0_dir, f"step_{half + 4:012d}.tpuft.tmp"), "wb") as f:
+            f.write(b"\0" * 4096)
+        print(f"  (b) planted in group 0's directory: {os.path.basename(torn)} (the first "
+              f"half of step {half}'s file) and a stray .tmp; on disk "
+              f"{sorted(os.listdir(g0_dir))}", flush=True)
+        for g in (0, 1):
+            start(g, 2, {"ckpt_dir": ckpt_dir}, sync=True)
+        go(2)
+        wait(lambda: all(any(r["step"] >= N and r["committed"] for r in list(recs[(g, 2)]))
+                         for g in (0, 1)), f"the resumed groups never reached step {N}")
+        # (c) Group 1 lost with its disk: a cold start healed over send/recv.
+        write("ckpt_off", 1)
+        events["kill_c"] = kill((1, 2))
+        shutil.rmtree(os.path.join(ckpt_dir, "group_1"))
+        start(1, 3, {"ckpt_dir": ckpt_dir}, sync=False)
+        wait(lambda: n_merged((1, 3)) >= DURABLE_MERGED,
+             "group 1 never ran merged after its collective heal")
+        # (d) Group 1 on the baby collective; its child SIGKILLed in an
+        # allreduce after DURABLE_MERGED merged commits.
+        events["kill_d"] = kill((1, 3))
+        expected_exit.add((1, 4))
+        start(1, 4, {"baby": True, "kill_child": True}, sync=False)
+        wait(lambda: procs[(1, 4)].poll() is not None, "the baby group never exited")
+        events["exit_d"] = time.time()
+        lighthouse.evict("durable_g1")
+        start(1, 5, {"baby": True}, sync=False)
+        wait(lambda: n_merged((1, 5)) >= DURABLE_MERGED,
+             "group 1 never ran merged after the baby's crash and restart")
+        write("stop", top_step() + 1)
+        finish([(0, 2), (1, 5)])
+        streams = {key: report.read_events([os.path.join(run_dir, f"metrics_{key[0]}_"
+                                                                  f"{key[1]}.jsonl")])
+                   for key in procs}
+        ckpt_listing = {g: sorted(os.listdir(os.path.join(ckpt_dir, f"group_{g}")))
+                        for g in (0, 1) if os.path.isdir(os.path.join(ckpt_dir, f"group_{g}"))}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        lighthouse.shutdown()
+        lighthouse_ref.shutdown()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    phase_s = time.monotonic() - t_phase
+    with lock:
+        out = {key: list(v) for key, v in lines.items()}
+    return durable_checks(card, recs, out, streams, events, starts, ref, ckpt_listing,
+                          http_striped, state_bytes, phase_s)
+
+
+def durable_checks(card: str, recs: dict, lines: dict, streams: dict, events: dict,
+                   starts: dict, ref: dict, ckpt_listing: dict, http_striped: dict,
+                   state_bytes: int, phase_s: float) -> dict:
+    """Phase 13's assertions and prints; returns the K1-K5 launches of all
+    its processes."""
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg, _, _ = flagship_config()
+    N, half = DURABLE_STEPS, DURABLE_STEPS // 2
+    per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
+
+    def body(key, head):
+        return [b for h, b in lines[key] if h == head]
+
+    def sha_at(key, step):
+        return next((r["sha"] for r in recs[key] if r["committed"] and r["step"] == step), None)
+
+    launches = {name: 0 for name in per_step}
+    for key, rs in sorted(recs.items()):
+        if not rs:
+            raise AssertionError(f"durable group {key} printed no step")
+        steps = len(rs)
+        for name, n in per_step.items():
+            got = rs[-1]["launches"].get(name, 0)
+            if got != n * steps:
+                raise AssertionError(f"durable group {key}: {name} launched {got} times in "
+                                     f"{steps} steps, expected {n * steps}")
+            launches[name] += got
+
+    # (a) The reference.
+    if ref[0]["sha"] != ref[1]["sha"] or ref[0]["step"] != N:
+        raise AssertionError(f"(a) the groups ended apart: {ref}")
+    for key in ((0, 0), (1, 0)):
+        if not all(r["committed"] and r["participants"] == 2 for r in recs[key]):
+            raise AssertionError(f"(a) group {key} ran a step that was not a merged commit")
+    print(f"  (a) {N} merged steps uninterrupted: params_sha256 {ref[0]['sha'][:16]}… on both "
+          f"groups", flush=True)
+
+    # (b) The stop at N / 2 and the resume.
+    # Each save by step: its record once durable, and the loop's call that
+    # made it.
+    saves = {}
+    for key in ((0, 1), (1, 1), (0, 2), (1, 2)):
+        calls = {}
+        for r in recs[key]:
+            for sv in r.get("saves", []) + [d["save"] for d in body(key, "DURABLE")]:
+                if sv and ("write_ms" in sv or sv["step"] not in saves.get(key, {})):
+                    saves.setdefault(key, {})[sv["step"]] = sv
+            if r.get("saves") and r["saves"][-1].get("step") == r["step"]:
+                calls[r["step"]] = r["save_call_ms"]
+        saves[key] = {step: (sv, calls.get(step, float("nan")))
+                      for step, sv in saves.get(key, {}).items()}
+    for g in (0, 1):
+        durable, = body((g, 1), "DURABLE")
+        resumed, = body((g, 2), "RESUMED")
+        if durable["step"] != half or resumed["step"] != half:
+            raise AssertionError(f"(b) group {g} held at {durable['step']} and resumed at "
+                                 f"{resumed['step']}, expected {half}")
+        if resumed["digest"] != durable["digest"]:
+            raise AssertionError(f"(b) group {g}'s restored state {resumed['digest']} is not "
+                                 f"the saved {durable['digest']}")
+        if not all(d.startswith(resumed["device"]) for d in resumed["model_devices"]):
+            raise AssertionError(f"(b) group {g}'s restored tensors are on "
+                                 f"{resumed['model_devices']}")
+        if resumed["loader"] != durable["loader"]:
+            raise AssertionError(f"(b) group {g}'s loader resumed at {resumed['loader']}, "
+                                 f"saved at {durable['loader']}")
+        first = recs[(g, 2)][0]
+        if first["before"] != half or first["healed"] or not first["committed"]:
+            raise AssertionError(f"(b) group {g}'s first resumed step: {first}")
+        if any(e["event"] == "heal_start" and float(e["ts"]) < events["kill_c"]
+               for e in streams[(g, 2)]):
+            raise AssertionError(f"(b) group {g} healed after its disk resume")
+        end = sha_at((g, 2), N)
+        if end != ref[g]["sha"]:
+            raise AssertionError(f"(b) group {g} ended step {N} with {end}, run (a) with "
+                                 f"{ref[g]['sha']}")
+        print(f"  (b) group {g}: held at step {half} ({durable['wait_s']:.3f} s waiting for the "
+              f"write), restarted -> 'resumed from disk checkpoint step={half}' in "
+              f"{resumed['t'] - starts[(g, 2)]:.3f} s (restore {resumed['restore_s']:.3f} s), "
+              f"state sha256 {resumed['digest'][:16]}… = saved, loader {resumed['loader']}, "
+              f"tensors on {resumed['model_devices']}; step {N} params_sha256 = run (a)'s "
+              f"({card})", flush=True)
+        for key in ((g, 1), (g, 2)):
+            for step, (s, call_ms) in sorted(saves.get(key, {}).items()):
+                print(f"      save step {step}: {s['bytes'] / 1e9:.3f} GB, flatten (enqueue) "
+                      f"{s['flatten_ms']:.1f} ms, backpressure stall {s['stall_ms']:.1f} ms, "
+                      f"durable write {s.get('write_ms', float('nan')):.1f} ms, the loop's "
+                      f"save call {call_ms:.1f} ms ({card})", flush=True)
+    for key in saves:
+        for step, (s, _) in saves[key].items():
+            if abs(s["bytes"] - state_bytes) > 1e6:
+                raise AssertionError(f"(b) group {key}'s step-{step} checkpoint is {s['bytes']} "
+                                     f"bytes, expected about {state_bytes}")
+    print(f"  (b) on disk after the run: {ckpt_listing}", flush=True)
+
+    # (c) The cold start healed over the collective transport.
+    heal_recs = [r for r in recs[(1, 3)] if "fetch" in r]
+    if len(heal_recs) != 1 or heal_recs[0]["fetch"]["mode"] != "collective":
+        raise AssertionError(f"(c) group 1 did not heal once over the collective: {heal_recs}")
+    heal = heal_recs[0]
+    fetch = heal["fetch"]
+    spans = [e for e in streams[(1, 3)] if e["event"] == "span" and e.get("phase") == "heal"]
+    if not spans or abs(spans[0].get("bytes", 0) - state_bytes) > 1e6:
+        raise AssertionError(f"(c) the heal span does not carry the state: {spans[:1]}")
+    if sha_at((0, 2), heal["step"]) != heal["sha"]:
+        raise AssertionError(f"(c) group 1's healed state at step {heal['step']} is not group "
+                             f"0's")
+    check_merged_tail(recs, (0, 2), (1, 3), "(c)")
+    resumed_c = body((1, 3), "RESUMED")
+    if resumed_c:
+        raise AssertionError(f"(c) group 1 resumed from a deleted directory: {resumed_c}")
+    print(f"  (c) group 1 cold-started and healed over CollectiveTransport: "
+          f"{fetch['bytes'] / 1e9:.3f} GB in {fetch['fetch_s']:.3f} s "
+          f"({fetch['gb_per_s']:.3f} GB/s) against phase 11's HTTP striped transfer "
+          f"{http_striped['fetch_s']:.3f} s ({http_striped['gb_per_s']:.3f} GB/s); the heal "
+          f"span {spans[0]['duration_ms']:.1f} ms; SIGKILL -> first merged commit "
+          f"{merged_first(recs, (1, 3)) - events['kill_c']:.3f} s ({card})", flush=True)
+
+    # Membership callbacks against the streams' events.
+    keys = ("quorum_id", "old_participants", "new_participants", "joined", "left",
+            "transition_s", "mode", "elastic_plan")
+    for key in sorted(lines):
+        seen = body(key, "MEMBERSHIP")
+        evs = [{k: e.get(k) for k in keys} for e in streams[key]
+               if e["event"] == "membership_change"]
+        if seen != evs or not evs:
+            raise AssertionError(f"group {key}'s membership callbacks {seen} are not its "
+                                 f"events {evs}")
+    g0 = [(m["joined"], m["left"]) for m in body((0, 2), "MEMBERSHIP")]
+    if g0[:3] != [([0, 1], []), ([], [1]), ([1], [])]:
+        raise AssertionError(f"(c) group 0's membership changes {g0}")
+    print(f"  membership callbacks = membership_change events in every process; group 0's "
+          f"resumed incarnation saw (joined, left) {g0}", flush=True)
+
+    # (d) The baby collective and its child's crash.
+    killed, = body((1, 4), "CHILD_KILLED")
+    opfail, = body((1, 4), "OPFAIL")
+    exceeded, = body((1, 4), "EXCEEDED")
+    before = [r for r in recs[(1, 4)] if r["t"] < killed["t"]]
+    after = [r for r in recs[(1, 4)] if r["t"] > killed["t"]]
+    if sum(r["committed"] and r["participants"] == 2 for r in before) < DURABLE_MERGED:
+        raise AssertionError("(d) the baby group ran under DURABLE_MERGED merged commits")
+    if not ("collective subprocess died (exit code -9)" in opfail["exc"]
+            and opfail["dt"] < DURABLE_BABY_TIMEOUT_S):
+        raise AssertionError(f"(d) the op in flight failed with {opfail}")
+    if {r["pid"] for r in recs[(1, 4)]} != {killed["pid"]} or exceeded["pid"] != killed["pid"]:
+        raise AssertionError("(d) the baby group's process did not survive its child")
+    if not after or any(r["committed"] for r in after) or not all(
+            r["errored"] and "exit code -9" in r["errored"] for r in after):
+        raise AssertionError(f"(d) after the child's death: {after}")
+    if "max_retries=2" not in exceeded["error"] or "exit code -9" not in exceeded["errored"]:
+        raise AssertionError(f"(d) the baby group exited with {exceeded}")
+    if len({r["configure"].get("pid") for r in recs[(1, 4)]}) != 1:
+        raise AssertionError("(d) the baby respawned its child without a new quorum")
+    g0_fail = [r for r in recs[(0, 2)] if not r["committed"] and r["t"] > killed["t"]]
+    if not g0_fail or g0_fail[0]["before"] != killed["step"]:
+        raise AssertionError(f"(d) group 0's vote at the baby's step {killed['step']} did not "
+                             f"fail: {g0_fail[:1]}")
+    check_merged_tail(recs, (0, 2), (1, 5), "(d)")
+    plain = [r["step_s"] for key in ((0, 2), (1, 3)) for r in merged(recs, key, events["kill_c"])
+             if r["t"] < events["kill_d"]]
+    with_baby = [r["step_s"] for key in ((0, 2), (1, 4)) for r in merged(recs, key,
+                                                                         events["kill_d"])
+                 if r["t"] < killed["t"]]
+    cfg_ms = sorted({round(r["configure"]["configure_ms"], 1) for key in ((1, 4), (1, 5))
+                     for r in recs[key]})
+    baby_fetch = [r["fetch"] for key in ((1, 4), (1, 5)) for r in recs[key] if "fetch" in r]
+    print(f"  (d) merged step, median over both groups: {1e3 * statistics.median(plain):.1f} "
+          f"ms on the plain ring ((c), {len(plain)} group-steps), "
+          f"{1e3 * statistics.median(with_baby):.1f} ms with "
+          f"group 1 on the baby collective ({len(with_baby)} group-steps); the baby's "
+          f"configure {cfg_ms} ms; its heals {[round(f['fetch_s'], 3) for f in baby_fetch]} s "
+          f"for {baby_fetch[0]['bytes'] / 1e9:.3f} GB ({card})", flush=True)
+    print(f"  (d) child SIGKILL (pid {killed['child']}, step {killed['step']}) -> the op in "
+          f"flight failed {opfail['dt']:.3f} s ({opfail['exc']}); {len(after)} failed votes on "
+          f"the same process (pid {killed['pid']}) -> ExceededMaxRetriesError "
+          f"{exceeded['t'] - killed['t']:.3f} s, process exit "
+          f"{events['exit_d'] - killed['t']:.3f} s, the restart's first merged commit "
+          f"{merged_first(recs, (1, 5)) - killed['t']:.3f} s; group 0's failed votes "
+          f"{len([r for r in g0_fail if r['t'] < events['exit_d']])} ({card})", flush=True)
+    peak = max(r["peak_mem"] for rs in recs.values() for r in rs)
+    print(f"  durable phase: {phase_s:.1f} s; peak device memory of a process "
+          f"{peak / 2**30:.2f} GiB ({card})", flush=True)
+    print("DURABLE_PHASE " + json.dumps({
+        "phase_s": phase_s, "ref_sha": ref[0]["sha"], "collective_heal": fetch,
+        "http_striped": http_striped, "baby_opfail": opfail, "merged_plain_s": plain,
+        "merged_baby_s": with_baby, "baby_configure_ms": cfg_ms,
+        "kill_child_to_exit_s": events["exit_d"] - killed["t"]}), flush=True)
+    return launches
+
+
+def merged(recs: dict, key, after: float = 0.0) -> list:
+    return [r for r in recs[key] if r["committed"] and r["participants"] == 2 and r["t"] > after]
+
+
+def merged_first(recs: dict, key) -> float:
+    return merged(recs, key)[0]["t"]
+
+
+def check_merged_tail(recs: dict, a, b, case: str) -> None:
+    """At least DURABLE_MERGED merged commits of ``b``, each with ``a``'s
+    params_sha256 at that step."""
+    shas = {r["step"]: r["sha"] for r in recs[a] if r["committed"]}
+    tail = merged(recs, b)
+    if len(tail) < DURABLE_MERGED:
+        raise AssertionError(f"{case} group {b} ran {len(tail)} merged commits")
+    for r in tail:
+        if shas.get(r["step"]) != r["sha"]:
+            raise AssertionError(f"{case} the groups parted at step {r['step']}")
+
+
 def main() -> int:
     t_run = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3199,6 +3942,7 @@ def main() -> int:
     parser.add_argument("--heal-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--incarnation", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--elastic-group", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--durable-group", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -3220,6 +3964,9 @@ def main() -> int:
         return 0
     if args.elastic_group:
         run_elastic_group(args)
+        return 0
+    if args.durable_group is not None:
+        run_durable_group(args)
         return 0
 
     # 1. Card.
@@ -3276,6 +4023,9 @@ def main() -> int:
     print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
           flush=True)
     kill_heal = kill_heal_phase(card)
+    print(f"disk resume: Launcher + train_ddp --ckpt_dir, both groups stopped at step "
+          f"{RESUME_STEPS} and resumed from disk", flush=True)
+    resume_phase(card)
 
     # 7. The bare ring on the card's host.
     print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
@@ -3315,7 +4065,14 @@ def main() -> int:
                                                      heal_recovery["kill_c"]],
                                             "kill_heal": kill_heal["recovery_s"]})
 
-    # 13. The kernels line, then the last line.
+    # 13. Durable state and isolated communication on the flagship.
+    print(f"durable state: lighthouse + 2 groups, flagship config, StatefulDataLoader; (a) "
+          f"{DURABLE_STEPS} steps, (b) the same stopped at {DURABLE_STEPS // 2} and resumed "
+          f"from disk, (c) a lost group healed over CollectiveTransport, (d) a baby "
+          f"collective's child SIGKILLed", flush=True)
+    durable_launches = durable_phase(card, heal_recovery["http_striped"])
+
+    # 14. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -3331,6 +4088,7 @@ def main() -> int:
             "launches_diloco": diloco_launches.get(name, 0),
             "launches_healing": healing_launches.get(name, 0),
             "launches_elastic": elastic_launches.get(name, 0),
+            "launches_durable": durable_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

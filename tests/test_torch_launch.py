@@ -21,7 +21,7 @@ import pytest
 
 from torch_port_ref import import_reference
 from torchft_tpu_torch import _native
-from torchft_tpu_torch.examples.kill_heal import _Tail, kill_and_heal
+from torchft_tpu_torch.examples.kill_heal import _Tail, kill_and_heal, stop_and_resume
 from torchft_tpu_torch.launch import Launcher, main
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,6 +194,23 @@ def test_killed_group_heals_and_converges_on_cpu(tmp_path) -> None:
     # The first merged commit is the restarted incarnation's, never one the
     # killed process logged just before the kill.
     assert r["recovery_s"] > r["kill_to_restart_s"]
+
+
+def test_train_ddp_resumes_both_groups_from_disk_checkpoints_on_cpu(tmp_path) -> None:
+    """The example's ``--ckpt_dir``: two groups run to step 10 and stop
+    (saves every 5 steps, one ``group_<g>`` directory each); a second job
+    prints "resumed from disk checkpoint step=10" in both groups and ends
+    both at step 20 with one params_sha256."""
+    t0 = time.monotonic()
+    r = stop_and_resume("cpu", str(tmp_path), steps=10, ckpt_every=5, timeout_s=150.0,
+                        env={"OMP_NUM_THREADS": "1"})
+    assert time.monotonic() - t0 < 150.0
+    assert r["resumed_step"] == 10 and r["resumed"]["final_step"] == 20
+    assert sorted(os.listdir(r["ckpt_dir"])) == ["group_0", "group_1"]
+    for g in (0, 1):
+        names = sorted(os.listdir(os.path.join(r["ckpt_dir"], f"group_{g}")))
+        assert names == [f"step_{s:012d}.tpuft" for s in (10, 15, 20)]
+    assert r["first"]["params_sha256"] != r["resumed"]["params_sha256"]
 
 
 def test_tail_splits_incarnations_by_line_not_read_time(tmp_path) -> None:

@@ -102,6 +102,32 @@ def test_the_detect_and_act_plane_stands_alone() -> None:
     assert set(watcher.__all__) == {"IncidentWatcher", "POLICY_BY_KIND", "main"}
 
 
+def test_the_durable_state_and_isolation_modules_stand_alone() -> None:
+    """Disk checkpoints, the collective transport, the stateful loader, the
+    baby collective and the parameter server are scanned and import
+    nothing of JAX or the JAX package (``data.py``'s loader and
+    ``baby.py``'s pipe are the port's own copies of pure-Python JAX
+    code); received headers go through the restricted unpickler only; the
+    entry points are exported."""
+    scanned = set(_port_files())
+    for rel in ("checkpointing/disk.py", "checkpointing/collective_transport.py",
+                "checkpointing/__init__.py", "data.py", "baby.py", "parameter_server.py",
+                "examples/train_ddp.py", "examples/kill_heal.py"):
+        path = os.path.join(REPO, "torchft_tpu_torch", rel)
+        assert path in scanned, rel
+        assert not set(_imported_roots(path)) & FORBIDDEN, rel
+        src = open(path).read()
+        assert "torchft_tpu." not in src.replace("torchft_tpu_torch", ""), rel
+        assert "pickle.loads" not in src, rel
+    from torchft_tpu_torch import baby, checkpointing, data, parameter_server
+
+    assert {"CollectiveTransport", "DiskCheckpointer", "ManagedDiskCheckpoint",
+            "HTTPTransport", "CheckpointTransport"} == set(checkpointing.__all__)
+    assert set(data.__all__) == {"DistributedSampler", "StatefulDataLoader"}
+    assert set(baby.__all__) == {"MonitoredPipe", "BabyCollective", "BabyTCPCollective"}
+    assert set(parameter_server.__all__) == {"ParameterServer", "TCPParameterServer"}
+
+
 def test_every_port_module_imports_without_cuda() -> None:
     import torchft_tpu_torch
 
@@ -111,7 +137,9 @@ def test_every_port_module_imports_without_cuda() -> None:
     ]
     assert "torchft_tpu_torch.ops.attention" in names
     assert "torchft_tpu_torch.drain.watcher" in names
-    for name in ("obs.prom", "obs.incident", "obs.watcher", "tools.incident"):
+    for name in ("obs.prom", "obs.incident", "obs.watcher", "tools.incident",
+                 "checkpointing.disk", "checkpointing.collective_transport", "baby",
+                 "parameter_server"):
         assert f"torchft_tpu_torch.{name}" in names, name
     for name in names:
         importlib.import_module(name)

@@ -6,6 +6,15 @@ them over a reconfigurable TCP ring, heals a group that fell behind from a
 healthy peer over HTTP, and gates every optimizer step on a commit vote.
 The model's hot ops run as hand-written CUDA kernels for ``sm_90a``.
 
+Around that loop: durable disk checkpoints and a stateful data loader for
+a job that restarts cold (``checkpointing.disk``, ``data``), a second heal
+transport over the collective's send and recv, a crash-isolated collective
+whose communicator runs in a child process (``baby``), and a parameter
+server (``parameter_server``).  Not ported yet: the in-group mesh and
+sharded state (``parallel.mesh``, ``parallel.sharding``,
+``data.shard_batch``, ``multihost``), long context, MoE and the pipeline,
+and the control plane's HA and federation (ROADMAP queue 1).
+
 The JAX package ``torchft_tpu`` is the reference; this package imports
 nothing of it, and speaks the same wire to the same native coordination
 core (``native/``).

@@ -32,7 +32,7 @@ import pickle
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,7 @@ __all__ = [
     "read_header",
     "read_state_dict",
     "safe_loads",
+    "sharding_restorer",
     "state_dict_frames",
     "unflatten_state_dict",
     "write_state_dict",
@@ -172,27 +173,83 @@ def _tensor(buf, shape: Tuple[int, ...], dtype_name: str) -> torch.Tensor:
     return u8.view(dtype).reshape(shape)
 
 
-def unflatten_state_dict(meta: StateDictMeta, buffers: List[Any]) -> Any:
+def unflatten_state_dict(meta: StateDictMeta, buffers: List[Any],
+                         restore: Optional[Callable[[tuple, torch.Tensor], torch.Tensor]] = None
+                         ) -> Any:
     """Rebuilds the nested structure; tensors come back on the CPU, viewing
-    ``buffers`` (each a writable bytes-like object or a uint8 tensor)."""
+    ``buffers`` (each a writable bytes-like object or a uint8 tensor).
+    ``restore(path, tensor)`` (a :func:`sharding_restorer`) may place each
+    tensor, ``path`` being its keys and indices from the root."""
     leaves = iter(meta.leaves)
 
-    def build(spec: Any) -> Any:
+    def build(spec: Any, path: tuple) -> Any:
         kind, keys, children = spec
         if kind == "leaf":
             what, value = next(leaves)
             if what == "obj":
                 return value
             shape, dtype_name, _ = meta.tensors[value]
-            return _tensor(buffers[value], shape, dtype_name)
-        built = [build(c) for c in children]
+            t = _tensor(buffers[value], shape, dtype_name)
+            return restore(path, t) if restore is not None else t
+        names = keys if keys is not None else range(len(children))
+        built = [build(c, path + (k,)) for k, c in zip(names, children)]
         if kind == "dict":
             return dict(zip(keys, built))
         if kind == "odict":
             return OrderedDict(zip(keys, built))
         return built if kind == "list" else tuple(built)
 
-    return build(meta.spec)
+    return build(meta.spec, ())
+
+
+def _tensor_paths(node: Any, path: tuple, out: Dict[tuple, torch.Tensor]) -> None:
+    if isinstance(node, dict):
+        for k in _dict_keys(node):
+            _tensor_paths(node[k], path + (k,), out)
+    elif isinstance(node, (list, tuple)):
+        for i, c in enumerate(node):
+            _tensor_paths(c, path + (i,), out)
+    elif isinstance(node, torch.Tensor):
+        out[path] = node
+
+
+def sharding_restorer(state_dict_fn: Callable[[], Any]
+                      ) -> Callable[[tuple, torch.Tensor], torch.Tensor]:
+    """The placement restorer of :func:`unflatten_state_dict`, from the live
+    state: each restored tensor lands on the device of its live twin, the
+    tensor that ``state_dict_fn()`` (a zero-argument callable, the one a
+    Manager or a checkpointer is given) holds at the same path.  Where the
+    live state sits under a wrapper (the Manager sends ``{"user": {key:
+    state}, "tpuft": ...}``), the twin is the one at the longest trailing
+    part of the restored path.  A twin of another dtype or shape raises
+    ``ValueError``: nothing is cast.  A tensor with no twin stays on the
+    CPU, as without a restorer.
+
+    The live state is read once, at the first restored tensor.  The port's
+    state holds plain tensors; placing DTensor shards on an in-group mesh
+    comes with that mesh (ROADMAP Q1.7)."""
+    live: Dict[tuple, torch.Tensor] = {}
+    read = [False]
+
+    def restore(path: tuple, t: torch.Tensor) -> torch.Tensor:
+        if not read[0]:
+            read[0] = True
+            _tensor_paths(state_dict_fn(), (), live)
+        twin = None
+        for i in range(len(path)):
+            twin = live.get(path[i:])
+            if twin is not None:
+                break
+        if twin is None:
+            return t
+        if twin.dtype != t.dtype or tuple(twin.shape) != tuple(t.shape):
+            raise ValueError(
+                f"restored tensor at {'/'.join(map(str, path))} is {t.dtype} {tuple(t.shape)}, "
+                f"its live twin {twin.dtype} {tuple(twin.shape)}"
+            )
+        return t if twin.device == t.device else t.to(twin.device)
+
+    return restore
 
 
 def state_dict_frames(meta: StateDictMeta, buffers: List[Any]) -> Tuple[bytes, int]:

@@ -1,12 +1,16 @@
 """Data sharding across replica groups and local ranks.
 
-The counterpart of ``torchft_tpu/data.py``'s ``DistributedSampler``: the two
-parallel dimensions compose into one flat shard index,
-``global_rank = rank + num_replicas * replica_group`` over
+The counterpart of ``torchft_tpu/data.py``'s ``DistributedSampler`` and
+``StatefulDataLoader``: the two parallel dimensions compose into one flat
+shard index, ``global_rank = rank + num_replicas * replica_group`` over
 ``num_replicas * num_replica_groups`` shards, and the shuffled order comes
 from numpy's ``default_rng(seed + epoch)``, so the port yields the same
-index stream as the JAX package for the same arguments.  Sharding is static
-per run: a group that leaves takes its shard's remaining samples with it.
+index stream, and the same index batches, as the JAX package for the same
+arguments.  Sharding is static per run: a group that leaves takes its
+shard's remaining samples with it.
+
+Not ported yet: ``shard_batch``, which comes with the in-group mesh
+(ROADMAP Q1.7).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["DistributedSampler"]
+__all__ = ["DistributedSampler", "StatefulDataLoader"]
 
 
 class DistributedSampler:
@@ -74,3 +78,73 @@ class DistributedSampler:
             pad = self.global_world_size - self.dataset_len % self.global_world_size
             order = np.concatenate([order, order[:pad]])
         yield from order[self.global_rank :: self.global_world_size].tolist()
+
+
+class StatefulDataLoader:
+    """Checkpointable batch iterator over an indexable dataset.
+
+    Drives a :class:`DistributedSampler` through epochs and yields index
+    batches as ``np.ndarray`` (int64); the caller gathers its rows and moves
+    them to its device.  ``state_dict`` / ``load_state_dict`` round-trip the
+    exact position, ``{"epoch", "batches_yielded"}``: the per-epoch order is
+    seeded, so a resume re-derives it and skips the batches already yielded.
+    Put ``loader.state_dict()`` in the state a ``ManagedDiskCheckpoint``
+    saves, so a job resumed from disk neither replays nor skips data.
+    """
+
+    def __init__(self, sampler: DistributedSampler, batch_size: int,
+                 drop_last: bool = True) -> None:
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self._sampler = sampler
+        self._batch_size = batch_size
+        self._drop_last = drop_last
+        self._epoch = 0
+        self._batches_yielded = 0
+        # Bumped by each __iter__: the position lives on the loader (which
+        # is what makes it checkpointable), so a second live iterator would
+        # interleave with the first and advance it twice.
+        self._iter_token = 0
+
+    def _epoch_batches(self) -> int:
+        n = len(self._sampler)
+        if self._drop_last:
+            return n // self._batch_size
+        return -(-n // self._batch_size)
+
+    def _roll_if_exhausted(self) -> None:
+        # A state saved right after an epoch's last batch (before the
+        # iterator's epilogue ran) points one past the end: the next pass is
+        # the next epoch, not an empty one.
+        if self._batches_yielded >= self._epoch_batches():
+            self._epoch += 1
+            self._batches_yielded = 0
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        """One epoch of index batches from the current position; at its end
+        the position moves to the next epoch."""
+        self._iter_token += 1
+        token = self._iter_token
+        self._roll_if_exhausted()
+        self._sampler.set_epoch(self._epoch)
+        idx = np.fromiter(self._sampler, dtype=np.int64, count=len(self._sampler))
+        batches = self._epoch_batches()
+        while self._batches_yielded < batches:
+            if self._iter_token != token:
+                raise RuntimeError(
+                    "a newer iterator was started on this StatefulDataLoader; only one live "
+                    "iterator is supported (its position is shared so it can be checkpointed)"
+                )
+            lo = self._batches_yielded * self._batch_size
+            self._batches_yielded += 1
+            yield idx[lo:lo + self._batch_size]
+        self._epoch += 1
+        self._batches_yielded = 0
+
+    def state_dict(self) -> dict:
+        return {"epoch": self._epoch, "batches_yielded": self._batches_yielded}
+
+    def load_state_dict(self, state: dict) -> None:
+        self._epoch = int(state["epoch"])
+        self._batches_yielded = int(state["batches_yielded"])
+        self._roll_if_exhausted()

@@ -5,8 +5,10 @@ with SIGKILL mid-run, restarted by the supervisor, healed live from group 0.
 :func:`kill_and_heal` runs it, asserts what makes it a recovery (exactly
 one restart, a heal after the kill, both groups ending at the same step
 with the same ``params_sha256``, every loss finite) and returns what it
-measured.  Times come from the host clock: each log line is stamped when a
-poll every 20 ms reads it.
+measured.  :func:`stop_and_resume` is the whole-job stop: the same two
+groups with ``--ckpt_dir`` run to a step and stop, and a second job
+resumes both from their disk checkpoints.  Times come from the host
+clock: each log line is stamped when a poll every 20 ms reads it.
 
 Both groups write one metrics stream, ``metrics.jsonl`` in the log
 directory (``TPUFT_METRICS_PATH``), and the drive writes a ``fault`` record
@@ -30,6 +32,7 @@ from torchft_tpu_torch.metrics import METRICS_PATH_ENV, MetricsLogger
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _STEP = re.compile(r"\[group \d+\] step=(\d+) loss=(\S+) participants=(\d+) committed=(\w+)")
 _FINAL = re.compile(r"FINAL step=(\d+) params_sha256=([0-9a-f]+)")
+_RESUMED = re.compile(r"\[group \d+\] resumed from disk checkpoint step=(\d+)")
 LOG_POLL_S = 0.02
 
 
@@ -178,3 +181,59 @@ def kill_and_heal(
         "survivor_merged_step_ms": _mean_step_ms(
             [s for s in tails[0].steps(before=t_kill) if s[3] == 2 and s[4]]),
     }
+
+
+def stop_and_resume(
+    device: str,
+    log_dir: str,
+    *,
+    steps: int = 10,
+    ckpt_every: int = 5,
+    timeout_s: float = 300.0,
+    env: Optional[Dict[str, Optional[str]]] = None,
+) -> dict:
+    """Runs the train_ddp example's two groups (the lighthouse forms no
+    quorum of one, so neither trains alone) with ``--ckpt_dir`` to ``steps``, a multiple of
+    ``ckpt_every``, so both stop right after a save; then a second job of
+    the same groups to ``2 * steps``.  Asserts that each group of the second
+    job printed "resumed from disk checkpoint step=<steps>" and that both
+    end at one step with one ``params_sha256``; returns each job's seconds
+    and the resumed step.  Raises AssertionError or TimeoutError."""
+    if steps % ckpt_every:
+        raise ValueError("steps must be a multiple of ckpt_every")
+    ckpt_dir = os.path.join(log_dir, "ckpt")
+    out: dict = {"ckpt_dir": ckpt_dir}
+    for job, until in (("first", steps), ("resumed", 2 * steps)):
+        job_dir = os.path.join(log_dir, job)
+        cmd = [sys.executable, "-m", "torchft_tpu_torch.examples.train_ddp", "--device", device,
+               "--steps", str(until), "--ckpt_dir", ckpt_dir,
+               "--ckpt_every", str(ckpt_every)]
+        tails = {g: _Tail(os.path.join(job_dir, f"g{g}.log")) for g in (0, 1)}
+        t0 = time.monotonic()
+        deadline = t0 + timeout_s
+        with Launcher(cmd, num_groups=2, lighthouse="embed", max_restarts=0, min_replicas=2,
+                      log_dir=job_dir, env=env, cwd=_REPO) as launcher:
+            while launcher.running():
+                launcher.supervise_once()
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"stop_and_resume: the {job} job ran past {timeout_s} s")
+                time.sleep(LOG_POLL_S)
+            launcher.supervise_once()
+            clean = launcher.all_exited_clean()
+        for tail in tails.values():
+            tail.close_writer()
+        if not clean:
+            raise AssertionError(f"a group of the {job} job exited with an error")
+        finals = [tails[g].final() for g in (0, 1)]
+        if None in finals or finals[0] != finals[1] or finals[0][0] != until:
+            raise AssertionError(f"the {job} job's groups ended apart or short of step "
+                                 f"{until}: {finals}")
+        resumed = [[int(m[1]) for _, line in tails[g].lines for m in [_RESUMED.search(line)]
+                    if m] for g in (0, 1)]
+        want = [[steps], [steps]] if job == "resumed" else [[], []]
+        if resumed != want:
+            raise AssertionError(f"the {job} job's resume lines {resumed}, expected {want}")
+        out[job] = {"seconds": time.monotonic() - t0, "final_step": finals[0][0],
+                    "params_sha256": finals[0][1]}
+    out["resumed_step"] = steps
+    return out

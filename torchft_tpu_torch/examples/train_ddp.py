@@ -17,6 +17,11 @@ to a pre-started spare, which has built the model and started the device
 while idle (its log is ``spare_<sid>.log``); a drained group finishes its
 step, prints ``DRAIN exit`` instead of FINAL and exits 0.
 
+With ``--ckpt_dir`` (or ``TPUFT_CKPT_DIR``) each group also saves its
+state every ``--ckpt_every`` committed steps under ``group_<g>``, and a job
+started again resumes from the newest complete checkpoint ("resumed from
+disk checkpoint step=...") instead of step 0.
+
 It trains on the card unless given ``--device cpu``.  The model is the
 small conv net on synthetic CIFAR-shaped data, the same numpy dataset as
 the JAX example.  At exit each process prints a parameter checksum: after
@@ -28,6 +33,7 @@ from __future__ import annotations
 import argparse
 import faulthandler
 import logging
+import os
 import signal
 
 
@@ -43,9 +49,11 @@ def main() -> None:
     parser.add_argument("--lr", type=float, default=0.01)
     parser.add_argument("--min_replicas", type=int, default=1)
     parser.add_argument(
-        "--ckpt_dir", default="",
-        help="durable disk checkpoints are not ported yet; a non-empty value is refused",
+        "--ckpt_dir", default=os.environ.get("TPUFT_CKPT_DIR", ""),
+        help="durable checkpoint directory (one group_<g> directory a group); empty "
+        "disables disk checkpoints",
     )
+    parser.add_argument("--ckpt_every", type=int, default=10)
     parser.add_argument(
         "--require-merged-final", type=int, default=0,
         help="keep stepping past --steps until a committed step ran with at least this "
@@ -55,8 +63,6 @@ def main() -> None:
                         help="hard step bound when --require-merged-final is never met")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args()
-    if args.ckpt_dir:
-        parser.error("--ckpt_dir: durable disk checkpoints are not ported yet")
 
     import numpy as np
     import torch
@@ -98,6 +104,21 @@ def main() -> None:
     averager = GradientAverager(manager)
     params = list(model.parameters())
 
+    # Durable disk checkpoints: the peer transports heal a restarted group
+    # from a live one, but a cold start (every group gone) would otherwise
+    # begin at step 0.
+    ckpt = None
+    if args.ckpt_dir:
+        from torchft_tpu_torch.checkpointing import ManagedDiskCheckpoint
+
+        ckpt = ManagedDiskCheckpoint(manager, save, load,
+                                     os.path.join(args.ckpt_dir, f"group_{replica_group}"),
+                                     every=args.ckpt_every)
+        ckpt_step = ckpt.restore()
+        if ckpt_step is not None:
+            print(f"[group {replica_group}] resumed from disk checkpoint step={ckpt_step}",
+                  flush=True)
+
     gate = TrainGate(manager, args.steps, require_merged=args.require_merged_final,
                      steps_cap=args.steps_cap)
     try:
@@ -118,6 +139,8 @@ def main() -> None:
             averager.allreduce([p.grad for p in params])
             committed = opt.step()
             gate.note_commit(committed)
+            if ckpt is not None:
+                ckpt.maybe_save(committed)
             print(f"[group {replica_group}] step={step} loss={float(loss.detach()):.4f} "
                   f"participants={manager.num_participants()} committed={committed}",
                   flush=True)
@@ -125,6 +148,8 @@ def main() -> None:
             print(f"[group {replica_group}] FINAL step={manager.current_step()} "
                   f"params_sha256={params_digest(model.state_dict())}", flush=True)
     finally:
+        if ckpt is not None:
+            ckpt.shutdown()
         manager.shutdown()
 
 

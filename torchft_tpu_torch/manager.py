@@ -34,7 +34,15 @@ training loop needs:
   - the elastic batch engine (``TPUFT_ELASTIC_GLOBAL_BATCH``,
     :class:`~torchft_tpu_torch.ddp.ElasticBatchScaler`): ``elastic_plan()``
     splits a constant global batch over the participating groups, and
-    every committed ``step_summary`` carries the plan it trained under.
+    every committed ``step_summary`` carries the plan it trained under;
+  - membership callbacks (``register_membership_callback``): each change
+    of the participant set hands every callback a copy of the
+    ``membership_change`` event's payload, on the quorum thread;
+  - the checkpoint transport may be given after construction
+    (``set_checkpoint_transport``); with a point-to-point one
+    (``serves_all_donors`` false, the collective transport) a donor serves
+    only the healers the quorum assigns it and a healer fetches from its
+    primary alone.
 
 :meth:`Manager.allreduce` takes a CUDA tensor (copied to pinned host memory
 under the timeout) or a host buffer (a CPU tensor or numpy array, handed
@@ -66,6 +74,7 @@ timeline there at shutdown.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import os
@@ -293,6 +302,7 @@ class Manager:
         self._participating_replica_rank: Optional[int] = None
         self._participating_replica_world_size = 0
         self._last_participants: Optional[List[int]] = None
+        self._membership_callbacks: List[Callable[[Dict[str, Any]], None]] = []
         # The drain notice (set once) and the watcher that delivers it.
         self._drain_notice: Optional[DrainNotice] = None
         self._drain_watcher: Optional[DrainWatcher] = None
@@ -396,6 +406,25 @@ class Manager:
 
     def _log(self, level: int, msg: str) -> None:
         logger.log(level, f"[{self._replica_id}/{self._rank} - step {self._step}] {msg}")
+
+    def set_checkpoint_transport(self, transport: CheckpointTransport) -> None:
+        """Replaces the transport that serves and fetches heals.  The
+        erasure-coded plane is set up by the constructor's transport only."""
+        self._checkpoint_transport = transport
+        if hasattr(transport, "set_span_tracker"):
+            transport.set_span_tracker(self._spans)
+
+    def register_membership_callback(self, cb: Callable[[Dict[str, Any]], None]) -> None:
+        """Registers ``cb`` to run on every quorum transition that changes
+        the participant set, with a copy of the ``membership_change`` event's
+        payload: ``quorum_id``, ``old_participants``, ``new_participants``,
+        ``joined``, ``left``, ``transition_s``, ``mode`` and ``elastic_plan``
+        (None with the elastic batch engine off).  It runs on the quorum
+        thread after the collective is reconfigured and before the step goes
+        on, so a data loader can re-shard before the next batch is drawn.
+        An exception in it is logged and swallowed: a resize hook never
+        fails the step."""
+        self._membership_callbacks.append(cb)
 
     def register_state_dict_fn(self, key: str, load: Callable[[Any], None],
                                save: Callable[[], Any]) -> None:
@@ -724,7 +753,8 @@ class Manager:
     def _on_membership_change(self, quorum: Any, configure_ms: float,
                               last_configure: Dict[str, Any]) -> None:
         """Emits ``membership_change`` (and notes it on the step's summary)
-        when the quorum's participant set differs from the last one."""
+        and runs the membership callbacks when the quorum's participant set
+        differs from the last one; a new quorum id alone does neither."""
         new = sorted(list(quorum.participant_replica_ranks)
                      or range(quorum.replica_world_size))
         old, self._last_participants = self._last_participants, new
@@ -737,16 +767,24 @@ class Manager:
                 self._ec.reshard()
             except Exception as e:  # noqa: BLE001 - best effort
                 self._log(logging.WARNING, f"ec reshard failed: {e}")
-        joined, left = sorted(set(new) - set(old or [])), sorted(set(old or []) - set(new))
-        mode = last_configure.get("mode", "unknown")
-        self._metrics.emit(
-            "membership_change", step=self._step, quorum_id=quorum.quorum_id,
-            old_participants=old, new_participants=new, joined=joined, left=left,
-            transition_s=configure_ms / 1e3, mode=mode, elastic_plan=self._elastic_plan,
-        )
+        payload: Dict[str, Any] = {
+            "quorum_id": quorum.quorum_id,
+            "old_participants": old,
+            "new_participants": new,
+            "joined": sorted(set(new) - set(old or [])),
+            "left": sorted(set(old or []) - set(new)),
+            "transition_s": configure_ms / 1e3,
+            "mode": last_configure.get("mode", "unknown"),
+            "elastic_plan": self._elastic_plan,
+        }
+        self._metrics.emit("membership_change", step=self._step, **payload)
         self.note_summary_fields(membership_change={
-            "joined": joined, "left": left, "transition_s": configure_ms / 1e3, "mode": mode,
-        })
+            k: payload[k] for k in ("joined", "left", "transition_s", "mode")})
+        for cb in self._membership_callbacks:
+            try:
+                cb(copy.deepcopy(payload))
+            except Exception as e:  # noqa: BLE001 - a resize hook never fails the step
+                self._log(logging.WARNING, f"membership callback failed: {e}")
 
     def _refresh_elastic_plan(self, quorum: Any) -> None:
         """Plans the constant global batch over the participating world
