@@ -251,12 +251,38 @@ result):
    collective against without; the baby's configure ms; the child's
    SIGKILL to the failed op, to the exception, to the exit and to the next
    merged commit.
-14. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
+14. The control plane: two flagship groups (one seed, each step's batch
+   seeded by group and step, the native 2-lane TCP f32 ring, Manager
+   ``min_replica_size`` 2), each one process running two schedules of
+   CONTROL_STEPS steps, and every lighthouse a ``python -m
+   torchft_tpu_torch.lighthouse_cli`` process.  (a) Two HA replicas on one
+   lease file (``--lease-ms`` CONTROL_LEASE_MS, ``--min_replicas 2``), the
+   groups given both addresses; after CONTROL_KILL_AT merged commits of
+   each group the leader's process is SIGKILLed; then the port Launcher's
+   client evicts group 1 through the two addresses.  (b) A root
+   (``--min_replicas 2``) and two regions (``--region r0|r1 --root-addrs``),
+   one group in each, the same schedule uninterrupted: (a)'s reference.
+   Asserted: the standby leads at the next epoch within 3 lease periods;
+   no failed commit; exactly one ``lighthouse_failover`` (the standby's);
+   each group's quorum id and ring configure count unchanged across the
+   kill, and CONTROL_AFTER merged steps after it; the new leader tracks
+   both groups (``tpuft_replica_step``); the evict drops group 1's id; all
+   four final params_sha256 equal; the root's ``/regions.json`` has both
+   regions fresh and its ``/metrics`` no ``Heartbeat`` RPC and some
+   ``RegionDigest`` ones; no lighthouse process holds a ``/dev/nvidia*``
+   file (the groups do); K1-K5 launch 12 / 12 / 12 / 1 / 1 a step.
+   Printed: ``takeover_s``, each group's gap between commits across the
+   kill and its longest, the quorum ids and configure counts each side of
+   the kill, every failed commit, the failover events, the new leader's
+   ``tpuft_replica_step``, the evict, each step's quorum span in (b) and
+   (a)'s median, the root's ``regions()``, and a ``CONTROL`` summary line
+   with the card's name and power limit.
+15. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
    healing run as ``launches_healing``, on the elastic run as
-   ``launches_elastic`` and on the durable run as ``launches_durable``),
-   the run's seconds, then the last line, ``{"ok": true, "device":
-   {...}}``.
+   ``launches_elastic``, on the durable run as ``launches_durable`` and on
+   the control-plane run as ``launches_control``), the run's seconds, then
+   the last line, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -268,6 +294,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3911,6 +3938,496 @@ def durable_checks(card: str, recs: dict, lines: dict, streams: dict, events: di
     return launches
 
 
+# -- phase 14: the highly-available and federated control plane --------------------
+
+CONTROL_STEPS = 22          # each run's steps, both groups merged from step 0
+CONTROL_KILL_AT = 8         # merged commits of each group before the leader's SIGKILL
+CONTROL_AFTER = 12          # merged commits of each group at least after it
+CONTROL_LEASE_MS = 1500     # the HA pair's --lease-ms
+CONTROL_TIMEOUT_S = 300.0
+
+
+def run_control_group(args: argparse.Namespace) -> None:
+    """One replica group of phase 14: the flagship (one seed for both
+    groups, so no step-0 sync; each step's batch seeded by group and step)
+    on the native 2-lane TCP f32 ring, two runs in one process: (a) through
+    the HA pair's address list, (b) through its region's lighthouse.  Each
+    run waits for ``go_<run>_<g>`` (the lighthouse addresses), rebuilds the
+    model, AdamW, the collective and the Manager, and runs CONTROL_STEPS
+    steps; every step prints its commit, quorum id and the ring's configure
+    count."""
+    import logging
+    from datetime import timedelta
+
+    import torch
+
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep
+
+    group, run_dir = args.control_group, args.run_dir
+    path = lambda name: os.path.join(run_dir, name)  # noqa: E731
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format=f"[c{group}] %(message)s")
+    cfg, batch, seq = flagship_config()
+    dev = resolve_device(args.device)
+    reset_launch_counts()
+    steps_run = 0
+    for run in ("a", "b"):
+        go = path(f"go_{run}_{group}")
+        deadline = time.monotonic() + CONTROL_TIMEOUT_S
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"control group {group}: {go} never appeared")
+            time.sleep(0.02)
+        with open(go) as f:
+            lighthouse = f.read().strip()
+        model = Transformer(cfg, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(4400))
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+
+        def save():
+            return {"model": model.state_dict(), "optim": opt.state_dict()}
+
+        def load(sd) -> None:
+            model.load_state_dict(sd["model"])
+            opt.load_state_dict(sd["optim"])
+
+        collective = TCPCollective(timeout=180.0, host="127.0.0.1")
+        configures = [0]
+        configure = collective.configure
+
+        def counted(*a, **kw):
+            configures[0] += 1
+            return configure(*a, **kw)
+
+        collective.configure = counted
+        os.environ["TPUFT_METRICS_PATH"] = path(f"metrics_{run}_{group}.jsonl")
+        timeout = timedelta(seconds=180)
+        manager = Manager(
+            collective=collective, load_state_dict=load, state_dict=save, min_replica_size=2,
+            rank=0, world_size=1, replica_id=str(group), lighthouse_addr=lighthouse,
+            store_addr="127.0.0.1", manager_bind="127.0.0.1:0", timeout=timeout,
+            quorum_timeout=timeout, init_sync=False,
+        )
+        trainer = TrainStep(model, opt, loss_fn, manager)
+        try:
+            while manager.current_step() < CONTROL_STEPS:
+                if steps_run > 4 * CONTROL_STEPS:
+                    raise RuntimeError(f"control group {group}: run {run} never reached step "
+                                       f"{CONTROL_STEPS}")
+                before = manager.current_step()
+                manager.start_quorum()
+                gen = torch.Generator(device=dev).manual_seed(4500 + 1000 * group + before)
+                tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+                t0 = time.perf_counter()
+                loss, committed = trainer.ft_step({"tokens": tokens,
+                                                   "targets": torch.roll(tokens, -1, dims=1)})
+                loss_v = float(loss)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                steps_run += 1
+                rec = {"run": run, "group": group, "before": before,
+                       "step": manager.current_step(), "committed": committed,
+                       "participants": manager.num_participants(), "loss": loss_v,
+                       "step_s": time.perf_counter() - t0, "t": time.time(),
+                       "quorum_id": manager._quorum_id, "configures": configures[0],
+                       "ring": (collective.ring_engine, collective.lanes, collective.wire_dtype,
+                                collective.ring_transport)}
+                print("STEP " + json.dumps(rec), flush=True)
+                if committed and not math.isfinite(loss_v):
+                    raise RuntimeError(f"control group {group}: loss {loss_v} is not finite")
+            h = hashlib.sha256()
+            for name, p in model.state_dict().items():
+                h.update(name.encode())
+                h.update(p.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+                         .tobytes())
+            print("FINAL " + json.dumps({"run": run, "group": group, "step":
+                                         manager.current_step(), "sha": h.hexdigest(),
+                                         "steps_run": steps_run, "launches": launch_counts(),
+                                         "replica_id": manager.replica_id()}), flush=True)
+        finally:
+            manager.shutdown()
+        del trainer, manager, model, opt
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def device_fds(pid: int) -> list:
+    """The /dev/nvidia* files a process holds open: none for a process that
+    never initialized CUDA."""
+    out = []
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def metric_lines(http: str, prefix: str) -> list:
+    import urllib.request
+
+    text = urllib.request.urlopen(f"{http}/metrics", timeout=10).read().decode()
+    return [line for line in text.splitlines() if line.startswith(prefix)]
+
+
+def rpc_count(http: str, method: str) -> int:
+    """The count of ``tpuft_rpc_latency_seconds{method=...}`` on a
+    lighthouse's /metrics (0 when the series is absent), as
+    ``bench_scale.py`` reads the root's heartbeat fan-in."""
+    for line in metric_lines(http, "tpuft_rpc_latency_seconds_count"):
+        if f'method="{method}"' in line:
+            return int(float(line.rsplit(" ", 1)[1]))
+    return 0
+
+
+def control_phase(card: str, device: str = "cuda") -> dict:
+    """(a) Two HA lighthouse replicas (``python -m
+    torchft_tpu_torch.lighthouse_cli --lease-file ... --lease-ms
+    CONTROL_LEASE_MS``, one lease file) and two flagship groups through
+    ``TPUFT_LIGHTHOUSE``-style ``A,B``; after CONTROL_KILL_AT merged commits
+    of each group the leader's process is SIGKILLed; the groups run on to
+    CONTROL_STEPS; then the port Launcher's client evicts group 1 through
+    ``A,B``.  (b) A root (``--min_replicas 2``) and two region lighthouses
+    (``--region r0|r1 --root-addrs <root>``), one group in each region, the
+    same schedule uninterrupted: it is (a)'s reference.  Returns the K1-K5
+    launches of both groups."""
+    import urllib.request
+
+    from torchft_tpu_torch._native import LighthouseClient
+    from torchft_tpu_torch.launch import Launcher
+    from torchft_tpu_torch.models import flagship_config
+    from torchft_tpu_torch.obs import report
+
+    run_dir = tempfile.mkdtemp(prefix="tpuft_control_")
+    path = lambda name: os.path.join(run_dir, name)  # noqa: E731
+    lh_procs, lh_logs, groups, recs, finals = {}, {}, {}, [], {}
+    lock = threading.Lock()
+    expected_dead = set()
+
+    def lighthouse(name: str, *argv: str) -> None:
+        lh_logs[name] = open(path(f"lh_{name}.log"), "w")
+        env = {**os.environ, "TPUFT_METRICS_PATH": path("lighthouses.jsonl")}
+        lh_procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "torchft_tpu_torch.lighthouse_cli", *argv], cwd=HERE,
+            env=env, stdout=lh_logs[name], stderr=subprocess.STDOUT)
+
+    def start_group(g: int) -> None:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--control-group", str(g), "--run-dir",
+             run_dir, "--device", device], stdout=subprocess.PIPE, text=True, cwd=HERE)
+        groups[g] = proc
+
+        def read() -> None:
+            for line in proc.stdout:
+                line = line.rstrip("\n")
+                head, _, body = line.partition(" ")
+                if head in ("STEP", "FINAL"):
+                    rec = json.loads(body)
+                    with lock:
+                        (recs.append(rec) if head == "STEP"
+                         else finals.__setitem__((rec["run"], g), rec))
+                    if head == "STEP":
+                        short = {k: rec[k] for k in ("step", "committed", "participants",
+                                                     "quorum_id", "configures")}
+                        print(f"  [c{g}.{rec['run']}] STEP {json.dumps(short)} "
+                              f"{rec['step_s'] * 1e3:.1f} ms", flush=True)
+                        continue
+                print(f"  [c{g}] {line}", flush=True)
+
+        threading.Thread(target=read, daemon=True).start()
+
+    def check_alive() -> None:
+        for name, p in lh_procs.items():
+            if p.poll() is not None and name not in expected_dead:
+                lh_logs[name].flush()
+                with open(path(f"lh_{name}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"lighthouse {name} exited with {p.returncode}:\n{tail}")
+        for g, p in groups.items():
+            if p.poll() not in (None, 0):
+                raise RuntimeError(f"control group {g} exited with {p.returncode}")
+
+    def wait(cond, what: str, timeout: float = CONTROL_TIMEOUT_S) -> None:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check_alive()
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"control phase: {what}")
+            time.sleep(0.02)
+
+    def leader_info(addr: str):
+        client = LighthouseClient(addr, connect_timeout_ms=500)
+        try:
+            return client.leader(timeout_ms=1000)
+        except Exception:  # noqa: BLE001 - not up yet, or dead
+            return None
+        finally:
+            client.close()
+
+    def go(run: str, g: int, addrs: str) -> None:
+        tmp = path(f"go_{run}_{g}.tmp")
+        with open(tmp, "w") as f:
+            f.write(addrs)
+        os.replace(tmp, path(f"go_{run}_{g}"))
+
+    def run_recs(run: str, g: int) -> list:
+        with lock:
+            return [r for r in recs if r["run"] == run and r["group"] == g]
+
+    def merged_n(run: str, g: int, after: float = 0.0) -> int:
+        return sum(1 for r in run_recs(run, g) if r["committed"] and r["participants"] == 2
+                   and r["t"] > after)
+
+    def no_device(names) -> dict:
+        fds = {name: device_fds(lh_procs[name].pid) for name in names}
+        bad = {k: v for k, v in fds.items() if v}
+        if bad:
+            raise AssertionError(f"lighthouse processes hold the card open: {bad}")
+        return fds
+
+    def stop(names) -> dict:
+        for name in names:
+            expected_dead.add(name)
+            lh_procs[name].send_signal(signal.SIGTERM)
+        rcs = {name: lh_procs[name].wait(timeout=30) for name in names}
+        if any(rcs.values()):
+            raise AssertionError(f"lighthouses exited with {rcs} on SIGTERM")
+        return rcs
+
+    t_phase = time.monotonic()
+    out: dict = {"card": card}
+    try:
+        # (a) The HA pair: both started before the groups; the groups list
+        # both addresses.
+        rpc = {n: f"127.0.0.1:{free_port()}" for n in ("A", "B")}
+        for n, peer in (("A", "B"), ("B", "A")):
+            lighthouse(n, "--bind", rpc[n], "--http_bind", f"127.0.0.1:{free_port()}",
+                       "--min_replicas", "2", "--lease-file", path("lease"), "--lease-ms",
+                       str(CONTROL_LEASE_MS), "--peers", rpc[peer])
+        for g in (0, 1):
+            start_group(g)
+        # (b)'s root and regions start now, so their start-up hides behind (a).
+        rpc.update({n: f"127.0.0.1:{free_port()}" for n in ("root", "r0", "r1")})
+        root_http = f"127.0.0.1:{free_port()}"
+        lighthouse("root", "--bind", rpc["root"], "--http_bind", root_http, "--min_replicas",
+                   "2")
+        for n in ("r0", "r1"):
+            lighthouse(n, "--bind", rpc[n], "--http_bind", f"127.0.0.1:{free_port()}",
+                       "--region", n, "--root-addrs", rpc["root"])
+        addrs = f"{rpc['A']},{rpc['B']}"
+        wait(lambda: any((leader_info(rpc[n]) or {}).get("role") == 1 for n in "AB"),
+             "no HA lighthouse was elected", timeout=120.0)
+        leader = next(n for n in "AB" if (leader_info(rpc[n]) or {}).get("role") == 1)
+        standby = "B" if leader == "A" else "A"
+        epoch0 = leader_info(rpc[leader]).leader.leader_epoch
+        t0 = time.monotonic()
+        for g in (0, 1):
+            go("a", g, addrs)
+        wait(lambda: all(merged_n("a", g) >= CONTROL_KILL_AT for g in (0, 1)),
+             f"the groups never ran {CONTROL_KILL_AT} merged steps on the HA pair")
+        out["lighthouse_fds"] = no_device(["A", "B"])
+        group_fds = {g: device_fds(p.pid) for g, p in groups.items()}
+        if device == "cuda" and not all(group_fds.values()):
+            raise AssertionError(f"the device-file probe sees no card in the groups: {group_fds}")
+        expected_dead.add(leader)
+        t_kill_wall, t_kill = time.time(), time.monotonic()
+        lh_procs[leader].send_signal(signal.SIGKILL)
+        lh_procs[leader].wait()
+        takeover = {}
+
+        def took_over() -> bool:
+            info = leader_info(rpc[standby])
+            if info is not None and info.role == 1 and info.leader.leader_epoch == epoch0 + 1:
+                takeover["s"] = time.monotonic() - t_kill
+                return True
+            return False
+
+        wait(took_over, f"no takeover within {3 * CONTROL_LEASE_MS} ms",
+             timeout=3 * CONTROL_LEASE_MS / 1e3)
+        wait(lambda: all(any(r["committed"] and r["step"] >= CONTROL_STEPS
+                             for r in run_recs("a", g)) for g in (0, 1)),
+             "the groups never finished run (a) after the takeover")
+        http_b = leader_info(rpc[standby]).leader.leader_http_address
+        out["replica_step"] = metric_lines(http_b, "tpuft_replica_step{")
+        wait(lambda: all(("a", g) in finals for g in (0, 1)), "run (a) printed no FINAL")
+        out["a_s"] = time.monotonic() - t0
+        # The port Launcher's evict of group 1 through "A,B": its client
+        # fails over past the dead A (or follows B) to the new leader.
+        status = LighthouseClient(rpc[standby])
+        ids = lambda: sorted(status.status().heartbeat_age_ms)  # noqa: E731
+        before = ids()
+        launcher = Launcher([sys.executable, "-c", "pass"], num_groups=2, lighthouse=addrs)
+        launcher._evict_from_lighthouse(1)
+        launcher._evict_client.close()
+        after = ids()
+        status.close()
+        out["evict"] = {"before": before, "after": after,
+                        "evicted": len(before) - len(after)}
+        out["fds_a"] = no_device([standby])
+        stop([standby])
+
+        # (b) Two regions and a root; one group in each region.
+        def regions() -> dict:
+            try:
+                return json.loads(urllib.request.urlopen(f"http://{root_http}/regions.json",
+                                                         timeout=5).read())
+            except OSError:
+                return {}
+
+        wait(lambda: sum(not r.get("stale") for r in regions().get("regions", [])) == 2,
+             "the root never saw two fresh regions", timeout=120.0)
+        t0 = time.monotonic()
+        for g in (0, 1):
+            go("b", g, rpc[f"r{g}"])
+        wait(lambda: all(("b", g) in finals for g in (0, 1)), "run (b) printed no FINAL")
+        out["b_s"] = time.monotonic() - t0
+        out["regions"] = regions()
+        out["root_heartbeat_rpcs"] = rpc_count(f"http://{root_http}", "Heartbeat")
+        out["root_digest_rpcs"] = rpc_count(f"http://{root_http}", "RegionDigest")
+        out["fds_b"] = no_device(["root", "r0", "r1"])
+        stop(["root", "r0", "r1"])
+        for g, p in groups.items():
+            if p.wait(timeout=CONTROL_TIMEOUT_S) != 0:
+                raise RuntimeError(f"control group {g} exited with {p.returncode}")
+        streams = {(run, g): report.read_events([path(f"metrics_{run}_{g}.jsonl")])
+                   for run in ("a", "b") for g in (0, 1)}
+        lh_events = report.read_events([path("lighthouses.jsonl")])
+    finally:
+        for p in list(groups.values()) + list(lh_procs.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in lh_logs.values():
+            f.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out["phase_s"] = time.monotonic() - t_phase
+    with lock:
+        out.update(recs=list(recs), finals=dict(finals))
+    return control_checks(out, streams, lh_events, rpc, leader, standby, epoch0, takeover["s"],
+                          t_kill_wall)
+
+
+def control_checks(out: dict, streams: dict, lh_events: list, rpc: dict, leader: str,
+                   standby: str, epoch0: int, takeover_s: float, t_kill: float) -> dict:
+    """Phase 14's assertions and prints; returns the K1-K5 launches of both
+    groups."""
+    from torchft_tpu_torch.models import flagship_config
+
+    card, recs, finals = out["card"], out["recs"], out["finals"]
+    cfg, _, _ = flagship_config()
+    print(f"  (a) HA pair {rpc['A']}, {rpc['B']} (lease {CONTROL_LEASE_MS} ms): leader {leader} "
+          f"at epoch {epoch0} SIGKILLed; {standby} led at epoch {epoch0 + 1} after "
+          f"takeover_s {takeover_s:.3f} s ({card})", flush=True)
+    failed = [(r["run"], r["group"], r["before"]) for r in recs if not r["committed"]]
+    for run, g, step in failed:
+        print(f"  FAILED COMMIT: run ({run}) group {g} at step {step}", flush=True)
+    if failed:
+        raise AssertionError(f"failed commits {failed}")
+    for r in recs:
+        if r["ring"] != ["native", 2, "f32", "tcp"]:
+            raise AssertionError(f"run ({r['run']}) group {r['group']} ran the ring {r['ring']}")
+    failovers = [e for e in lh_events if e.get("event") == "lighthouse_failover"]
+    print(f"  lighthouse_failover events: "
+          f"{[(e.get('replica_id'), e.get('leader_epoch')) for e in failovers]}", flush=True)
+    if [(e.get("replica_id"), e.get("leader_epoch")) for e in failovers] != [
+            (f"lighthouse:{rpc[standby]}", epoch0 + 1)]:
+        raise AssertionError(f"expected one lighthouse_failover, {standby}'s at epoch "
+                             f"{epoch0 + 1}: {failovers}")
+    for g in (0, 1):
+        rs = [r for r in recs if r["run"] == "a" and r["group"] == g]
+        pre = [r for r in rs if r["t"] <= t_kill]
+        post = [r for r in rs if r["t"] > t_kill]
+        times = [r["t"] for r in rs if r["committed"]]
+        gaps = [b - a for a, b in zip(times, times[1:])]
+        # The step in flight at the kill had its quorum already; the next
+        # step's quorum waits for the takeover.
+        across = min((b - a for a, b in zip(times, times[1:]) if a <= t_kill < b), default=0.0)
+        resume = max(b - a for a, b in zip(times, times[1:]) if b > t_kill)
+        out.setdefault("resume_gap_s", {})[g] = resume
+        print(f"  (a) group {g}: quorum id / ring configures at the last step before the kill "
+              f"{pre[-1]['quorum_id']} / {pre[-1]['configures']}, at the first after "
+              f"{post[0]['quorum_id']} / {post[0]['configures']}, at the end "
+              f"{rs[-1]['quorum_id']} / {rs[-1]['configures']}; gap between commits: the one "
+              f"holding the kill {across:.3f} s, the longest after it {resume:.3f} s, the "
+              f"longest {max(gaps):.3f} s, median {statistics.median(gaps):.3f} s; "
+              f"{len(post)} merged steps after the kill ({card})", flush=True)
+        if rs[-1]["configures"] != pre[-1]["configures"] or (
+                rs[-1]["quorum_id"] != pre[-1]["quorum_id"]):
+            raise AssertionError(f"group {g} reconfigured its ring across the takeover: quorum "
+                                 f"ids {[r['quorum_id'] for r in rs]}")
+        if len(post) < CONTROL_AFTER:
+            raise AssertionError(f"group {g} ran {len(post)} merged steps after the kill")
+    print(f"  (a) the new leader's tpuft_replica_step: {out['replica_step']}", flush=True)
+    if len([x for x in out["replica_step"] if 'replica="0:' in x or 'replica="1:' in x]) != 2:
+        raise AssertionError(f"the new leader does not track both groups: {out['replica_step']}")
+    ev = out["evict"]
+    print(f"  (a) the port Launcher's evict of group 1 through {rpc['A']},{rpc['B']}: evicted "
+          f"{ev['evicted']} ({ev['before']} -> {ev['after']})", flush=True)
+    if ev["evicted"] != 1 or any(x.startswith("1:") for x in ev["after"]):
+        raise AssertionError(f"the evict of group 1 did not reach the new leader: {ev}")
+    shas = {key: f["sha"] for key, f in finals.items()}
+    print(f"  params_sha256: (a) {shas[('a', 0)]} / {shas[('a', 1)]}, (b) uninterrupted "
+          f"{shas[('b', 0)]} / {shas[('b', 1)]}", flush=True)
+    if len(set(shas.values())) != 1:
+        raise AssertionError(f"the runs ended with different parameters: {shas}")
+    # (b): each step's quorum span, from the Managers' streams.
+    for g in (0, 1):
+        spans = [(e["step"], e["quorum_ms"]) for e in streams[("b", g)]
+                 if e.get("event") == "quorum"]
+        ms = [s for _, s in spans]
+        print(f"  (b) group {g} (region r{g}) quorum span a step, ms: "
+              + ", ".join(f"{s}:{m:.1f}" for s, m in spans)
+              + f"; first {ms[0]:.1f}, median of the rest {statistics.median(ms[1:]):.1f} "
+              f"({card})", flush=True)
+        spans_a = [e["quorum_ms"] for e in streams[("a", g)] if e.get("event") == "quorum"]
+        print(f"  (a) group {g} quorum span median {statistics.median(spans_a):.1f} ms, longest "
+              f"{max(spans_a):.1f} ms ({card})", flush=True)
+    rows = out["regions"].get("regions", [])
+    print(f"  (b) root regions(): {json.dumps(out['regions'])}; root RPCs: Heartbeat "
+          f"{out['root_heartbeat_rpcs']}, RegionDigest {out['root_digest_rpcs']}", flush=True)
+    if sorted(r["region"] for r in rows) != ["r0", "r1"] or any(r.get("stale") for r in rows):
+        raise AssertionError(f"the root's regions are not both fresh: {rows}")
+    if out["root_heartbeat_rpcs"] != 0 or out["root_digest_rpcs"] <= 0:
+        raise AssertionError("the root fielded heartbeats, or no digests")
+    print(f"  lighthouse processes' /dev/nvidia* files: {out['lighthouse_fds']}, "
+          f"{out['fds_a']}, {out['fds_b']} (none: no CUDA)", flush=True)
+    per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
+    launches = {name: 0 for name in per_step}
+    for g in (0, 1):
+        f = finals[("b", g)]
+        for name, k in per_step.items():
+            if f["launches"].get(name) != k * f["steps_run"]:
+                raise AssertionError(f"control group {g}: {name} launched "
+                                     f"{f['launches'].get(name)} times in {f['steps_run']} steps")
+            launches[name] += f["launches"][name]
+    print("CONTROL " + json.dumps({
+        "card": card, "takeover_s": takeover_s, "lease_ms": CONTROL_LEASE_MS,
+        "resume_gap_s": out["resume_gap_s"], "failed_commits": 0, "evicted": ev["evicted"], "a_s": out["a_s"], "b_s": out["b_s"],
+        "phase_s": out["phase_s"], "launches": launches}), flush=True)
+    print(f"  control phase: {out['phase_s']:.1f} s (run (a) {out['a_s']:.1f} s, run (b) "
+          f"{out['b_s']:.1f} s; {card})", flush=True)
+    return launches
+
+
 def merged(recs: dict, key, after: float = 0.0) -> list:
     return [r for r in recs[key] if r["committed"] and r["participants"] == 2 and r["t"] > after]
 
@@ -3943,6 +4460,7 @@ def main() -> int:
     parser.add_argument("--incarnation", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--elastic-group", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--durable-group", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--control-group", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -3967,6 +4485,9 @@ def main() -> int:
         return 0
     if args.durable_group is not None:
         run_durable_group(args)
+        return 0
+    if args.control_group is not None:
+        run_control_group(args)
         return 0
 
     # 1. Card.
@@ -4072,7 +4593,14 @@ def main() -> int:
           f"collective's child SIGKILLed", flush=True)
     durable_launches = durable_phase(card, heal_recovery["http_striped"])
 
-    # 14. The kernels line, then the last line.
+    # 14. The highly-available and federated control plane on the flagship.
+    print(f"control plane: (a) 2 HA lighthouse processes (lease {CONTROL_LEASE_MS} ms) + 2 "
+          f"groups, flagship config, the leader SIGKILLed after {CONTROL_KILL_AT} merged steps; "
+          f"(b) a root + 2 region lighthouses, one group in each, {CONTROL_STEPS} steps",
+          flush=True)
+    control_launches = control_phase(card)
+
+    # 15. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -4089,6 +4617,7 @@ def main() -> int:
             "launches_healing": healing_launches.get(name, 0),
             "launches_elastic": elastic_launches.get(name, 0),
             "launches_durable": durable_launches.get(name, 0),
+            "launches_control": control_launches.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -128,6 +128,30 @@ def test_the_durable_state_and_isolation_modules_stand_alone() -> None:
     assert set(parameter_server.__all__) == {"ParameterServer", "TCPParameterServer"}
 
 
+def test_the_control_plane_stands_alone() -> None:
+    """The lease, the replicated lighthouse, federation and the CLIs are
+    scanned and import nothing of JAX or the JAX package (``ha/lease.py``
+    is the port's own copy of a JAX module that imports no JAX, and the
+    wire types are the port's codec, not ``tpuft_pb2``); the entry points
+    are exported."""
+    scanned = set(_port_files())
+    for rel in ("ha/__init__.py", "ha/lease.py", "ha/replica.py", "federation/__init__.py",
+                "federation/region.py", "federation/root.py", "lighthouse_cli.py",
+                "store_cli.py", "coordination.py", "_wire.py", "_native.py"):
+        path = os.path.join(REPO, "torchft_tpu_torch", rel)
+        assert path in scanned, rel
+        assert not set(_imported_roots(path)) & (FORBIDDEN | {"google"}), rel
+        src = open(path).read()
+        assert "torchft_tpu." not in src.replace("torchft_tpu_torch", ""), rel
+        assert "import tpuft_pb2" not in src and "tpuft_pb2 as" not in src, rel
+    from torchft_tpu_torch import coordination, federation, ha
+
+    assert set(ha.__all__) == {"DecorrelatedBackoff", "FileLease", "LeaseRecord",
+                               "HALighthouse"}
+    assert set(federation.__all__) == {"RegionLighthouse", "RootLighthouse"}
+    assert {"Quorum", "QuorumMember", "LighthouseClient"} <= set(coordination.__all__)
+
+
 def test_every_port_module_imports_without_cuda() -> None:
     import torchft_tpu_torch
 
@@ -139,7 +163,8 @@ def test_every_port_module_imports_without_cuda() -> None:
     assert "torchft_tpu_torch.drain.watcher" in names
     for name in ("obs.prom", "obs.incident", "obs.watcher", "tools.incident",
                  "checkpointing.disk", "checkpointing.collective_transport", "baby",
-                 "parameter_server"):
+                 "parameter_server", "ha.lease", "ha.replica", "federation.region",
+                 "federation.root", "lighthouse_cli", "store_cli", "coordination"):
         assert f"torchft_tpu_torch.{name}" in names, name
     for name in names:
         importlib.import_module(name)

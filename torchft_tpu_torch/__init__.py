@@ -10,10 +10,16 @@ Around that loop: durable disk checkpoints and a stateful data loader for
 a job that restarts cold (``checkpointing.disk``, ``data``), a second heal
 transport over the collective's send and recv, a crash-isolated collective
 whose communicator runs in a child process (``baby``), and a parameter
-server (``parameter_server``).  Not ported yet: the in-group mesh and
+server (``parameter_server``).  The control plane: a lighthouse group kept
+available by a lease in a shared file with continuous replication to warm
+standbys (``ha``), regional lighthouses under a root (``federation``),
+their CLI (``lighthouse_cli``), a store CLI (``store_cli``), the raw
+coordination API (``coordination``), and a lighthouse client that fails
+over across an address list.  Not ported yet: the in-group mesh and
 sharded state (``parallel.mesh``, ``parallel.sharding``,
 ``data.shard_batch``, ``multihost``), long context, MoE and the pipeline,
-and the control plane's HA and federation (ROADMAP queue 1).
+the TPU JobSet spec (``spec.py``) and the metrics linter (ROADMAP queue
+1).
 
 The JAX package ``torchft_tpu`` is the reference; this package imports
 nothing of it, and speaks the same wire to the same native coordination

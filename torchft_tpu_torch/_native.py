@@ -10,8 +10,10 @@ every native call.
 
 The library is built (``_build.native_lib_path``) and loaded at first use,
 not at import.  The port binds what the fault-tolerant training loop
-needs: the lighthouse server (with its evict and drain), a lighthouse
-client for evicts and drain notices, the manager server and client (quorum, checkpoint metadata, commit
+needs: the lighthouse server (with its evict and drain, and its HA role,
+replication snapshot and federation calls), the failover lighthouse
+client over an address list (quorum, heartbeat, status, leader, replicate,
+evict, drain), the manager server and client (quorum, checkpoint metadata, commit
 vote, heartbeat telemetry and goodput ledger), the servers' flight
 recorders, the rendezvous store, and the GIL-free ring data plane
 (:class:`RingEngine`, ``native/src/ring.h``): the flat ring and the 2-D
@@ -22,7 +24,9 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -76,6 +80,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tf_lighthouse_evict.argtypes = [vp, cp]
     lib.tf_lighthouse_drain.restype = ctypes.c_int
     lib.tf_lighthouse_drain.argtypes = [vp, cp, ctypes.c_int64]
+    # HA and federation (docs/wire.md "HA lighthouse", "Federation").  The
+    # port builds its library from the repo's sources, so a missing symbol
+    # is a build fault and fails here.
+    lib.tf_lighthouse_set_role.restype = None
+    lib.tf_lighthouse_set_role.argtypes = [vp, ctypes.c_int, cp, cp, ctypes.c_int64,
+                                           ctypes.c_int64]
+    lib.tf_lighthouse_role.restype = ctypes.c_int
+    lib.tf_lighthouse_role.argtypes = [vp]
+    lib.tf_lighthouse_leader_epoch.restype = ctypes.c_int64
+    lib.tf_lighthouse_leader_epoch.argtypes = [vp]
+    lib.tf_lighthouse_snapshot.restype = None
+    lib.tf_lighthouse_snapshot.argtypes = [vp, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                                           ctypes.POINTER(ctypes.c_size_t)]
+    lib.tf_lighthouse_link_state.restype = ctypes.c_int
+    lib.tf_lighthouse_link_state.argtypes = [vp, cp]
+    lib.tf_lighthouse_set_federation.restype = None
+    lib.tf_lighthouse_set_federation.argtypes = [vp, cp, cp, ctypes.c_int64]
+    lib.tf_lighthouse_regions_json.restype = vp
+    lib.tf_lighthouse_regions_json.argtypes = [vp]
     lib.tf_lighthouse_shutdown.argtypes = [vp]
     lib.tf_lighthouse_shutdown.restype = None
     lib.tf_lighthouse_free.argtypes = [vp]
@@ -220,6 +243,26 @@ def _raise_for_status(status: int, msg: str) -> None:
     raise exc
 
 
+# Wire status UNAVAILABLE (native/src/wire.h): a transport failure or an HA
+# standby's "not the leader" rejection, the two a multi-address client
+# fails over on.
+_UNAVAILABLE = 14
+
+# The HA standby rejection (native/src/wire.h kNotLeaderPrefix):
+# "not the leader; leader=<rpc_addr> http=<http_addr> epoch=<N>".
+NOT_LEADER_PREFIX = "not the leader"
+
+
+def parse_not_leader(msg: str) -> Optional[str]:
+    """The leader RPC address a standby's rejection names, "" when the
+    standby knows no leader yet, or None when ``msg`` is no such
+    rejection."""
+    if not msg.startswith(NOT_LEADER_PREFIX):
+        return None
+    m = re.search(r"leader=(\S*)", msg)
+    return m.group(1) if m else ""
+
+
 class _Client:
     """RPC client over one native connection (connects with retry)."""
 
@@ -331,6 +374,76 @@ class LighthouseServer:
         reads it."""
         return json.loads(self.flight_json(limit) or "{}")
 
+    def set_role(self, leader: bool, leader_address: str = "", leader_http_address: str = "",
+                 epoch: int = 0, lease_expires_ms: int = 0) -> None:
+        """HA role control (docs/wire.md "HA lighthouse").  A standalone
+        lighthouse is a permanent leader; under the lease election
+        (:mod:`torchft_tpu_torch.ha`) the election loop flips the role here at every
+        lease transition.  As leader, ``lease_expires_ms`` (epoch ms) is the
+        serve-time guard: once it passes without a renewed call, Quorum and
+        Heartbeat are refused, so a leader whose lease expired never
+        answers beside the lease's next winner.  As follower, the
+        ``leader_*`` addresses are where the redirect rejections and HTTP
+        307s point clients."""
+        if self._ptr:
+            _lib().tf_lighthouse_set_role(self._ptr, 1 if leader else 0, leader_address.encode(),
+                                          leader_http_address.encode(), int(epoch),
+                                          int(lease_expires_ms))
+
+    def role(self) -> int:
+        """1 leader with a live lease, 0 follower (or a lapsed lease)."""
+        return int(_lib().tf_lighthouse_role(self._ptr)) if self._ptr else 0
+
+    def leader_epoch(self) -> int:
+        return int(_lib().tf_lighthouse_leader_epoch(self._ptr)) if self._ptr else 0
+
+    def snapshot(self) -> bytes:
+        """The serialized ``LighthouseReplicateRequest`` of the whole
+        replicable state (membership, live step and state, the sentinels'
+        health, alerts, the previous quorum and its id): what the HA election loop
+        pushes to each standby over wire method 6."""
+        if not self._ptr:
+            return b""
+        lib = _lib()
+        buf = ctypes.POINTER(ctypes.c_uint8)()
+        length = ctypes.c_size_t()
+        lib.tf_lighthouse_snapshot(self._ptr, ctypes.byref(buf), ctypes.byref(length))
+        data = ctypes.string_at(buf, length.value)
+        lib.tf_free(ctypes.cast(buf, ctypes.c_void_p))
+        return data
+
+    def set_federation(self, region: str, root_addrs: str, push_interval_ms: int = 500) -> None:
+        """Joins a two-tier federation as the child lighthouse of ``region``
+        (docs/wire.md "Federation"): this instance keeps its local groups'
+        heartbeats, sentinels and ledger, but stops forming quorums; a
+        native loop pushes a membership and ledger digest to the root at
+        ``root_addrs`` (comma-separated, leader and standbys) every
+        ``push_interval_ms`` and installs the global quorum the root
+        returns.  The root needs no call: any lighthouse that receives
+        digests serves as root."""
+        if self._ptr:
+            _lib().tf_lighthouse_set_federation(self._ptr, region.encode(), root_addrs.encode(),
+                                                int(push_interval_ms))
+
+    def regions_json(self) -> str:
+        """The federation rollup as a JSON document, the payload of
+        ``GET /regions.json``: ``{"role", "region", "regions": [...]}``, role
+        ``"root"``, ``"child"`` or ``"flat"``."""
+        if not self._ptr:
+            return '{"role":"flat","region":"","regions":[]}'
+        return _take_string(_lib().tf_lighthouse_regions_json(self._ptr))
+
+    def regions(self) -> dict:
+        """Parsed :meth:`regions_json`."""
+        return json.loads(self.regions_json() or "{}")
+
+    def link_state(self, replica_id: str) -> int:
+        """The slow-link sentinel's state of the replica's outbound edge (0
+        healthy, 1 suspect, 2 degraded)."""
+        if not self._ptr:
+            return 0
+        return int(_lib().tf_lighthouse_link_state(self._ptr, replica_id.encode()))
+
     def shutdown(self) -> None:
         if self._ptr:
             lib = _lib()
@@ -340,33 +453,156 @@ class LighthouseServer:
 
 
 class LighthouseClient:
-    """Lighthouse access over the wire for one ``host:port`` (a supervisor's
-    evict of a dead group, a departing group's drain notice).  The JAX
-    package's client also fails over across an HA replica set; that waits
-    for the HA port."""
+    """Lighthouse access over the wire.
+
+    ``addr`` is one ``host:port`` or a comma-separated list (an HA replica
+    set, docs/wire.md "HA lighthouse"): every call fails over across the
+    list with decorrelated-jitter backoff, follows a standby's "not the
+    leader; leader=<addr>" straight to the leader, and raises an error
+    naming every address when none answers in time.  Connections are made
+    at the first call."""
 
     def __init__(self, addr: str, connect_timeout_ms: int = 10000) -> None:
-        self._client = _Client(addr, connect_timeout_ms)
+        self._addrs = [a.strip() for a in addr.split(",") if a.strip()]
+        if not self._addrs:
+            raise ValueError("empty lighthouse address")
+        self._connect_timeout_ms = connect_timeout_ms
+        self._cur = 0
+        self._leader_override: Optional[str] = None
+        self._clients: dict = {}
+
+    def _client_for(self, addr: str, budget_ms: int) -> _Client:
+        client = self._clients.get(addr)
+        if client is None:
+            # A short connect budget an attempt, so one dead address cannot
+            # eat the failover window before the others are tried.
+            client = _Client(addr, connect_timeout_ms=min(2000, max(250, budget_ms)))
+            self._clients[addr] = client
+        return client
+
+    def _call_failover(self, method: int, payload: bytes, timeout_ms: int) -> bytes:
+        """One logical call against the replica set: the current (or the
+        redirect-named) address; on UNAVAILABLE or a failed connect, follow
+        the redirect or rotate, with decorrelated-jitter backoff, until
+        ``timeout_ms`` has passed.  Application errors (ABORTED "is
+        draining", a live server's DEADLINE_EXCEEDED) are final."""
+        from torchft_tpu_torch.ha.backoff import DecorrelatedBackoff
+
+        deadline = time.monotonic() + max(0.05, timeout_ms / 1e3)
+        # Capped under a lease period: mid-election every address rejects,
+        # and the sleep would otherwise set the failover's latency.
+        backoff = DecorrelatedBackoff(base_s=0.05, cap_s=0.5)
+        last_exc: Optional[Exception] = None
+        first = True
+        while first or time.monotonic() < deadline:
+            first = False
+            left_ms = max(250, int((deadline - time.monotonic()) * 1e3))
+            addr = self._leader_override or self._addrs[self._cur % len(self._addrs)]
+            try:
+                client = self._client_for(addr, min(self._connect_timeout_ms, left_ms))
+                return client.call(method, payload, min(timeout_ms, left_ms))
+            except TimeoutError as e:
+                if getattr(e, "wire_status", None) is not None:
+                    raise  # DEADLINE_EXCEEDED from a live server
+                last_exc = e  # the connect failed: rotate below
+            except RuntimeError as e:
+                if getattr(e, "wire_status", None) != _UNAVAILABLE:
+                    raise  # an application error, e.g. "is draining"
+                last_exc = e
+                leader = parse_not_leader(str(e))
+                if leader and leader != addr:
+                    # The rejection proves the service is up: straight to
+                    # the named leader, no backoff.
+                    self._leader_override = leader
+                    continue
+            # A transport failure or a standby that knows no leader: drop a
+            # learned leader (it may just have died), else rotate.
+            if self._leader_override is not None:
+                self._leader_override = None
+            else:
+                self._cur = (self._cur + 1) % len(self._addrs)
+            sleep_s = backoff.next()
+            if time.monotonic() + sleep_s >= deadline:
+                break
+            time.sleep(sleep_s)
+        raise TimeoutError(
+            "no lighthouse answered at any of [" + ", ".join(self._addrs)
+            + f"] within {timeout_ms} ms: check TPUFT_LIGHTHOUSE and that the lighthouse "
+            f"processes are running (last error: {last_exc})")
+
+    def _call(self, method: int, request: str, fields: dict, response: str,
+              timeout_ms: int) -> "_wire.Message":
+        raw = self._call_failover(method, _wire.encode(request, fields), timeout_ms)
+        return _wire.decode(response, raw)
+
+    def quorum(self, replica_id: str, timeout_ms: int = 5000, address: str = "",
+               store_address: str = "", step: int = 0, world_size: int = 1,
+               shrink_only: bool = False, data: Optional[dict] = None,
+               trace_id: str = "") -> "_wire.Message":
+        """Joins the lighthouse's next quorum (wire method 1) and returns it
+        (a ``_wire.Quorum``); ``data`` rides on this member as JSON."""
+        member = {"replica_id": replica_id, "address": address, "store_address": store_address,
+                  "step": int(step), "world_size": int(world_size), "shrink_only": shrink_only}
+        if data is not None:
+            member["data"] = json.dumps(data)
+        return self._call(LIGHTHOUSE_QUORUM, "LighthouseQuorumRequest",
+                          {"requester": member, "trace_id": trace_id},
+                          "LighthouseQuorumResponse", timeout_ms).quorum
+
+    def heartbeat(self, replica_id: str, timeout_ms: int = 5000, step: int = 0, state: str = "",
+                  step_time_ms_ewma: float = 0.0, step_time_ms_last: float = 0.0,
+                  trace_id: str = "", link_recv_gbps: float = 0.0,
+                  link_send_gbps: float = 0.0, link_hop_rtt_ms: float = 0.0) -> None:
+        """One heartbeat (wire method 2): ``step`` and ``state`` feed the
+        lighthouse's per-replica gauges, the step times its straggler
+        sentinel, the link fields (0 = not reported) its slow-link
+        sentinel."""
+        self._call(LIGHTHOUSE_HEARTBEAT, "LighthouseHeartbeatRequest", {
+            "replica_id": replica_id, "step": int(step), "state": state,
+            "step_time_ms_ewma": float(step_time_ms_ewma),
+            "step_time_ms_last": float(step_time_ms_last), "trace_id": trace_id,
+            "link_recv_gbps": float(link_recv_gbps), "link_send_gbps": float(link_send_gbps),
+            "link_hop_rtt_ms": float(link_hop_rtt_ms),
+        }, "LighthouseHeartbeatResponse", timeout_ms)
 
     def evict(self, replica_prefix: str, timeout_ms: int = 5000) -> int:
         """:meth:`LighthouseServer.evict` through wire method 4."""
-        req = _wire.encode("LighthouseEvictRequest", {"replica_prefix": replica_prefix})
-        resp = self._client.call(LIGHTHOUSE_EVICT, req, timeout_ms)
-        return _wire.decode("LighthouseEvictResponse", resp)["evicted"]
+        return self._call(LIGHTHOUSE_EVICT, "LighthouseEvictRequest",
+                          {"replica_prefix": replica_prefix}, "LighthouseEvictResponse",
+                          timeout_ms).evicted
 
     def drain(self, replica_prefix: str, deadline_ms: int = 0, timeout_ms: int = 5000,
               trace_id: str = "") -> int:
         """:meth:`LighthouseServer.drain` through wire method 5; ``trace_id``
         is the step in flight's, for the lighthouse's flight recorder."""
-        req = _wire.encode("LighthouseDrainRequest", {
+        return self._call(LIGHTHOUSE_DRAIN, "LighthouseDrainRequest", {
             "replica_prefix": replica_prefix, "deadline_ms": int(deadline_ms),
             "trace_id": trace_id,
-        })
-        resp = self._client.call(LIGHTHOUSE_DRAIN, req, timeout_ms)
-        return _wire.decode("LighthouseDrainResponse", resp)["drained"]
+        }, "LighthouseDrainResponse", timeout_ms).drained
+
+    def status(self, timeout_ms: int = 5000) -> "_wire.Message":
+        """The lighthouse's ``LighthouseStatusResponse`` (wire method 3)."""
+        return _wire.decode("LighthouseStatusResponse",
+                            self._call_failover(LIGHTHOUSE_STATUS, b"", timeout_ms))
+
+    def leader(self, timeout_ms: int = 5000) -> "_wire.Message":
+        """Leader discovery (wire method 7): whom the answering replica
+        takes for the leader (``leader``, a ``LeaderInfo``) and its own
+        role (1 leader, 0 follower).  Every replica answers it."""
+        return _wire.decode("LighthouseLeaderInfoResponse",
+                            self._call_failover(LIGHTHOUSE_LEADER_INFO, b"", timeout_ms))
+
+    def replicate(self, snapshot: bytes, timeout_ms: int = 5000) -> "_wire.Message":
+        """Pushes a :meth:`LighthouseServer.snapshot` to the replica this
+        client targets (wire method 6).  ``applied`` False: the receiver
+        holds a higher epoch and the sender should demote itself."""
+        return _wire.decode("LighthouseReplicateResponse",
+                            self._call_failover(LIGHTHOUSE_REPLICATE, snapshot, timeout_ms))
 
     def close(self) -> None:
-        self._client.close()
+        for client in self._clients.values():
+            client.close()
+        self._clients.clear()
 
 
 class ManagerServer:
@@ -563,6 +799,14 @@ class StoreClient:
             prefix = extra + "/" + prefix if prefix else extra
         self._client = _Client(addr, connect_timeout_ms)
         self._prefix = prefix
+
+    def sub_store(self, prefix: str) -> "StoreClient":
+        """A client on the same connection whose keys are under
+        ``<this prefix>/<prefix>``."""
+        child = StoreClient.__new__(StoreClient)
+        child._client = self._client
+        child._prefix = f"{self._prefix}/{prefix}" if self._prefix else prefix
+        return child
 
     def _key(self, key: str) -> str:
         return f"{self._prefix}/{key}" if self._prefix else key

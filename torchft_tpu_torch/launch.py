@@ -359,7 +359,7 @@ class Launcher:
         """Tells the lighthouse the group's incarnations are dead, so the
         next quorum forms without waiting on their still-fresh heartbeats:
         in-process for an embedded lighthouse, over the wire (method 4)
-        otherwise.  A failed evict only costs the survivors the heartbeat
+        otherwise, failing over across an HA replica list.  A failed evict only costs the survivors the heartbeat
         timeout, so it is logged, not raised."""
         try:
             if self._embedded is not None:
