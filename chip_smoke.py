@@ -12,18 +12,25 @@ result):
    ptxas reports; any spill in a wgmma kernel (WGMMA_KERNELS) fails.
 3. Kernel checks: every kernel against its plain PyTorch version on the
    card, at the flagship shapes (flash and cross-entropy in bf16; RMSNorm
-   with bf16 x and f32 w, plus ragged, 3-D and f32 cases; flash also at
+   on every path and kernel variant ``rms_plan`` picks: x [16384, 768]
+   and large_config's [8192, 2048], 16383 rows, 1 row, d 1000 and 1001,
+   3-D and 1-D, and RMS_VARIANT_SHAPES, each in bf16 and f32 with w f32,
+   the plan printed per shape; flash also at
    S 4096 and a ragged S 1000; cross-entropy also at ragged (N, E, V) =
    (300, 256, 1000), and dlogits at (1000, 128, 520) and (256, 784,
    1000)), element by element within the stated tolerances (TOL_*); each
    check must also reject a planted fault (a tile left out of a loop, a
    mask skipped on the diagonal tile or past V, a term dropped, a
-   statistic over half a row), so a tolerance loose enough to pass a
+   statistic over half a row or over one warp of a row's group, a row's
+   tail left out of the sum), so a tolerance loose enough to pass a
    broken kernel fails the run, and two launches of each flash backward
    kernel and of ce_dlogits on the same inputs must agree bit for bit.
    Then CUDA-event times of the kernel, the plain version, one library
    call where PyTorch has one (and cuBLAS's product of the cross-entropy
-   kernels' shape as a reference point),
+   kernels' shape as a reference point; RMSNorm at four shapes, x [16384,
+   768] and [8192, 2048] in bf16 and f32, each with its device time apart
+   from the launch (a CUDA graph of its calls), its eager time and the
+   host's time a call),
    and the bound (the least time the card could take: bytes over 3.35 TB/s
    or bf16 operations over 989 TFLOP/s, the H100 SXM peaks at 700 W).
 4. RMSNorm entry point: ``rms_norm_pallas`` forward and backward through
@@ -277,7 +284,9 @@ result):
    ``tpuft_replica_step``, the evict, each step's quorum span in (b) and
    (a)'s median, the root's ``regions()``, and a ``CONTROL`` summary line
    with the card's name and power limit.
-15. The kernels line, ``{"kernels": [...]}`` (each kernel's launches on
+15. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
+   and ``host_ms`` beside ``ms``, and its four shapes under ``shapes``;
+   each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
    healing run as ``launches_healing``, on the elastic run as
    ``launches_elastic``, on the durable run as ``launches_durable`` and on
@@ -288,6 +297,7 @@ result):
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import itertools
 import json
@@ -314,6 +324,17 @@ RAW_STEPS = 3             # group 0's plain full_step timings after the run
 GROUP_TIMEOUT_S = 600.0
 JOIN_GRACE_S = 1.0        # for group 1's first quorum request to reach the lighthouse
 RMS_CALLS = 3             # rms_norm_pallas calls of the entry-point phase
+RMS_LARGE = (8192, 2048)  # large_config's x (batch 8 x seq 1024, d_model 2048; bench.py:274)
+RMS_GRAPH_REPS = 200      # K6 launches in the CUDA graph of its device time
+# K6's checked shapes beyond the timed ones, each for a variant of the
+# kernel (ops/rmsnorm.py rms_plan, in both dtypes): the ring with 6 vectors
+# a lane (bf16) and 4 (f32); groups of 2 and 4 warps a row (bf16), 4 and 8
+# (f32), each walking its ring more than once around; 8 warps a row with rows
+# wider than their registers hold (the slot kept until the row is written);
+# and "vector", rows too wide for a ring.
+RMS_VARIANT_SHAPES = ((64, 1536), (64, 512), (4100, 4096), (2640, 8192), (600, 20000),
+                      (2, 30000))
+L2_BYTES = 50 * 2 ** 20   # the H100's L2: timed inputs rotate through twice it
 KILL_STEPS = 2000         # train_ddp's --steps in the kill-and-heal phase
 KILL_MERGED = 30          # group 0's merged commits before the kill
 KILL_TIMEOUT_S = 420.0
@@ -377,6 +398,52 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()``: a CUDA graph of ``reps`` calls, captured
+    after a warm-up (outside the capture) and replayed three times; the
+    median replay's event time over ``reps``.  The host's work of a call
+    (Python, checks, the launch) is left out."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return sorted(times)[1] / reps
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """The host's time of one ``fn()`` while the card trails behind: wall
+    time of ``reps`` calls with no synchronisation among them, over
+    ``reps`` (the launch queue holds them all).  Where it is below the
+    device time, the card sets the pace of calls back to back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / reps
+
+
 def bound(flops: float, nbytes: float) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -401,14 +468,11 @@ def bound(flops: float, nbytes: float) -> dict:
 TOL_FLASH = {"rtol": 1e-2, "row": 2e-2, "atol": 1e-4}
 TOL_LSE = {"rtol": 0.0, "row": 0.0, "atol": 1e-4}
 TOL_DLOGITS = {"rtol": 2e-2, "row": 0.0, "atol": 1e-6}
-# RMSNorm: one rounding of an f32 result on each side; results that differ
-# in the last f32 bits (rsqrtf, the shuffle-tree sum) can round one bf16
-# step apart, up to 2^-7 of the value just above a power of two, so
-# 1.6e-2 |ref| allows two steps; f32 outputs 1e-5 |ref|.  The gradients
-# (closed form against autograd's chain, both f32, dx rounded to bf16) add
-# a row term for dx's cancellation.
-TOL_RMS = {"rtol": 1.6e-2, "row": 0.0, "atol": 1e-5}
-TOL_RMS_F32 = {"rtol": 1e-5, "row": 0.0, "atol": 1e-6}
+# RMSNorm's forward: TOL_RMS (bf16 x) and TOL_RMS_F32 in ops/rmsnorm.py,
+# which tools/ab_rms_norm.py shares: two bf16 rounding steps, 1.6e-2 |ref|
+# + 1e-5, and 1e-5 |ref| + 1e-6 for f32.  Its gradients (closed form
+# against autograd's chain, both f32, dx rounded to bf16) add a row term
+# for dx's cancellation.
 TOL_RMS_GRAD = {"rtol": 1e-2, "row": 1e-3, "atol": 1e-5}
 
 
@@ -703,30 +767,7 @@ def kernel_checks() -> dict:
          # same shape, which writes as many bf16 bytes as K5 does.
          matmul_ms=cuda_ms(lambda: torch.matmul(x, w), 5),
          **bound(2 * N * E * V, N * E * 2 + E * V * 2 + 2 * N * 4 + 4 + N * V * 2))
-    from torchft_tpu_torch.ops import rmsnorm as R
-
-    # Four inputs in turn (100 MB of x, twice the 50 MB L2): each call reads
-    # x from device memory, as a caller with a fresh activation would.
-    xs = [randn(N, E) for _ in range(4)]
-    wr = 1.0 + 0.1 * torch.randn(E, generator=gen, device=dev)
-    wr_bf16 = wr.to(torch.bfloat16)
-    turn = iter(range(1 << 30))
-
-    def rotating(fn):
-        return lambda: fn(xs[next(turn) % len(xs)])
-
-    lib_dtype = F.rms_norm(xs[0], (E,), wr, 1e-6).dtype
-    note("rms_norm",
-         ms=cuda_ms(rotating(lambda x: R.rms_fwd(x, wr, 1e-6)), 100),
-         plain_ms=cuda_ms(rotating(lambda x: R._rms_reference(x, wr, 1e-6)), 20),
-         library_ms=cuda_ms(rotating(lambda x: F.rms_norm(x, (E,), wr, 1e-6)), 100),
-         library_call=f"F.rms_norm(x bf16, ({E},), w f32, 1e-6), which returns {lib_dtype}",
-         # The same call with w cast to bf16, the dtype pair PyTorch fuses.
-         library_bf16w_ms=cuda_ms(rotating(lambda x: F.rms_norm(x, (E,), wr_bf16, 1e-6)), 100),
-         # ~4 f32 operations an element take far less than the bytes' time:
-         # the bound is the bytes.
-         **bound(0.0, 2 * N * E * 2 + E * 4))
-    del xs
+    note("rms_norm", **rms_times(gen, N, E))
     for name, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         extra = f"  matmul_ms {r['matmul_ms']:.3f}" if "matmul_ms" in r else ""
@@ -740,40 +781,77 @@ def kernel_checks() -> dict:
 
 
 def rms_checks(note, keep, gen, n: int, e: int) -> None:
-    """K6 against ``_rms_reference``: the flagship width (x [n, e] bf16, w
-    [e] f32) with a planted fault, ragged and 3-D inputs in both dtype
-    pairs, and the backward through autograd against the plain version's
-    autograd."""
+    """K6 against ``_rms_reference`` on every path and kernel variant
+    ``rms_plan`` picks, each shape in both dtype pairs: the flagship width
+    (x [n, e]) and large_config's (RMS_LARGE), a partial last tile (n - 1
+    rows), one row, d 1000 and 1001 (unaligned rows: "scalar"), 3-D and
+    1-D inputs, and RMS_VARIANT_SHAPES (the ring's other register
+    variants, groups of 2, 4 and 8 warps a row walking their rings several
+    times, rows wider than the registers hold, and "vector"); a planted
+    fault on the ring path, on a group of several warps, on the unaligned
+    path and on "vector"; the backward through autograd against the plain
+    version's autograd."""
     import torch
 
     from torchft_tpu_torch.ops import rmsnorm as R
 
     dev = torch.device("cuda")
     eps = 1e-6
+    sms = R._sms(dev)
 
     def inputs(shape, dtype):
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
         w = 1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device=dev)
         return x, w
 
-    x, w = inputs((n, e), torch.bfloat16)
-    ref = R._rms_reference(x, w, eps)
-    keep("rms_norm", check("rms_norm flagship x bf16", R.rms_norm_pallas(x, w, eps), ref,
-                           TOL_RMS), f"x [{n}, {e}] bf16, w f32")
-    half = x[:, : e // 2].float()
-    inv_half = torch.rsqrt(half.square().mean(-1, keepdim=True) + eps)
-    note("rms_norm", planted={"statistics over the first half of each row": reject(
-        "statistics over the first half of each row", (x.float() * inv_half * w).to(x.dtype),
-        ref, TOL_RMS)})
-    for shape in ((300, 1000), (300, 1001), (4, 50, e), (e,)):
-        for dtype, tol in ((torch.bfloat16, TOL_RMS), (torch.float32, TOL_RMS_F32)):
+    def planted(name, x, w, ref, tol, keep_mask, count):
+        """Statistics from the elements of keep_mask only: their sum of x^2
+        over count."""
+        xf = x.float()
+        inv_part = torch.rsqrt((xf.square() * keep_mask).sum(-1, keepdim=True) / count + eps)
+        return reject(name, (xf * inv_part * w).to(x.dtype), ref, tol)
+
+    faults = {}
+    shapes = ((n, e), RMS_LARGE, (n - 1, e), (1, e), (300, 1000), (300, 1001), (4, 50, e), (e,),
+              *RMS_VARIANT_SHAPES)
+    for shape in shapes:
+        for dtype, tol in ((torch.bfloat16, R.TOL_RMS), (torch.float32, R.TOL_RMS_F32)):
             xs, ws = inputs(shape, dtype)
+            d = shape[-1]
+            plan = R.rms_plan(xs.numel() // d, d, dtype, sms)
             name = f"x {list(shape)} {str(dtype).split('.')[-1]}"
-            keep("rms_norm", check(f"rms_norm {name}", R.rms_norm_pallas(xs, ws, eps),
-                                   R._rms_reference(xs, ws, eps), tol), name)
+            ref = R._rms_reference(xs, ws, eps)
+            print(f"  rms_norm {name}: path {plan.path} (R {plan.rows_per_tile}, "
+                  f"{plan.stages} stages, {plan.warps_per_row} warps a row, {plan.smem_bytes} B "
+                  f"shared, {plan.blocks} blocks)", flush=True)
+            keep("rms_norm", check(f"rms_norm {name}", R.rms_norm_pallas(xs, ws, eps), ref, tol),
+                 f"{name}, w f32")
+            if dtype != torch.bfloat16:
+                continue
+            vec = torch.arange(d, device=dev) // (16 // dtype.itemsize)
+            if shape in ((n, e), (300, 1001)):
+                case = f"statistics over the first half of each row, {name} ({plan.path})"
+                half = (torch.arange(d, device=dev) < d // 2).float()
+                faults[case] = planted(case, xs, ws, ref, tol, half, d // 2)
+            if plan.path == "vector":
+                # The row past the 8 vectors a lane keeps in registers left
+                # out of the sum.
+                case = f"the sum of x^2 over the registers' share of each row only, {name}"
+                faults[case] = planted(case, xs, ws, ref, tol, (vec < 8 * 32).float(), d)
+            if shape == (2640, 8192):
+                # A group of several warps that leaves out the others' partial
+                # sums: each row's statistics from the vectors its first warp
+                # holds.
+                case = (f"statistics from the first of {plan.warps_per_row} warps a row only, "
+                        f"{name} ({plan.path})")
+                first = (vec % (32 * plan.warps_per_row) < 32).float()
+                faults[case] = planted(case, xs, ws, ref, tol, first, first.sum())
+            del xs, ws, ref
+    note("rms_norm", planted=faults)
 
     # Backward: the closed form after the kernel's forward, against
     # autograd through the plain version.
+    x, w = inputs((n, e), torch.bfloat16)
     g = torch.randn(n, e, generator=gen, device=dev).to(torch.bfloat16)
     grads = []
     for fn in (R.rms_norm_pallas, R._rms_reference):
@@ -784,6 +862,81 @@ def rms_checks(note, keep, gen, n: int, e: int) -> None:
     check("rms_norm_pallas backward dx", dx, rdx, TOL_RMS_GRAD)
     check("rms_norm_pallas backward dw", dw, rdw, TOL_RMS_GRAD)
     torch.cuda.synchronize()
+
+
+def rms_times(gen, n: int, e: int) -> dict:
+    """K6's times at four shapes, x [n, e] (the flagship's) and RMS_LARGE,
+    each in bf16 and f32 with w f32.  Inputs rotate through at least twice
+    the 50 MB L2, so each call reads x from device memory, as a caller with
+    a fresh activation would, and the last ``copies`` outputs are held, so
+    the outputs rotate through as many buffers.  Per shape: ``device_ms``
+    (``graph_ms`` of the wrapper: the kernel apart from its host work),
+    ``ms`` (eager: the wrapper called from Python back to back, the kernels
+    line's ``ms`` as before), ``host_ms`` (``host_ms`` of the wrapper: the
+    host's share of a call),
+    ``library_ms`` (``F.rms_norm`` with w f32, the same function; eager and
+    ``library_device_ms``), ``library_bf16w_ms`` (w cast to bf16, the pair
+    PyTorch fuses: a reference point only) and the bound (bytes: x read,
+    out written, w read, once each).  Returns the flagship bf16 shape's
+    numbers, with the plain version's time there, and all four under
+    ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchft_tpu_torch.ops import rmsnorm as R
+
+    dev = torch.device("cuda")
+    sms = R._sms(dev)
+    shapes = {}
+    top = {}
+    for rows, d in ((n, e), RMS_LARGE):
+        for dtype in (torch.bfloat16, torch.float32):
+            nbytes = rows * d * dtype.itemsize
+            copies = max(2, -(-2 * L2_BYTES // nbytes))
+            xs = [torch.randn(rows, d, generator=gen, device=dev).to(dtype) for _ in range(copies)]
+            wr = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+            wr_bf16 = wr.to(torch.bfloat16)
+            turn = itertools.count()
+            held = collections.deque(maxlen=copies)
+
+            def rotating(fn):
+                return lambda: held.append(fn(xs[next(turn) % copies]))
+
+            plan = R.rms_plan(rows, d, dtype, sms)
+            name = f"x [{rows}, {d}] {str(dtype).split('.')[-1]}"
+            r = {
+                "path": plan.path, "plan": plan._asdict(),
+                "device_ms": graph_ms(rotating(lambda x: R.rms_fwd(x, wr, 1e-6)), RMS_GRAPH_REPS),
+                "ms": cuda_ms(rotating(lambda x: R.rms_fwd(x, wr, 1e-6)), 100),
+                "host_ms": host_ms(rotating(lambda x: R.rms_fwd(x, wr, 1e-6))),
+                "library_ms": cuda_ms(rotating(lambda x: F.rms_norm(x, (d,), wr, 1e-6)), 100),
+                "library_device_ms": graph_ms(rotating(lambda x: F.rms_norm(x, (d,), wr, 1e-6)),
+                                              RMS_GRAPH_REPS),
+                "library_bf16w_ms": cuda_ms(
+                    rotating(lambda x: F.rms_norm(x, (d,), wr_bf16, 1e-6)), 100),
+                # ~4 f32 operations an element take far less than the bytes'
+                # time: the bound is the bytes.
+                **bound(0.0, 2 * nbytes + d * 4),
+            }
+            r["device_share_of_bound"] = r["bound_ms"] / r["device_ms"]
+            print(f"  rms_norm {name} ({plan.path}, R {plan.rows_per_tile}, {plan.stages} "
+                  f"stages, {plan.blocks} blocks): device {r['device_ms']:.4f} ms, eager "
+                  f"{r['ms']:.4f} ms, host {r['host_ms']:.4f} ms a call, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['device_share_of_bound']:.0%} of it on the device); F.rms_norm w f32 "
+                  f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f}), w bf16 "
+                  f"{r['library_bf16w_ms']:.4f} ms", flush=True)
+            shapes[name] = r
+            if not top:
+                lib_dtype = F.rms_norm(xs[0], (d,), wr, 1e-6).dtype
+                top = {k: r[k] for k in ("device_ms", "ms", "host_ms", "library_ms",
+                                         "library_bf16w_ms", "bound_ms", "bound_by", "flops",
+                                         "bytes")}
+                top["plain_ms"] = cuda_ms(rotating(lambda x: R._rms_reference(x, wr, 1e-6)), 20)
+                top["library_call"] = (f"F.rms_norm(x bf16, ({d},), w f32, 1e-6), which returns "
+                                       f"{lib_dtype}")
+            del xs, held
+            torch.cuda.empty_cache()
+    return {**top, "shapes": shapes}
 
 
 # -- phase 4: the RMSNorm entry point ------------------------------------------
@@ -4628,8 +4781,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("library_call", "library_bf16w_ms", "matmul_ms", "plain_call",
-                                 "checked", "bitwise_repeat")
+            **{k: r[k] for k in ("device_ms", "host_ms", "shapes", "library_call",
+                                 "library_bf16w_ms", "matmul_ms", "plain_call", "checked",
+                                 "bitwise_repeat")
                if k in r},
         })
     print(f"chip_smoke: {time.monotonic() - t_run:.1f} s in all ({card})", flush=True)

@@ -87,6 +87,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// An L2 cache policy that evicts first the lines it covers: for data read
+// once.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// A contiguous run of `bytes` bytes from global into shared memory, no
+// tensor map, its lines cached in L2 under `policy`; completion counts the
+// bytes on `bar`.  Both addresses and `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes), "r"(smem_u32(bar)),
+      "l"(policy)
+      : "memory");
+}
+
 // One box from shared memory to a 3-D tensor map; out-of-bounds rows are
 // not written.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
