@@ -54,8 +54,13 @@ result):
    Printed: the averager's last_stats, the merged step's split into the
    train thread's waits for the copies off the card, for the ring and for
    the copies back, and params_sha256 beside the previous tree's
-   (PREVIOUS_PARAMS_SHA256; two groups on the f32 wire reduce each element
-   by one IEEE sum and one division by 2 on any engine, lanes or stripes).
+   (PREVIOUS_PARAMS_SHA256, asserted equal; two groups on the f32 wire
+   reduce each element by one IEEE sum and one division by 2 on any engine,
+   lanes or stripes, and the speculative step changes nothing in the
+   arithmetic).  ``TrainStep`` runs with the default ``overlap_commit=None``:
+   printed, each group's resolved choice after its first committed step,
+   the copy's extra bytes, the card's free memory, the process's limit and
+   the allocator's peak, and how many steps speculated.
    Each group writes a metrics stream (``TPUFT_METRICS_PATH``) and dumps
    its ring's sampled hops; the port's own consumers then read them:
    asserted, every committed step has a ``step_summary``, group 1's heal a
@@ -284,13 +289,31 @@ result):
    ``tpuft_replica_step``, the evict, each step's quorum span in (b) and
    (a)'s median, the root's ``regions()``, and a ``CONTROL`` summary line
    with the card's name and power limit.
-15. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
+15. The step options on the flagship, in this process.  (a) Two models
+   from one seed, with ``remat`` and without, take OPTION_STEPS
+   ``full_step``s on the same batches.  Asserted: the losses are bitwise
+   equal, the gradients lie within TOL_REMAT_GRAD of each tensor's max
+   (printed whether they are bitwise), K1-K5 launch 24, 12, 12, 1 and 1
+   times a step with remat and 12, 12, 12, 1 and 1 without, and the peak
+   of ``torch.cuda.max_memory_allocated`` is lower with remat.  Printed:
+   both peaks and each step's CUDA-event ms.  (b) Two groups from one seed,
+   each alone (its own lighthouse, ``min_replica_size`` 1: the averager's
+   lone-ring path), one with ``overlap_commit=True`` and one with
+   ``False``, take OVERLAP_STEPS ``ft_step``s in turns on the same
+   batches; the loss_fn of step OVERLAP_FAIL_AT reports an error, so its
+   vote fails.  Asserted: after every step both hold bitwise the same
+   parameters and AdamW state, the overlapped one speculated every step and
+   restored the failed one, the serial one never speculated.  Printed: each step's wall, its
+   ``commit_vote`` span and the snapshot copy's CUDA-event ms.
+16. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
    and ``host_ms`` beside ``ms``, and its four shapes under ``shapes``;
    each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
    healing run as ``launches_healing``, on the elastic run as
-   ``launches_elastic``, on the durable run as ``launches_durable`` and on
-   the control-plane run as ``launches_control``), the run's seconds, then
+   ``launches_elastic``, on the durable run as ``launches_durable``, on
+   the control-plane run as ``launches_control`` and on phase 15 (a)'s
+   steps with and without remat as ``launches_remat`` and
+   ``launches_no_remat``), the run's seconds, then
    the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -341,7 +364,7 @@ KILL_TIMEOUT_S = 420.0
 BARE_RING_REPEATS = 2     # allreduces per configuration in the bare-ring phase
 BARE_RING_TIMEOUT_S = 300.0
 # params_sha256 of phase 5 on the previous tree (the single-lane Python
-# ring), printed beside this run's.
+# ring), printed beside this run's and asserted equal to it.
 PREVIOUS_PARAMS_SHA256 = "a6708cb8b8f7ca7d788b7e4aec47ebe288e95de86bd675e5311f02544f344981"
 # The averager's span sums per merged step against its last_stats waits:
 # one clock measures both, so they differ by rounding (1 us a span) and by
@@ -1112,7 +1135,8 @@ def run_group(args: argparse.Namespace) -> None:
         healed += int(jumped)
         rec = {"group": group, "step": manager.current_step(), "loss": loss_v,
                "committed": committed, "participants": participants,
-               "ring": collective.size(), "healed": jumped, "step_s": dt}
+               "ring": collective.size(), "healed": jumped, "step_s": dt,
+               "speculated": trainer.last_speculation is not None}
         if collective.size() == 2:
             # The averager's last exchange: this step's (alone it returns
             # before any copy and keeps the previous step's stats), under
@@ -1194,6 +1218,9 @@ def run_group(args: argparse.Namespace) -> None:
     result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     result["worker_scrapes"] = [{k: v for k, v in sc.items() if k != "samples"}
                                 for sc in scrapes]
+    # overlap_commit=None, resolved after the first committed step.
+    result["overlap_decision"] = trainer.overlap_decision
+    result["speculated_steps"] = sum(r["speculated"] for r in steps)
     manager.shutdown()
     if group == 0:
         # The compute alone: TrainStep.full_step (forward, backward, AdamW;
@@ -1333,9 +1360,25 @@ def main_path(card: str, transport: str = "tcp") -> tuple:
                           for x in sc)
               + f"; hop latency counts {[x['hop_count'] for x in sc]}; counters monotonic, lane "
               f"totals equal to lane_totals() ({card})", flush=True)
+    for r in (r0, r1):
+        d = r["overlap_decision"]
+        if d is None:
+            raise AssertionError(f"group {r['group']}: overlap_commit was never resolved")
+        mem = (f"free {d['free'] / 2**30:.3f} GiB of {d['total'] / 2**30:.3f}, this process's "
+               f"limit {d['limit'] / 2**30:.3f} GiB, allocator peak "
+               f"{d['high_water'] / 2**30:.3f} GiB" if d.get("free") is not None
+               else "no memory statistics")
+        print(f"group {r['group']}: overlap_commit resolved {d['overlap']} "
+              f"({'the speculative step' if d['overlap'] else 'the SERIAL step'}) after its "
+              f"first committed step: extra {d['extra_bytes'] / 2**30:.3f} GiB for the copy; "
+              f"{mem}; {r['speculated_steps']} of {r['steps_run']} steps speculated ({card})",
+              flush=True)
     same = r0["params_sha256"] == PREVIOUS_PARAMS_SHA256
     print(f"params_sha256 {r0['params_sha256']}; previous tree's {PREVIOUS_PARAMS_SHA256}: "
           f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        raise AssertionError("phase 5 ended with other parameters than the previous tree's "
+                             "(the speculative step changes nothing in the arithmetic)")
     from torchft_tpu_torch.models import flagship_config
 
     cfg, batch, seq = flagship_config()
@@ -4601,6 +4644,248 @@ def check_merged_tail(recs: dict, a, b, case: str) -> None:
             raise AssertionError(f"{case} the groups parted at step {r['step']}")
 
 
+# -- phase 15: the step options on the flagship ---------------------------------------
+
+OPTION_STEPS = 3          # full_steps of each model in (a), the first a warm-up
+OVERLAP_STEPS = 4         # ft_steps of each run in (b)
+OVERLAP_FAIL_AT = 2       # the ft_step of (b) whose vote fails (report_error in its loss)
+# (a)'s gradients, where not bitwise: |g_remat - g| <= TOL_REMAT_GRAD * max|g|
+# per tensor (the recomputed forward runs the same kernels on the same
+# inputs, so any difference is the order of accumulation).
+TOL_REMAT_GRAD = 1e-3
+
+
+def remat_case(card: str, device: str = "cuda") -> dict:
+    """Phase 15 (a): two flagship models from one seed, with and without
+    remat, take the same full_steps; asserted the bitwise losses, the
+    gradients within TOL_REMAT_GRAD, the launches a step and the lower peak
+    with remat; printed both peaks and step times."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep
+
+    cfg, batch, seq = flagship_config()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    trainers = {}
+    for remat in (True, False):
+        model = Transformer(dataclasses.replace(cfg, remat=remat), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(15))
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        trainers[remat] = TrainStep(model, opt, loss_fn)
+    L = cfg.n_layers
+    want = {remat: {"flash_fwd": (2 if remat else 1) * L, "flash_bwd_dkdv": L,
+                    "flash_bwd_dq": L, "ce_lse": 1, "ce_dlogits": 1} for remat in (True, False)}
+    data = torch.Generator(device=dev).manual_seed(1515)
+    out = {r: {"losses": [], "step_ms": [], "peak_bytes": [], "resident_bytes": [],
+               "launches": collections.Counter()} for r in (True, False)}
+    bitwise, worst = True, 0.0
+    for s in range(OPTION_STEPS):
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=data, device=dev)
+        b = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+        for remat, trainer in trainers.items():
+            rec = out[remat]
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                rec["resident_bytes"].append(torch.cuda.memory_allocated())
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                reset_launch_counts()
+                events[0].record()
+            t0 = time.perf_counter()
+            loss = trainer.full_step(b)
+            if on_card:
+                events[1].record()
+                events[1].synchronize()
+                counts = launch_counts()
+                rec["launches"].update(counts)
+                rec["step_ms"].append(events[0].elapsed_time(events[1]))
+                rec["peak_bytes"].append(torch.cuda.max_memory_allocated())
+                got = {k: counts.get(k, 0) for k in want[remat]}
+                if got != want[remat]:
+                    raise AssertionError(f"remat={remat}: step {s} launched {got}, expected "
+                                         f"{want[remat]}")
+            else:
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(loss.float().item())
+        if out[True]["losses"][-1] != out[False]["losses"][-1]:
+            raise AssertionError(f"step {s}: loss {out[True]['losses'][-1]!r} with remat, "
+                                 f"{out[False]['losses'][-1]!r} without")
+        if not math.isfinite(out[True]["losses"][-1]):
+            raise AssertionError(f"step {s}: loss {out[True]['losses'][-1]} is not finite")
+        for (name, p), q in zip(trainers[True].model.named_parameters(),
+                                trainers[False].model.parameters()):
+            if torch.equal(p.grad, q.grad):
+                continue
+            bitwise = False
+            err = float((p.grad - q.grad).abs().max() / q.grad.abs().max().clamp_min(1e-30))
+            worst = max(worst, err)
+            if err > TOL_REMAT_GRAD:
+                raise AssertionError(f"step {s}: {name}'s gradient differs with remat by "
+                                     f"{err:.3e} of its max, above {TOL_REMAT_GRAD}")
+    result = {"bitwise_grads": bitwise, "worst_grad_err": worst,
+              "losses": out[True]["losses"]}
+    for remat in (True, False):
+        rec = out[remat]
+        steady = rec["step_ms"][1:]
+        result[f"remat_{remat}"] = {
+            "step_ms": rec["step_ms"], "median_step_ms": statistics.median(steady),
+            "launches": dict(rec["launches"]),
+            "peak_bytes": max(rec["peak_bytes"]) if rec["peak_bytes"] else None,
+            "peak_above_resident_bytes": (max(p - r for p, r in zip(rec["peak_bytes"],
+                                                                   rec["resident_bytes"]))
+                                          if rec["peak_bytes"] else None)}
+        print(f"  remat={remat}: step ms {', '.join(f'{t:.2f}' for t in rec['step_ms'])} "
+              f"(CUDA events; the first a warm-up), peak device memory "
+              f"{(result[f'remat_{remat}']['peak_bytes'] or 0) / 2**30:.3f} GiB, of which "
+              f"{(result[f'remat_{remat}']['peak_above_resident_bytes'] or 0) / 2**30:.3f} GiB "
+              f"above the resident state of both models ({card})", flush=True)
+    print(f"  losses bitwise equal with and without remat: {result['losses']}; gradients "
+          f"{'bitwise equal' if bitwise else f'within {worst:.3e} of each max (not bitwise)'}",
+          flush=True)
+    if on_card and not (result["remat_True"]["peak_bytes"] < result["remat_False"]["peak_bytes"]):
+        raise AssertionError(f"remat's peak {result['remat_True']['peak_bytes']} is not below "
+                             f"{result['remat_False']['peak_bytes']}")
+    return result
+
+
+def overlap_case(card: str, device: str = "cuda") -> dict:
+    """Phase 15 (b): two flagship groups from one seed, each alone (its own
+    lighthouse, min_replica_size 1), one with overlap_commit True and one
+    with False, take OVERLAP_STEPS ft_steps in turns on the same batches;
+    the vote of step OVERLAP_FAIL_AT fails (its loss_fn reports an error).
+    Asserted: after every step both hold bitwise the same parameters and
+    optimizer state; the overlapped one speculated at every step and
+    restored at the failed one, the serial one never speculated.  Printed:
+    each step's wall, its commit_vote span and the snapshot copy's ms."""
+    from datetime import timedelta
+
+    import torch
+
+    from torchft_tpu_torch._native import LighthouseServer
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn
+    from torchft_tpu_torch.parallel import TrainStep
+
+    cfg, batch, seq = flagship_config()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    data = torch.Generator(device=dev).manual_seed(1516)
+    batches = []
+    for _ in range(OVERLAP_STEPS):
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=data, device=dev)
+        batches.append({"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)})
+    run_dir = tempfile.mkdtemp(prefix="tpuft_options_")
+    at = {"i": 0}
+    runs, closers = {}, []
+    try:
+        for overlap in (True, False):
+            model = Transformer(cfg, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(16))
+            opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=1e-4)
+            lighthouse = LighthouseServer(bind="127.0.0.1:0", min_replicas=1, join_timeout_ms=100)
+            closers.append(lighthouse.shutdown)
+            metrics = os.path.join(run_dir, f"metrics_{overlap}.jsonl")
+            saved = os.environ.get("TPUFT_METRICS_PATH")
+            os.environ["TPUFT_METRICS_PATH"] = metrics
+            try:
+                manager = Manager(
+                    collective=TCPCollective(timeout=60.0, host="127.0.0.1"),
+                    load_state_dict=lambda sd: None, state_dict=lambda: {},
+                    min_replica_size=1, rank=0, world_size=1, replica_id=f"options_{overlap}",
+                    lighthouse_addr=lighthouse.address(), store_addr="127.0.0.1",
+                    manager_bind="127.0.0.1:0", timeout=timedelta(seconds=60),
+                    quorum_timeout=timedelta(seconds=60), init_sync=False)
+            finally:
+                if saved is None:
+                    os.environ.pop("TPUFT_METRICS_PATH", None)
+                else:
+                    os.environ["TPUFT_METRICS_PATH"] = saved
+            closers.insert(0, manager.shutdown)
+
+            def planted(m, b, manager=manager):
+                loss = loss_fn(m, b)
+                if at["i"] == OVERLAP_FAIL_AT:
+                    manager.report_error(RuntimeError("planted failed vote"))
+                return loss
+
+            runs[overlap] = {"trainer": TrainStep(model, opt, planted, manager,
+                                                  overlap_commit=overlap),
+                             "manager": manager, "metrics": metrics, "steps": []}
+        for i in range(OVERLAP_STEPS):
+            at["i"] = i
+            # In turns, the first of each step alternating.
+            for overlap in ((True, False) if i % 2 == 0 else (False, True)):
+                run = runs[overlap]
+                trainer = run["trainer"]
+                sync()
+                run["manager"].start_quorum()
+                t0 = time.perf_counter()
+                loss, committed = trainer.ft_step(batches[i])
+                loss_v = float(loss)
+                sync()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                spec = trainer.last_speculation
+                rec = {"wall_ms": wall_ms, "loss": loss_v, "committed": committed,
+                       "speculated": spec is not None,
+                       "restored": bool(spec and spec["restored"]),
+                       "snapshot_ms": trainer.snapshot_ms(),
+                       "snapshot_bytes": spec["snapshot_bytes"] if spec else 0}
+                run["steps"].append(rec)
+                if committed != (i != OVERLAP_FAIL_AT):
+                    raise AssertionError(f"overlap={overlap}: step {i} committed={committed}")
+                if rec["speculated"] != overlap or rec["restored"] != (
+                        overlap and i == OVERLAP_FAIL_AT):
+                    raise AssertionError(f"overlap={overlap}: step {i} speculation {spec}")
+            a, b = (runs[o]["trainer"].state_tensors() for o in (True, False))
+            if len(a) != len(b) or not all(x.dtype == y.dtype and torch.equal(x, y)
+                                           for x, y in zip(a, b)):
+                raise AssertionError(f"step {i}: the overlapped and serial runs' states differ")
+            if runs[True]["steps"][-1]["loss"] != runs[False]["steps"][-1]["loss"]:
+                raise AssertionError(f"step {i}: the runs' losses differ")
+    finally:
+        for close in closers:
+            close()
+        for run in runs.values():
+            if os.path.exists(run["metrics"]):
+                with open(run["metrics"]) as f:
+                    votes = [e["duration_ms"] for e in map(json.loads, f)
+                             if e.get("event") == "span" and e.get("phase") == "commit_vote"]
+                for rec, vote in zip(run["steps"], votes):
+                    rec["commit_vote_ms"] = vote
+        shutil.rmtree(run_dir, ignore_errors=True)
+    for i in range(OVERLAP_STEPS):
+        for overlap in (True, False):
+            rec = runs[overlap]["steps"][i]
+            snap = ("-" if rec["snapshot_ms"] is None else
+                    f"{rec['snapshot_ms']:.3f} ms for {rec['snapshot_bytes'] / 1e9:.3f} GB")
+            print(f"  step {i} overlap_commit={overlap}: wall {rec['wall_ms']:.2f} ms, "
+                  f"commit_vote {rec.get('commit_vote_ms')} ms, snapshot copy {snap}, committed "
+                  f"{rec['committed']}{', state restored' if rec['restored'] else ''} ({card})",
+                  flush=True)
+    print(f"  overlapped and serial groups bitwise equal (parameters and AdamW state) after "
+          f"each of {OVERLAP_STEPS} steps, the failed vote of step {OVERLAP_FAIL_AT} included",
+          flush=True)
+    return {str(o): runs[o]["steps"] for o in (True, False)}
+
+
+def step_options_phase(card: str, device: str = "cuda") -> dict:
+    t0 = time.monotonic()
+    remat = remat_case(card, device)
+    overlap = overlap_case(card, device)
+    out = {"remat": remat, "overlap": overlap, "phase_s": time.monotonic() - t0, "card": card}
+    print("OPTIONS " + json.dumps(out), flush=True)
+    print(f"  step options phase: {out['phase_s']:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     t_run = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4753,7 +5038,13 @@ def main() -> int:
           flush=True)
     control_launches = control_phase(card)
 
-    # 15. The kernels line, then the last line.
+    # 15. The step options on the flagship.
+    print(f"step options: (a) {OPTION_STEPS} flagship full_steps with and without remat from "
+          f"one seed; (b) one group alone, {OVERLAP_STEPS} ft_steps with overlap_commit True "
+          f"and then False, the vote of step {OVERLAP_FAIL_AT} failed", flush=True)
+    options = step_options_phase(card)
+
+    # 16. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -4771,6 +5062,8 @@ def main() -> int:
             "launches_elastic": elastic_launches.get(name, 0),
             "launches_durable": durable_launches.get(name, 0),
             "launches_control": control_launches.get(name, 0),
+            "launches_remat": options["remat"]["remat_True"]["launches"].get(name, 0),
+            "launches_no_remat": options["remat"]["remat_False"]["launches"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -206,11 +206,15 @@ def _one_generation(store, babies: List[BabyCollective]) -> None:
 
 
 def _kill_child(baby: BabyCollective) -> None:
+    """SIGKILLs the child and waits for it, polling under the baby's
+    ``_proc_lock`` as the baby's own threads do: a second concurrent poll
+    of a forkserver child would record exit code 255."""
     proc = baby._proc
     assert proc is not None
     proc.kill()
-    proc.join(timeout=30)
-    assert not proc.is_alive()
+    with baby._proc_lock:
+        proc.join(timeout=30)
+        assert not proc.is_alive()
 
 
 def test_baby_child_crash_latches_and_recovers(store) -> None:
@@ -257,8 +261,9 @@ def test_baby_abort_kills_child(store) -> None:
     proc = babies[0]._proc
     babies[0].abort()
     assert babies[0].errored() is not None
-    proc.join(timeout=5)
-    assert not proc.is_alive()
+    with babies[0]._proc_lock:
+        proc.join(timeout=5)
+        assert not proc.is_alive()
     assert babies[0].allreduce([np.ones(4, np.float32)]).exception(timeout=5) is not None
     for c in babies:
         c.shutdown()
@@ -482,7 +487,11 @@ MERGED = 3
 def _ft_group(gid: int, inc: int, lighthouse: str, shared: dict, baby: bool) -> None:
     """One group: a tensor trained by the average of per-group gradients.
     A Baby group (``max_retries=2``) kills its child during an allreduce
-    once it has MERGED merged commits, when ``shared["kill"]`` is set."""
+    once it has MERGED merged commits, when ``shared["kill"]`` is set.  It
+    arms the kill before that step's quorum, and the other group, once the
+    quorum has formed, holds its allreduce until the child is killed: the
+    child cannot finish the exchange first (it would, under load, and the
+    other group would commit the step the Baby fails)."""
     params = {"w": torch.zeros(300)}
 
     def load(sd: Dict[str, torch.Tensor]) -> None:
@@ -515,16 +524,27 @@ def _ft_group(gid: int, inc: int, lighthouse: str, shared: dict, baby: bool) -> 
             target = shared["target"]
             if target is not None and m.current_step() >= target:
                 break
+            killing = baby and shared["kill"] and merged >= MERGED and not shared["killed"]
+            if killing:
+                shared["armed"] = True
             m.start_quorum()
             step = m.current_step()
-            killing = baby and shared["kill"] and merged >= MERGED and not shared["killed"]
+            if not baby and shared["kill"] and not shared["killed"]:
+                # Once this step's quorum has formed, the Baby has made its
+                # request, and so armed the kill if this is its step.
+                m.wait_quorum()
+                deadline = time.monotonic() + 60
+                while shared["armed"] and not shared["killed"]:
+                    assert time.monotonic() < deadline, "the armed Baby never killed its child"
+                    time.sleep(0.005)
             if killing:
                 allreduce = collective.allreduce
 
                 def and_kill(*args: Any, **kwargs: Any) -> Any:
                     work = allreduce(*args, **kwargs)
-                    shared["killed"].append((collective.child_pid(), time.monotonic()))
-                    os.kill(collective.child_pid(), signal.SIGKILL)
+                    pid, t_kill = collective.child_pid(), time.monotonic()
+                    os.kill(pid, signal.SIGKILL)
+                    shared["killed"].append((pid, t_kill))
                     work.add_done_callback(lambda f: shared["op_failed"].append(
                         (time.monotonic(), repr(f.exception()))))
                     return work
@@ -555,10 +575,20 @@ def _ft_group(gid: int, inc: int, lighthouse: str, shared: dict, baby: bool) -> 
         m.shutdown()
 
 
+# The lighthouse's timeouts of the crash test, with a margin that a loaded
+# test machine cannot eat: a live group whose heartbeat or quorum request
+# comes late must not be dropped from the quorum (the Baby would
+# reconfigure).  The dead incarnation's heartbeat outlives it, so the
+# restart's first quorum waits out the join timeout.
+CRASH_HEARTBEAT_MS, CRASH_JOIN_MS = 5000, 1000
+
+
 def test_a_crashed_child_fails_both_votes_until_max_retries_then_a_restart_heals() -> None:
-    lh = _native.LighthouseServer(bind=f"{HOST}:0", min_replicas=1, join_timeout_ms=200,
-                                  heartbeat_timeout_ms=1000)
-    shared: Dict[str, Any] = {"target": None, "kill": True, "killed": [], "op_failed": [],
+    lh = _native.LighthouseServer(bind=f"{HOST}:0", min_replicas=1,
+                                  join_timeout_ms=CRASH_JOIN_MS,
+                                  heartbeat_timeout_ms=CRASH_HEARTBEAT_MS)
+    shared: Dict[str, Any] = {"target": None, "kill": True, "armed": False, "killed": [],
+                              "op_failed": [],
                               "exceeded": None, "solo_done": threading.Event(), "logs": {},
                               "final": {}}
     errors: List[BaseException] = []

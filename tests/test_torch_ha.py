@@ -68,12 +68,18 @@ def _call(address: str, method: int, payload: bytes, deadline_ms: int = 5000):
         sock.close()
 
 
+# Sockets bound and never listening: a connect to one is refused, and no
+# other process can take its port for the module's life (a port closed
+# after the bind went to another test's lighthouse under the parallel run,
+# and a Manager meant to fail against it started and heartbeat on).
+_DEAD_SOCKETS: list = []
+
+
 def _dead_address() -> str:
     s = socket.socket()
     s.bind((HOST, 0))
-    port = s.getsockname()[1]
-    s.close()
-    return f"{HOST}:{port}"
+    _DEAD_SOCKETS.append(s)
+    return f"{HOST}:{s.getsockname()[1]}"
 
 
 def _wait(cond, timeout: float = 15.0, what: str = "condition") -> None:

@@ -707,6 +707,34 @@ def test_prefer_mode_never_dials_a_donor(lighthouse, monkeypatch) -> None:
 
 
 KILL_AT, TAIL = 3, 3
+# The lighthouse's timeouts, with a margin that a loaded test machine cannot
+# eat: a live group's quorum request may lag its peers' by a second or more
+# under load, and a join timeout it overran would drop it from the quorum
+# (three groups pass the split-brain guard with two), so that it heals
+# again or, at the last step, waits alone for peers that have stopped.
+HEARTBEAT_MS, JOIN_MS = 5000, 2000
+# A step with fewer than three groups pauses this long.  The survivors only
+# wait for the restart there, and each step they commit is a generation the
+# erasure encoder queues and pushes; at a step every 20 ms a loaded machine
+# fell behind by seconds, the shards of the step the restarted group asked
+# for were not out within its reconstruct timeout, and the survivors spent
+# their 200 steps before it joined.
+SHORT_QUORUM_PAUSE_S = 0.2
+
+
+def _wait_lapsed(lighthouse: "_native.LighthouseServer", replica_id: str,
+                 timeout: float) -> None:
+    """Waits until the lighthouse counts ``replica_id`` dead: its last
+    heartbeat older than HEARTBEAT_MS (``/status.json``)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        status = json.loads(urllib.request.urlopen(
+            f"{lighthouse.http_address()}/status.json", timeout=5).read().decode())
+        age = status["heartbeat_age_ms"].get(replica_id)
+        if age is None or age >= HEARTBEAT_MS:
+            return
+        assert time.monotonic() < deadline, f"{replica_id} still heartbeats: {age} ms"
+        time.sleep(0.05)
 
 
 def _ft_group(gid: int, incarnation: int, lighthouse: str, shared: dict) -> None:
@@ -761,10 +789,11 @@ def _ft_group(gid: int, incarnation: int, lighthouse: str, shared: dict) -> None
                 if incarnation and shared["target"] is None and m.num_participants() == 3:
                     shared["target"] = m.current_step() + TAIL
             if not incarnation and gid == 0 and m.current_step() == KILL_AT:
+                shared["dead_id"] = m.replica_id()
                 shared["killed"].set()
                 return
             if m.num_participants() < 3:
-                time.sleep(0.02)
+                time.sleep(SHORT_QUORUM_PAUSE_S)
         shared["final"][gid] = (m.current_step(), {k: v.clone() for k, v in params.items()})
     finally:
         m.shutdown()
@@ -775,8 +804,8 @@ def test_three_groups_one_killed_converge_through_ec_reconstruct(monkeypatch) ->
     monkeypatch.setenv("TPUFT_EC_M", "1")
     monkeypatch.setenv("TPUFT_HEAL_BACKOFF_BASE_S", "0.05")
     monkeypatch.setenv("TPUFT_HEAL_BACKOFF_CAP_S", "0.2")
-    lh = _native.LighthouseServer(bind=f"{HOST}:0", min_replicas=2, join_timeout_ms=200,
-                                  heartbeat_timeout_ms=1000)
+    lh = _native.LighthouseServer(bind=f"{HOST}:0", http_bind=f"{HOST}:0", min_replicas=2,
+                                  join_timeout_ms=JOIN_MS, heartbeat_timeout_ms=HEARTBEAT_MS)
     shared = {"target": None, "killed": threading.Event(), "broken_fetches": 0,
               "reconstructions": [], "final": {}}
     errors: List[BaseException] = []
@@ -793,7 +822,7 @@ def test_three_groups_one_killed_converge_through_ec_reconstruct(monkeypatch) ->
             t.start()
         assert shared["killed"].wait(60), "group 0 never reached the kill step"
         threads[0].join(timeout=30)
-        time.sleep(1.5)  # the dead incarnation's heartbeats lapse
+        _wait_lapsed(lh, shared["dead_id"], timeout=30)
         threads.append(threading.Thread(target=run, args=(0, 1)))
         threads[-1].start()
         for t in threads:

@@ -1474,6 +1474,15 @@ class Manager:
     def is_participating(self) -> bool:
         return self._participating_replica_rank is not None
 
+    def is_healing(self) -> bool:
+        """Whether this step heals: ``should_commit`` installs the state
+        fetched at the quorum before it votes.  A group that re-fetches after
+        failed commits heals while it participates; a synchronous quorum has
+        installed the state in ``start_quorum`` already.  Waits for the
+        quorum."""
+        self.wait_quorum()
+        return self._healing
+
     def shutdown(self) -> None:
         if self._drain_watcher is not None:
             self._drain_watcher.stop()

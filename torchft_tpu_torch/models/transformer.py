@@ -9,6 +9,12 @@ cross-entropy kernels where their shape gates hold (``flash_applicable``,
 for), as the JAX model takes its Pallas kernels where ``_use_pallas`` and
 ``fused_ce_applicable`` hold; everywhere else (the CPU, head dims other
 than 128, ragged widths) the same math runs as plain PyTorch.
+
+``remat`` (on by default, as in the JAX package) recomputes each block in
+the backward through ``torch.utils.checkpoint``; the JAX config's other
+fields (``attention``, ``ring_layout``, the ``moe_*`` fields) are not
+ported yet, and ``scan_unroll`` has no eager counterpart: the blocks run
+as a Python loop.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from torchft_tpu_torch.ops import (
     flash_applicable,
@@ -53,6 +60,9 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16  # activation / compute dtype
     param_dtype: torch.dtype = torch.float32
+    # Recompute each block's activations in the backward instead of keeping
+    # them (the JAX model's jax.checkpoint of its layer body).
+    remat: bool = True
 
     @property
     def d_head(self) -> int:
@@ -63,10 +73,11 @@ class TransformerConfig:
 def flagship_config() -> "tuple[TransformerConfig, int, int]":
     """The flagship training shape: (config, batch size, sequence length) —
     the JAX package's bench.py flagship_config (12 layers, d_model 768,
-    6 heads x 128, d_ff 2048, vocab 32000), about 134M parameters."""
+    6 heads x 128, d_ff 2048, vocab 32000), about 134M parameters, without
+    rematerialisation, as there."""
     cfg = TransformerConfig(
         vocab_size=32000, d_model=768, n_layers=12, n_heads=6, n_kv_heads=6,
-        d_ff=2048, max_seq=1024,
+        d_ff=2048, max_seq=1024, remat=False,
     )
     return cfg, 16, 1024
 
@@ -157,8 +168,16 @@ class Transformer(nn.Module):
         """tokens [B, S] -> hidden states [B, S, E] (before the final norm)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self.embed.weight.to(self.cfg.dtype)[tokens]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, positions)
+            if remat:
+                # One checkpoint a block: its forward runs again in the
+                # backward.  A block draws no random numbers, so the RNG
+                # state is not saved and restored around it.
+                x = checkpoint(layer, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, positions)
         return x
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
