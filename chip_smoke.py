@@ -158,7 +158,8 @@ result):
    round in flight and in the solo round, the round boundary's and the
    outer apply's ms, the drain waits, wire and D2H bytes a round.
 11. Healing: a lighthouse and three groups as processes on the card,
-   each training the flagship under the FT loop with the erasure-coded
+   each training the flagship's widths at HEAL_LAYERS layers under the
+   FT loop with the erasure-coded
    plane (TPUFT_EC_K 2, TPUFT_EC_M 1: every committed state encoded on the
    transports' snapshotters and placed over the groups).  (a) Groups 0 and
    1 train merged; group 2 joins and heals striped from both; it then
@@ -173,13 +174,14 @@ result):
    checkpoint request served by the donors; (c) the dead donor's stripes
    failed over to the live one, with no erasure fallback; every merged
    step ends with one params_sha256 on every group that committed it;
-   K1-K5 launch 12 / 12 / 12 / 1 / 1 times a step in every process.
+   K1-K5 launch HEAL_LAYERS x 3 and 1 / 1 times a step in every process.
    Printed: the fetch modes' seconds and GB/s, the checksum stamp and
    verify ms, the erasure encode and reconstruct ms, the failover heal's
    seconds, each SIGKILL to group 2's first merged commit, each process's
    peak device memory.
 12. Elastic: ``torchft_tpu_torch.launch``'s Launcher runs three groups
-   of this script's ``--elastic-group`` mode and one hot spare on the card
+   (the flagship's widths at ELASTIC_LAYERS layers) of
+   this script's ``--elastic-group`` mode and one hot spare on the card
    (its embedded lighthouse with the straggler sentinel and the incident
    watcher in dry-run, one metrics stream, the native 2-lane ring on the
    f32 wire), each training the flagship at full width and depth under
@@ -205,8 +207,8 @@ result):
    microsteps of 16 and 8; every survivor reconfigure of (a) is
    incremental with the 0 -> 1 edge's lanes reused; the replacement is
    the adopted spare and it healed; (b) one adoption and a heal; every
-   merged step ends with one params_sha256; K1-K5 launch 12 / 12 / 12 /
-   1 / 1 times a microstep in every process; committed steps ran the
+   merged step ends with one params_sha256; K1-K5 launch ELASTIC_LAYERS
+   x 3 and 1 / 1 times a microstep in every process; committed steps ran the
    native 2-lane ring on the f32 wire; (c) an active straggler alert named
    group 0's incarnation, the launcher emitted one ``straggler_drain``, for
    it, the refilled spare adopted group 0 and healed, the sleep stayed with
@@ -223,7 +225,7 @@ result):
    during and after, the journal and the bundle's verdict; the scrapes'
    ms and bytes.
 13. Durable state and isolated communication: a lighthouse and two
-   flagship groups (one seed, the native 2-lane ring on TCP, the f32
+   groups of the flagship's widths at DURABLE_LAYERS layers (one seed, the native 2-lane ring on TCP, the f32
    wire), each drawing its batches through a ``StatefulDataLoader`` over a
    seeded host token table (DURABLE_ROWS rows of seq + 1 tokens, the
    loader's position in the saved state), its Manager given a
@@ -255,15 +257,16 @@ result):
    process keeps its pid, every later vote fails with the latched error,
    group 0's vote at that step fails too, the child is not respawned, the
    process exits with ``ExceededMaxRetriesError``, and after the restart
-   DURABLE_MERGED merged commits at one params_sha256; K1-K5 launch 12 /
-   12 / 12 / 1 / 1 times a step in every process.  Printed: each save's
+   DURABLE_MERGED merged commits at one params_sha256; K1-K5 launch
+   DURABLE_LAYERS x 3 and 1 / 1 times a step in every process.  Printed: each save's
    bytes, flatten (enqueue), backpressure stall and durable-write ms; the
    restart to "resumed" seconds; the collective heal's seconds and GB/s
    beside phase 11's HTTP striped transfer; the merged step with the baby
    collective against without; the baby's configure ms; the child's
    SIGKILL to the failed op, to the exception, to the exit and to the next
    merged commit.
-14. The control plane: two flagship groups (one seed, each step's batch
+14. The control plane: two groups of the flagship's widths at
+   CONTROL_LAYERS layers (one seed, each step's batch
    seeded by group and step, the native 2-lane TCP f32 ring, Manager
    ``min_replica_size`` 2), each one process running two schedules of
    CONTROL_STEPS steps, and every lighthouse a ``python -m
@@ -282,7 +285,7 @@ result):
    four final params_sha256 equal; the root's ``/regions.json`` has both
    regions fresh and its ``/metrics`` no ``Heartbeat`` RPC and some
    ``RegionDigest`` ones; no lighthouse process holds a ``/dev/nvidia*``
-   file (the groups do); K1-K5 launch 12 / 12 / 12 / 1 / 1 a step.
+   file (the groups do); K1-K5 launch CONTROL_LAYERS x 3 and 1 / 1 a step.
    Printed: ``takeover_s``, each group's gap between commits across the
    kill and its longest, the quorum ids and configure counts each side of
    the kill, every failed commit, the failover events, the new leader's
@@ -305,15 +308,36 @@ result):
    parameters and AdamW state, the overlapped one speculated every step and
    restored the failed one, the serial one never speculated.  Printed: each step's wall, its
    ``commit_vote`` span and the snapshot copy's CUDA-event ms.
-16. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
+16. In-group parallelism and sharded healing on the flagship's widths.
+   (a) and (b): two local ranks on the card (``chip_smoke.py --hsdp-rank``,
+   bootstrapped by ``multihost.initialize_slice`` over gloo, since NCCL
+   refuses two ranks on one device); the flagship sharded over {fsdp 2}
+   for HSDP_STEPS["fsdp"] SGD steps, then over {tensor 2} for
+   HSDP_STEPS["tensor"], each rank on its slice of the batch ("tensor":
+   the whole batch), and in rank 0 the same model unsharded on the whole
+   batch.  Asserted: each step's mean loss within TOL_HSDP_LOSS of the
+   unsharded one and every gathered gradient within TOL_HSDP_GRAD of each
+   tensor's max; K1-K5 launch 12 / 12 / 12 / 1 / 1 a rank a step over
+   fsdp, K1-K3 12 and K4/K5 0 over tensor, where the loss took the
+   vocab-parallel plain path once a step.  (c) ``train_hsdp --model
+   flagship``, two groups of {fsdp 2} under the launcher, group 1
+   SIGKILLed after HSDP_KILL_AFTER merged commits: its ranks die with it,
+   each restarted rank heals its own shards over HTTP from group 0's same
+   rank, and both groups end at one step with one ``params_sha256`` over
+   the gathered parameters; printed: each rank's heal span and fetch, the
+   merged and solo steps, the recovery.  (d) one rank on a one-rank mesh
+   over NCCL in this process while (c) runs, a lone Manager, HSDP_NCCL_STEPS committed
+   ``ft_step``s with K1-K5 12 / 12 / 12 / 1 / 1 a step.
+17. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
    and ``host_ms`` beside ``ms``, and its four shapes under ``shapes``;
    each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
    healing run as ``launches_healing``, on the elastic run as
    ``launches_elastic``, on the durable run as ``launches_durable``, on
-   the control-plane run as ``launches_control`` and on phase 15 (a)'s
+   the control-plane run as ``launches_control``, on phase 15 (a)'s
    steps with and without remat as ``launches_remat`` and
-   ``launches_no_remat``), the run's seconds, then
+   ``launches_no_remat``, and over phase 16's legs as ``launches_hsdp``),
+   the run's seconds, then
    the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -326,6 +350,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -361,7 +386,7 @@ L2_BYTES = 50 * 2 ** 20   # the H100's L2: timed inputs rotate through twice it
 KILL_STEPS = 2000         # train_ddp's --steps in the kill-and-heal phase
 KILL_MERGED = 30          # group 0's merged commits before the kill
 KILL_TIMEOUT_S = 420.0
-BARE_RING_REPEATS = 2     # allreduces per configuration in the bare-ring phase
+BARE_RING_REPEATS = 1     # allreduces per configuration in the bare-ring phase
 BARE_RING_TIMEOUT_S = 300.0
 # params_sha256 of phase 5 on the previous tree (the single-lane Python
 # ring), printed beside this run's and asserted equal to it.
@@ -1618,12 +1643,12 @@ SHAPED_RTT_MS = 1.0
 RING2D_RANKS = 4
 
 
-def flagship_param_count() -> int:
-    """Parameters of the flagship transformer: its gradient payload in
-    float32 elements."""
+def flagship_param_count(cfg=None) -> int:
+    """Parameters of the flagship transformer (or of ``cfg``, a cut of it):
+    its gradient payload in float32 elements."""
     from torchft_tpu_torch.models import flagship_config
 
-    cfg, _, _ = flagship_config()
+    cfg = cfg or flagship_config()[0]
     E, V, F, Dh = cfg.d_model, cfg.vocab_size, cfg.d_ff, cfg.d_head
     layer = 2 * E + E * cfg.n_heads * Dh * 2 + 2 * E * cfg.n_kv_heads * Dh + 3 * E * F
     return 2 * V * E + E + cfg.n_layers * layer
@@ -2098,12 +2123,18 @@ DILOCO_LAYERS = 6
 
 def diloco_config():
     """The flagship's (config, batch, seq) at DILOCO_LAYERS layers."""
+    return cut_config(DILOCO_LAYERS)
+
+
+def cut_config(layers: int):
+    """The flagship's (config, batch, seq) at ``layers`` layers: its widths,
+    its batch and its sequence kept."""
     import dataclasses
 
     from torchft_tpu_torch.models import flagship_config
 
     cfg, batch, seq = flagship_config()
-    return dataclasses.replace(cfg, n_layers=DILOCO_LAYERS), batch, seq
+    return dataclasses.replace(cfg, n_layers=layers), batch, seq
 DILOCO_SOLO_ROUNDS = 1  # rounds group 0 commits before group 1 starts
 DILOCO_ROUNDS = 3       # group 0's rounds in all; group 1 heals into the second
 
@@ -2423,6 +2454,9 @@ def diloco_phase(card: str, device: str = "cuda") -> dict:
 # -- phase 11: the healing plane on the flagship -----------------------------------
 
 HEAL_BATCH = 16          # per group; three groups share the card
+# The healing path's depth: the flagship's width at a quarter of its 12
+# layers, cut so that phase 16 fits the run's time.
+HEAL_LAYERS = 3
 HEAL_MERGED = 2          # merged commits of every group between events
 HEAL_PACE_MBPS = 300.0   # group 0's serving link in the failover event
 HEAL_KILL_DELAY_S = 0.5  # from group 0's first paced stripe to its SIGKILL
@@ -2457,14 +2491,14 @@ def run_heal_group(args: argparse.Namespace) -> None:
     from torchft_tpu_torch.checkpointing import HTTPTransport
     from torchft_tpu_torch.collectives import TCPCollective
     from torchft_tpu_torch.manager import Manager
-    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.models import Transformer, loss_fn, resolve_device
     from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
     from torchft_tpu_torch.parallel import TrainStep
 
     group, inc, run_dir = args.heal_group, args.incarnation, args.run_dir
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format=f"[h{group}.{inc}] %(message)s")
-    cfg, _, seq = flagship_config()
+    cfg, _, seq = cut_config(HEAL_LAYERS)
     dev = resolve_device(args.device)
     model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(3000))
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
@@ -2744,9 +2778,7 @@ def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: flo
     """Phase 11's assertions and prints; returns the K1-K5 launches of all
     its processes and the seconds from each SIGKILL of group 2 to its
     restart's first merged commit."""
-    from torchft_tpu_torch.models import flagship_config
-
-    cfg, _, _ = flagship_config()
+    cfg, _, _ = cut_config(HEAL_LAYERS)
     per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
     kinds = ("full", "chunk", "header", "metadata")
@@ -2881,6 +2913,9 @@ def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: flo
 
 # -- phase 12: the elastic plane on the flagship -----------------------------------
 
+# The elastic path's depth: the flagship's width at half its 12 layers, cut
+# so that phase 16 fits the run's time.
+ELASTIC_LAYERS = 6
 ELASTIC_GLOBAL_BATCH = 48  # 16 a group at 3 participants, 16 + 8 at 2
 ELASTIC_MICROBATCH = 16
 ELASTIC_MERGED = 2         # merged commits of every group before each event
@@ -2931,12 +2966,12 @@ def run_elastic_group(args: argparse.Namespace) -> None:
         maybe_straggle,
         replica_env,
     )
-    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.models import Transformer, loss_fn, resolve_device
     from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format=f"[e{os.getpid()}] %(message)s")
-    cfg, _, seq = flagship_config()
+    cfg, _, seq = cut_config(ELASTIC_LAYERS)
     dev = resolve_device(args.device)
     # Group-independent: one seed for every group, paid by a spare while idle.
     model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(4000))
@@ -3254,10 +3289,9 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
                    ev: dict, donor_rid: str, device: str, journal: list, bundles: dict) -> dict:
     """Phase 12's assertions and prints; returns the K1-K5 launches of all
     its processes."""
-    from torchft_tpu_torch.models import flagship_config
     from torchft_tpu_torch.obs import report
 
-    cfg, _, _ = flagship_config()
+    cfg, _, _ = cut_config(ELASTIC_LAYERS)
     per_micro = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
                  "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
     by_rid: dict = {}
@@ -3501,10 +3535,13 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
 
 # -- phase 13: durable state and isolated communication on the flagship -----------
 
-DURABLE_STEPS = 8           # N: run (a)'s merged steps; (b) stops at N / 2 and resumes to N
+# The durable path's depth: the flagship's width at a quarter of its 12
+# layers, cut so that phase 16 fits the run's time.
+DURABLE_LAYERS = 3
+DURABLE_STEPS = 4           # N: run (a)'s merged steps; (b) stops at N / 2 and resumes to N
 DURABLE_EVERY = 2           # ManagedDiskCheckpoint(every=, keep=) of (b)
 DURABLE_KEEP = 2
-DURABLE_MERGED = 3          # merged commits in (c) and (d) before each event and at the end
+DURABLE_MERGED = 2          # merged commits in (c) and (d) before each event and at the end
 DURABLE_ROWS = 2048         # rows of the seeded host token table, seq + 1 tokens each
 DURABLE_BATCH = 16          # a group's batch (the flagship's)
 DURABLE_TIMEOUT_S = 420.0
@@ -3556,7 +3593,7 @@ def run_durable_group(args: argparse.Namespace) -> None:
     from torchft_tpu_torch.collectives import TCPCollective
     from torchft_tpu_torch.data import DistributedSampler, StatefulDataLoader
     from torchft_tpu_torch.manager import ExceededMaxRetriesError, Manager
-    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.models import Transformer, loss_fn, resolve_device
     from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
     from torchft_tpu_torch.parallel import TrainStep
 
@@ -3571,7 +3608,7 @@ def run_durable_group(args: argparse.Namespace) -> None:
     baby = bool(conf.get("baby"))
     collective = (BabyTCPCollective(timeout=DURABLE_BABY_TIMEOUT_S, host="127.0.0.1") if baby
                   else TCPCollective(timeout=180.0, host="127.0.0.1"))
-    cfg, _, seq = flagship_config()
+    cfg, _, seq = cut_config(DURABLE_LAYERS)
     dev = resolve_device(args.device)
     model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(4000))
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
@@ -3757,10 +3794,9 @@ def durable_phase(card: str, http_striped: dict, device: str = "cuda") -> dict:
     (failed votes on both groups, ExceededMaxRetriesError) restarted once
     more.  Returns the K1-K5 launches of all its processes."""
     from torchft_tpu_torch._native import LighthouseServer
-    from torchft_tpu_torch.models import flagship_config
     from torchft_tpu_torch.obs import report
 
-    n_params = flagship_param_count()
+    n_params = flagship_param_count(cut_config(DURABLE_LAYERS)[0])
     state_bytes = 12 * n_params  # f32 weights and AdamW's two moments
     run_dir = tempfile.mkdtemp(prefix="tpuft_durable_")
     ckpt_dir = os.path.join(run_dir, "ckpt")
@@ -3946,9 +3982,7 @@ def durable_checks(card: str, recs: dict, lines: dict, streams: dict, events: di
                    state_bytes: int, phase_s: float) -> dict:
     """Phase 13's assertions and prints; returns the K1-K5 launches of all
     its processes."""
-    from torchft_tpu_torch.models import flagship_config
-
-    cfg, _, _ = flagship_config()
+    cfg, _, _ = cut_config(DURABLE_LAYERS)
     N, half = DURABLE_STEPS, DURABLE_STEPS // 2
     per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
@@ -4136,9 +4170,12 @@ def durable_checks(card: str, recs: dict, lines: dict, streams: dict, events: di
 
 # -- phase 14: the highly-available and federated control plane --------------------
 
-CONTROL_STEPS = 22          # each run's steps, both groups merged from step 0
-CONTROL_KILL_AT = 8         # merged commits of each group before the leader's SIGKILL
-CONTROL_AFTER = 12          # merged commits of each group at least after it
+# The control plane's depth: the flagship's width at half its 12 layers,
+# cut so that phase 16 fits the run's time.
+CONTROL_LAYERS = 6
+CONTROL_STEPS = 14          # each run's steps, both groups merged from step 0
+CONTROL_KILL_AT = 4         # merged commits of each group before the leader's SIGKILL
+CONTROL_AFTER = 6           # merged commits of each group at least after it
 CONTROL_LEASE_MS = 1500     # the HA pair's --lease-ms
 CONTROL_TIMEOUT_S = 300.0
 
@@ -4159,7 +4196,7 @@ def run_control_group(args: argparse.Namespace) -> None:
 
     from torchft_tpu_torch.collectives import TCPCollective
     from torchft_tpu_torch.manager import Manager
-    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, resolve_device
+    from torchft_tpu_torch.models import Transformer, loss_fn, resolve_device
     from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
     from torchft_tpu_torch.parallel import TrainStep
 
@@ -4167,7 +4204,7 @@ def run_control_group(args: argparse.Namespace) -> None:
     path = lambda name: os.path.join(run_dir, name)  # noqa: E731
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format=f"[c{group}] %(message)s")
-    cfg, batch, seq = flagship_config()
+    cfg, batch, seq = cut_config(CONTROL_LAYERS)
     dev = resolve_device(args.device)
     reset_launch_counts()
     steps_run = 0
@@ -4525,10 +4562,9 @@ def control_checks(out: dict, streams: dict, lh_events: list, rpc: dict, leader:
                    standby: str, epoch0: int, takeover_s: float, t_kill: float) -> dict:
     """Phase 14's assertions and prints; returns the K1-K5 launches of both
     groups."""
-    from torchft_tpu_torch.models import flagship_config
 
     card, recs, finals = out["card"], out["recs"], out["finals"]
-    cfg, _, _ = flagship_config()
+    cfg, _, _ = cut_config(CONTROL_LAYERS)
     print(f"  (a) HA pair {rpc['A']}, {rpc['B']} (lease {CONTROL_LEASE_MS} ms): leader {leader} "
           f"at epoch {epoch0} SIGKILLed; {standby} led at epoch {epoch0 + 1} after "
           f"takeover_s {takeover_s:.3f} s ({card})", flush=True)
@@ -4886,6 +4922,388 @@ def step_options_phase(card: str, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 16: in-group parallelism and sharded healing on the flagship ----------
+
+# The in-group legs' steps: (a) fsdp 2 and (b) tensor 2 (each's first a
+# warm-up), (d) one rank over NCCL.
+HSDP_STEPS = {"fsdp": 2, "tensor": 2}
+HSDP_NCCL_STEPS = 2
+HSDP_LR = 1e-2            # SGD's, every leg
+HSDP_RANK_TIMEOUT_S = 300.0
+# (c): train_hsdp at the flagship's widths, 2 groups x fsdp 2 on the card;
+# group 0's merged commits before group 1's SIGKILL, and the steps both end
+# merged past.
+HSDP_KILL_AFTER = 3
+HSDP_KILL_STEPS = 8
+HSDP_KILL_TIMEOUT_S = 300.0
+# Sharded against unsharded, both bf16 compute on the same weights and
+# batch: a batch split over ranks (a) or heads and partial sums over ranks
+# (b) changes cuBLAS's shapes and the summation order, so bf16 rounding
+# (2^-9 relative an operation) differs: the mean loss within
+# TOL_HSDP_LOSS of its value, each gradient within TOL_HSDP_GRAD of the
+# tensor's largest element.  After each step both models take the same SGD
+# update, so later steps compare models that differ by those roundings.
+TOL_HSDP_LOSS = 5e-3
+TOL_HSDP_GRAD = 5e-2
+
+
+def _hsdp_batch(cfg, batch: int, seq: int, step: int, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(1600 + step)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+    return {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1)}
+
+
+def hsdp_leg(name: str, sizes: dict, steps: int, rank: int, dev) -> dict:
+    """One in-group leg in this rank: the flagship sharded over ``sizes``
+    and, in rank 0, the same model unsharded, take the same SGD steps on
+    the same batch (each rank its slice); the sharded model's forward and
+    backward alone are counted and timed."""
+    import torch
+    import torch.distributed as dist
+
+    import torchft_tpu_torch.models.transformer as tr
+    from torchft_tpu_torch.models import Transformer, flagship_config, parallelize
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import ft_init_mesh
+    from torchft_tpu_torch.parallel.trainer import tree_device_bytes
+
+    cfg, batch, seq = flagship_config()
+    world = dist.get_world_size()
+    ftmesh = ft_init_mesh(sizes, device_type="cuda")
+    model = parallelize(Transformer(cfg, device=dev, generator=torch.Generator(device=dev)
+                                    .manual_seed(16)), ftmesh)
+    opt = torch.optim.SGD(model.parameters(), lr=HSDP_LR)
+    ref = ref_opt = None
+    if rank == 0:
+        ref = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(16))
+        ref_opt = torch.optim.SGD(ref.parameters(), lr=HSDP_LR)
+    shard, shards = ftmesh.batch_shard()
+    vpce = {"calls": 0}
+    plain_vpce = tr.vocab_parallel_cross_entropy
+
+    def counted(*a, **k):
+        vpce["calls"] += 1
+        return plain_vpce(*a, **k)
+
+    tr.vocab_parallel_cross_entropy = counted
+    out = {"leg": name, "sizes": sizes, "losses": [], "ref_losses": [], "loss_err": [],
+           "grad_err": [], "step_ms": [], "launches": [], "vpce_calls": [],
+           "local_param_bytes": tree_device_bytes(list(model.parameters())),
+           "global_param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    try:
+        for s in range(steps):
+            b = _hsdp_batch(cfg, batch, seq, s, dev)
+            mine = {k: v.chunk(shards)[shard] for k, v in b.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            reset_launch_counts()
+            vpce["calls"] = 0
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            loss = model.loss(mine)
+            loss.backward()
+            events[1].record()
+            events[1].synchronize()
+            out["launches"].append(launch_counts())
+            out["vpce_calls"].append(vpce["calls"])
+            out["step_ms"].append(events[0].elapsed_time(events[1]))
+            mean = loss.detach().float().clone()
+            dist.all_reduce(mean)
+            out["losses"].append(mean.item() / world)
+            grads = {n: ftmesh.full_tensor(p.grad) for n, p in model.named_parameters()}
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            if ref is not None:
+                ref_loss = ref.loss(b)
+                ref_loss.backward()
+                out["ref_losses"].append(ref_loss.item())
+                out["loss_err"].append(abs(out["losses"][-1] - ref_loss.item())
+                                       / abs(ref_loss.item()))
+                errs = {n: float((grads[n] - q.grad).abs().max()
+                                 / q.grad.abs().max().clamp_min(1e-30))
+                        for n, q in ref.named_parameters()}
+                worst = max(errs, key=errs.get)
+                out["grad_err"].append(errs[worst])
+                out.setdefault("worst_grad", []).append(worst)
+                ref_opt.step()
+                ref_opt.zero_grad(set_to_none=True)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            del grads
+    finally:
+        tr.vocab_parallel_cross_entropy = plain_vpce
+    return out
+
+
+def run_hsdp_rank(args: argparse.Namespace) -> None:
+    """One local rank of phase 16 (a) and (b): the group's world over gloo
+    through the slice bootstrap (ranks share the card), then each leg on its
+    own mesh over the same ranks; the results go to the run directory."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.multihost import initialize_slice
+
+    rank = args.hsdp_rank
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_slice(backend="gloo")
+    legs = [hsdp_leg("fsdp", {"fsdp": dist.get_world_size()}, HSDP_STEPS["fsdp"], rank, dev),
+            hsdp_leg("tensor", {"tensor": dist.get_world_size()}, HSDP_STEPS["tensor"], rank,
+                     dev)]
+    with open(os.path.join(args.run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(legs, f)
+    dist.destroy_process_group()
+
+
+def hsdp_in_group(card: str) -> dict:
+    """Phase 16 (a) and (b): two local ranks on the card, spawned as
+    ``chip_smoke.py --hsdp-rank r``, rendezvous through a Store."""
+    from torchft_tpu_torch.coordination import StoreServer
+
+    run_dir = tempfile.mkdtemp(prefix="tpuft_hsdp_")
+    store = StoreServer(bind="127.0.0.1:0")
+    procs = []
+    try:
+        env = dict(os.environ, TPUFT_NUM_HOSTS="2", TPUFT_STORE=store.address(),
+                   TPUFT_COORD_PORT=str(free_port()), MASTER_ADDR="127.0.0.1")
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--hsdp-rank", str(r),
+                 "--run-dir", run_dir], env=dict(env, TPUFT_HOST_RANK=str(r)), cwd=HERE))
+        deadline = time.monotonic() + HSDP_RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 16: the in-group ranks ran past {HSDP_RANK_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                raise AssertionError(f"phase 16: a rank failed: {[p.poll() for p in procs]}")
+            time.sleep(0.1)
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"phase 16: a rank failed: {[p.returncode for p in procs]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.shutdown()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    from torchft_tpu_torch.models import flagship_config
+
+    L = flagship_config()[0].n_layers
+    want = {"fsdp": {"flash_fwd": L, "flash_bwd_dkdv": L, "flash_bwd_dq": L, "ce_lse": 1,
+                     "ce_dlogits": 1},
+            "tensor": {"flash_fwd": L, "flash_bwd_dkdv": L, "flash_bwd_dq": L, "ce_lse": 0,
+                       "ce_dlogits": 0}}
+    out = {}
+    for i, leg in enumerate(("fsdp", "tensor")):
+        recs = [ranks[r][i] for r in range(2)]
+        head = recs[0]
+        for r, rec in enumerate(recs):
+            for s, counts in enumerate(rec["launches"]):
+                got = {k: counts.get(k, 0) for k in want[leg]}
+                if got != want[leg]:
+                    raise AssertionError(f"phase 16 ({leg}) rank {r} step {s} launched {got}, "
+                                         f"expected {want[leg]}")
+            wants_vpce = 1 if leg == "tensor" else 0
+            if rec["vpce_calls"] != [wants_vpce] * len(rec["vpce_calls"]):
+                raise AssertionError(f"phase 16 ({leg}) rank {r}: vocab-parallel loss calls "
+                                     f"{rec['vpce_calls']}, expected {wants_vpce} a step")
+        for s, (l, err, gerr) in enumerate(zip(head["losses"], head["loss_err"],
+                                               head["grad_err"])):
+            if not math.isfinite(l):
+                raise AssertionError(f"phase 16 ({leg}) step {s}: loss {l} is not finite")
+            if err > TOL_HSDP_LOSS:
+                raise AssertionError(f"phase 16 ({leg}) step {s}: loss {l} against the unsharded "
+                                     f"{head['ref_losses'][s]}: {err:.3e} > {TOL_HSDP_LOSS}")
+            if gerr > TOL_HSDP_GRAD:
+                raise AssertionError(f"phase 16 ({leg}) step {s}: a gathered gradient differs "
+                                     f"from the unsharded by {gerr:.3e} of its max > "
+                                     f"{TOL_HSDP_GRAD}")
+        launches = collections.Counter()
+        for rec in recs:
+            for counts in rec["launches"]:
+                launches.update(counts)
+        out[leg] = {"losses": head["losses"], "ref_losses": head["ref_losses"],
+                    "loss_err": head["loss_err"], "grad_err": head["grad_err"],
+                    "worst_grad": head["worst_grad"],
+                    "step_ms": [rec["step_ms"] for rec in recs],
+                    "peak_bytes": [rec["peak_bytes"] for rec in recs],
+                    "local_param_bytes": head["local_param_bytes"],
+                    "global_param_bytes": head["global_param_bytes"],
+                    "launches": dict(launches)}
+        print(f"  ({'a' if leg == 'fsdp' else 'b'}) {leg} 2: losses "
+              f"{', '.join(f'{x:.6f}' for x in head['losses'])} against unsharded "
+              f"{', '.join(f'{x:.6f}' for x in head['ref_losses'])} (worst {max(head['loss_err']):.2e}"
+              f" of it, allowed {TOL_HSDP_LOSS}); gathered gradients within "
+              f"{max(head['grad_err']):.2e} of each max (allowed {TOL_HSDP_GRAD}; the worst "
+              f"{head['worst_grad']}); forward + "
+              f"backward ms a rank {[[round(x, 2) for x in rec['step_ms']] for rec in recs]} "
+              f"(CUDA events, the ranks sharing the card; the first a warm-up); peak "
+              f"{max(rec['peak_bytes'] for rec in recs) / 2**30:.3f} GiB a rank; parameters "
+              f"{head['local_param_bytes'] / 2**20:.1f} of {head['global_param_bytes'] / 2**20:.1f}"
+              f" MiB a rank; launches {dict(launches)} ({card})", flush=True)
+    return out
+
+
+def hsdp_kill(card: str) -> dict:
+    """Phase 16 (c): train_hsdp at the flagship's widths under the launcher,
+    two groups of two ranks ({fsdp 2}, gloo on the shared card), group 1
+    SIGKILLed after HSDP_KILL_AFTER merged commits; its ranks must die with
+    it and each heal its shards over HTTP from group 0's same rank."""
+    from torchft_tpu_torch.examples.kill_heal import kill_and_heal
+
+    log_dir = tempfile.mkdtemp(prefix="tpuft_hsdp_kill_")
+    try:
+        r = kill_and_heal("cuda", log_dir, steps=HSDP_KILL_STEPS, steps_cap=HSDP_KILL_STEPS + 40,
+                          merged_before_kill=HSDP_KILL_AFTER, timeout_s=HSDP_KILL_TIMEOUT_S,
+                          example="train_hsdp",
+                          args=["--model", "flagship", "--devices", "2", "--fsdp", "2",
+                                "--tensor", "1", "--batch", "16"])
+        heals, launches, healed = {}, collections.Counter(), {}
+        for rank in (0, 1):
+            path = r["metrics_path"] + (f".rank{rank}" if rank else "")
+            with open(path) as f:
+                evs = [json.loads(line) for line in f if line.strip()]
+            heals[rank] = [e["duration_ms"] for e in evs if e.get("event") == "span"
+                           and e.get("phase") == "heal" and e.get("replica_id", "").startswith("1:")
+                           and e.get("step", 0) > 0]
+        # The ranks share their group's log; each line is one write.
+        counted = re.compile(r"\[group \d+ rank \d+\] kernel launches (\{[^{}]*\})")
+        heal_line = re.compile(r"\[group 1 rank (\d+)\] healed step=(\d+) bytes=(\d+) "
+                               r"fetch_s=([0-9.]+)")
+        for g in (0, 1):
+            with open(os.path.join(log_dir, f"g{g}.log"), errors="replace") as f:
+                text = f.read()
+            for m in counted.finditer(text):
+                launches.update(json.loads(m[1]))
+            for m in heal_line.finditer(text):
+                if int(m[2]) > 0:
+                    healed[int(m[1])] = {"step": int(m[2]), "bytes": int(m[3]),
+                                         "fetch_s": float(m[4])}
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    if sorted(healed) != [0, 1] or not all(heals[k] for k in (0, 1)):
+        raise AssertionError(f"phase 16 (c): not every rank of group 1 healed: {healed}, "
+                             f"heal spans {heals}")
+    missing = [k for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "ce_lse", "ce_dlogits")
+               if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"phase 16 (c): no launch of {missing}")
+    out = {"final_step": r["final_step"], "params_sha256": r["params_sha256"],
+           "killed_rank_pids": r["killed_rank_pids"], "recovery_s": r["recovery_s"],
+           "kill_to_heal_line_s": r["kill_to_heal_line_s"],
+           "merged_step_ms": r["survivor_merged_step_ms"],
+           "solo_step_ms": r["survivor_solo_step_ms"], "heal_ms": heals, "healed": healed,
+           "launches": dict(launches)}
+    print(f"  (c) 2 groups x fsdp 2, group 1 SIGKILLed: its ranks {r['killed_rank_pids']} gone; "
+          f"each rank healed its shards (heal span ms {heals}; fetched "
+          f"{ {k: (v['bytes'], v['fetch_s']) for k, v in healed.items()} } bytes, s); "
+          f"kill -> first merged commit {r['recovery_s']:.3f} s; merged step "
+          f"{r['survivor_merged_step_ms']:.1f} ms, solo {r['survivor_solo_step_ms'] or 0:.1f} ms "
+          f"(group 0's rank 0, host clock); both groups end at step {r['final_step']} with "
+          f"params_sha256 {r['params_sha256'][:16]}...; launches {dict(launches)} ({card})",
+          flush=True)
+    return out
+
+
+def hsdp_nccl(card: str) -> dict:
+    """Phase 16 (d): one group on a one-rank mesh over NCCL, the deployment's
+    own backend, in this process: the flagship's parameters as DTensors, a
+    lone Manager, HSDP_NCCL_STEPS ft_steps, the loss all-reduced over the
+    group's NCCL world."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch._native import LighthouseServer
+    from torchft_tpu_torch.collectives import TCPCollective
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.models import Transformer, flagship_config, loss_fn, parallelize
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+    from torchft_tpu_torch.parallel import TrainStep, ft_init_mesh
+
+    cfg, batch, seq = flagship_config()
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0, device_id=dev)
+    lighthouse = manager = None
+    try:
+        backend = dist.get_backend()
+        ftmesh = ft_init_mesh({"fsdp": 1}, device_type="cuda")
+        model = parallelize(Transformer(cfg, device=dev, generator=torch.Generator(device=dev)
+                                        .manual_seed(16)), ftmesh)
+        kinds = sorted({type(p).__name__ for p in model.parameters()})
+        lighthouse = LighthouseServer(bind="127.0.0.1:0", min_replicas=1, join_timeout_ms=100)
+        manager = Manager(
+            collective=TCPCollective(timeout=60.0, host="127.0.0.1"),
+            load_state_dict=lambda sd: None, state_dict=lambda: {}, min_replica_size=1, rank=0,
+            world_size=1, replica_id="hsdp_nccl", lighthouse_addr=lighthouse.address(),
+            store_addr="127.0.0.1", manager_bind="127.0.0.1:0", timeout=timedelta(seconds=60),
+            quorum_timeout=timedelta(seconds=60), init_sync=False)
+        ftmesh.manager = manager
+        trainer = TrainStep(model, torch.optim.SGD(model.parameters(), lr=HSDP_LR), loss_fn,
+                            manager, overlap_commit=False)
+        losses, launches = [], collections.Counter()
+        for s in range(HSDP_NCCL_STEPS):
+            b = _hsdp_batch(cfg, batch, seq, s, dev)
+            manager.start_quorum()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            loss, committed = trainer.ft_step(b)
+            torch.cuda.synchronize()
+            launches.update(launch_counts())
+            mean = loss.detach().float().clone()
+            dist.all_reduce(mean)
+            losses.append(mean.item())
+            if not committed or not math.isfinite(losses[-1]):
+                raise AssertionError(f"phase 16 (d) step {s}: committed {committed}, "
+                                     f"loss {losses[-1]}")
+    finally:
+        if manager is not None:
+            manager.shutdown()
+        if lighthouse is not None:
+            lighthouse.shutdown()
+        dist.destroy_process_group()
+    L = cfg.n_layers
+    want = {"flash_fwd": L, "flash_bwd_dkdv": L, "flash_bwd_dq": L, "ce_lse": 1, "ce_dlogits": 1}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != {k: v * HSDP_NCCL_STEPS for k, v in want.items()} or kinds != ["DTensor"]:
+        raise AssertionError(f"phase 16 (d): launches {got}, parameters {kinds}")
+    print(f"  (d) one rank over {backend}: {HSDP_NCCL_STEPS} committed ft_steps, losses "
+          f"{losses}, parameters {kinds}, launches {got} ({card})", flush=True)
+    return {"backend": backend, "losses": losses, "launches": dict(launches)}
+
+
+def hsdp_phase(card: str) -> dict:
+    t0 = time.monotonic()
+    out = hsdp_in_group(card)
+    # (c) drives its processes from a thread while (d) runs here: (d)'s
+    # kernels launch in this process and (c)'s in its children, so their
+    # counts stay apart.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        kill = pool.submit(hsdp_kill, card)
+        out["nccl"] = hsdp_nccl(card)
+        out["kill"] = kill.result()
+    out["phase_s"] = time.monotonic() - t0
+    launches = collections.Counter()
+    for leg in ("fsdp", "tensor"):
+        launches.update(out[leg]["launches"])
+    launches.update(out["kill"]["launches"])
+    launches.update(out["nccl"]["launches"])
+    out["launches"] = dict(launches)
+    out["card"] = card
+    print("HSDP " + json.dumps(out), flush=True)
+    print(f"  in-group phase: {out['phase_s']:.1f} s ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     t_run = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4899,6 +5317,7 @@ def main() -> int:
     parser.add_argument("--elastic-group", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--durable-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--control-group", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--hsdp-rank", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -4927,11 +5346,21 @@ def main() -> int:
     if args.control_group is not None:
         run_control_group(args)
         return 0
+    if args.hsdp_rank is not None:
+        run_hsdp_rank(args)
+        return 0
 
     # 1. Card.
     card = nvidia_smi_line()
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible)", flush=True)
+
+    # Each phase's wall time, printed as it ends (the run's limit is 1200 s).
+    laps = [t_run]
+
+    def lap(phase: str) -> None:
+        laps.append(time.monotonic())
+        print(f"phase {phase}: {laps[-1] - laps[-2]:.1f} s wall ({card})", flush=True)
 
     # 2. Build: the native core and the kernels at the same time.
     t0 = time.monotonic()
@@ -4951,9 +5380,13 @@ def main() -> int:
     print("kernel checks (flagship shapes):", flush=True)
     rec = kernel_checks()
 
+    lap("1-3")
+
     # 4. The RMSNorm entry point.
     print("rms_norm_pallas entry point, flagship activations", flush=True)
     launches = {"rms_norm": rms_entry_point()["rms_norm"]}
+
+    lap("4")
 
     # 5. Flagship training, on TCP lanes and then on shm lanes.
     print("main path: lighthouse + 2 replica groups, flagship config", flush=True)
@@ -4978,6 +5411,8 @@ def main() -> int:
     if shm_run["params_sha256"] != tcp_run["params_sha256"]:
         raise AssertionError("the shm run ended with other parameters than the TCP run")
 
+    lap("5")
+
     # 6. Kill and heal through the launcher and the train_ddp example.
     print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
           flush=True)
@@ -4986,6 +5421,8 @@ def main() -> int:
           f"{RESUME_STEPS} and resumed from disk", flush=True)
     resume_phase(card)
 
+    lap("6")
+
     # 7. The bare ring on the card's host.
     print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
           f"{BARE_RING_REPEATS} allreduces a configuration on TCP and shm lanes; then max / "
@@ -4993,15 +5430,21 @@ def main() -> int:
           flush=True)
     bare_ring(card)
 
+    lap("7")
+
     # 8. The raw-step profile.
     print(f"raw-step profile: torch.profiler over {PROFILE_STEPS} chained flagship full_steps",
           flush=True)
     profile_phase(card)
 
+    lap("8")
+
     # 9. The semisync codec's device encoders.
     print("semisync codec: device int8 / int4 encoders against the host quantizers",
           flush=True)
     codec_phase(card)
+
+    lap("9")
 
     # 10. Streaming DiLoCo on the flagship.
     print(f"DiLoCo: lighthouse + 2 groups, flagship width at {DILOCO_LAYERS} layers, "
@@ -5010,13 +5453,19 @@ def main() -> int:
           f"{DILOCO_SOLO_ROUNDS + 1}", flush=True)
     diloco_launches = diloco_phase(card)
 
+    lap("10")
+
     # 11. The healing plane on the flagship.
-    print("healing: lighthouse + 3 groups, flagship config, erasure-coded state k 2 m 1; "
+    print(f"healing: lighthouse + 3 groups, flagship widths at {HEAL_LAYERS} layers, "
+          "erasure-coded state k 2 m 1; "
           "a striped two-donor heal, an erasure heal, a donor killed mid-fetch", flush=True)
     healing_launches, heal_recovery = healing_phase(card)
 
+    lap("11")
+
     # 12. The elastic plane on the flagship.
-    print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship config, elastic global batch "
+    print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship widths at {ELASTIC_LAYERS} "
+          f"layers, elastic global batch "
           f"{ELASTIC_GLOBAL_BATCH} (microbatch {ELASTIC_MICROBATCH}); a cooperative drain, "
           f"then a SIGKILL, each handed to the spare, then a straggler rotated out by the "
           f"sentinel", flush=True)
@@ -5024,19 +5473,27 @@ def main() -> int:
                                                      heal_recovery["kill_c"]],
                                             "kill_heal": kill_heal["recovery_s"]})
 
+    lap("12")
+
     # 13. Durable state and isolated communication on the flagship.
-    print(f"durable state: lighthouse + 2 groups, flagship config, StatefulDataLoader; (a) "
+    print(f"durable state: lighthouse + 2 groups, flagship widths at {DURABLE_LAYERS} layers, "
+          f"StatefulDataLoader; (a) "
           f"{DURABLE_STEPS} steps, (b) the same stopped at {DURABLE_STEPS // 2} and resumed "
           f"from disk, (c) a lost group healed over CollectiveTransport, (d) a baby "
           f"collective's child SIGKILLed", flush=True)
     durable_launches = durable_phase(card, heal_recovery["http_striped"])
 
+    lap("13")
+
     # 14. The highly-available and federated control plane on the flagship.
     print(f"control plane: (a) 2 HA lighthouse processes (lease {CONTROL_LEASE_MS} ms) + 2 "
-          f"groups, flagship config, the leader SIGKILLed after {CONTROL_KILL_AT} merged steps; "
+          f"groups, flagship widths at {CONTROL_LAYERS} layers, the leader SIGKILLed after "
+          f"{CONTROL_KILL_AT} merged steps; "
           f"(b) a root + 2 region lighthouses, one group in each, {CONTROL_STEPS} steps",
           flush=True)
     control_launches = control_phase(card)
+
+    lap("14")
 
     # 15. The step options on the flagship.
     print(f"step options: (a) {OPTION_STEPS} flagship full_steps with and without remat from "
@@ -5044,7 +5501,17 @@ def main() -> int:
           f"and then False, the vote of step {OVERLAP_FAIL_AT} failed", flush=True)
     options = step_options_phase(card)
 
-    # 16. The kernels line, then the last line.
+    lap("15")
+
+    # 16. In-group parallelism and sharded healing on the flagship.
+    print("in-group parallelism: (a) fsdp 2 and (b) tensor 2, two local ranks on the card over "
+          "gloo, the flagship sharded against it unsharded; (c) train_hsdp, 2 groups x fsdp 2, "
+          "group 1 SIGKILLed and its shards healed; (d) one rank over NCCL", flush=True)
+    hsdp = hsdp_phase(card)
+
+    lap("16")
+
+    # 17. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -5064,6 +5531,7 @@ def main() -> int:
             "launches_control": control_launches.get(name, 0),
             "launches_remat": options["remat"]["remat_True"]["launches"].get(name, 0),
             "launches_no_remat": options["remat"]["remat_False"]["launches"].get(name, 0),
+            "launches_hsdp": hsdp["launches"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -192,14 +192,14 @@ def _fixed_run(kinds: List[str], ref) -> Dict[int, List[dict]]:
     logs: Dict[int, List[dict]] = {g: [] for g in range(3)}
     errors: List[BaseException] = []
     built = threading.Barrier(3, action=lambda: _heartbeats(lh, ref, 3))
+    managers: Dict[int, Any] = {}
 
     def group(g: int) -> None:
-        m = None
         try:
             state = {"w": np.zeros(200, np.float32)}
             mode = ref["manager"].WorldSizeMode.FIXED_WITH_SPARES
-            m = _make(kinds[g], ref, g, lh.address(), state, True, world_size_mode=mode,
-                      fixed_world_size=2)
+            managers[g] = m = _make(kinds[g], ref, g, lh.address(), state, True,
+                                    world_size_mode=mode, fixed_world_size=2)
             built.wait(30)
             for _ in range(3):
                 assert _step(m, g, state, logs[g])
@@ -207,9 +207,6 @@ def _fixed_run(kinds: List[str], ref) -> Dict[int, List[dict]]:
         except BaseException as e:  # noqa: BLE001 - re-raised by the test
             errors.append(e)
             built.abort()
-        finally:
-            if m is not None:
-                m.shutdown()
 
     threads = [threading.Thread(target=group, args=(g,)) for g in range(3)]
     try:
@@ -217,6 +214,11 @@ def _fixed_run(kinds: List[str], ref) -> Dict[int, List[dict]]:
             t.start()
         _join_all(threads, errors)
     finally:
+        # One group at a time, from this thread, once every group's last
+        # vote is in: the groups' threads shutting down together segfaulted
+        # in the JAX package's native shutdown.
+        for g in sorted(managers):
+            managers[g].shutdown()
         lh.shutdown()
     return logs
 

@@ -343,7 +343,15 @@ def test_client_follows_redirect_to_leader(lighthouse) -> None:
         leader.shutdown()
 
 
-def test_client_rotates_past_dead_address(lighthouse) -> None:
+# A loopback address no other test binds: a lighthouse there cannot take
+# over a port another test's lighthouse just released while that test's
+# Managers still heartbeat to it (they dial HOST).
+PRIVATE_HOST = "127.0.0.29"
+
+
+def test_client_rotates_past_dead_address() -> None:
+    lighthouse = _native.LighthouseServer(bind=f"{PRIVATE_HOST}:0", min_replicas=1,
+                                          join_timeout_ms=500, http_bind=f"{PRIVATE_HOST}:0")
     lighthouse.set_role(True, lighthouse.address(), lighthouse.http_address(), 1, 0)
     client = _native.LighthouseClient(f"{_dead_address()},{lighthouse.address()}",
                                       connect_timeout_ms=2000)
@@ -353,6 +361,7 @@ def test_client_rotates_past_dead_address(lighthouse) -> None:
         assert [p.replica_id for p in q.participants] == ["g1:r"]
     finally:
         client.close()
+        lighthouse.shutdown()
 
 
 def test_manager_dead_address_list_raises_actionable_error() -> None:

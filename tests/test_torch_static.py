@@ -102,6 +102,25 @@ def test_the_detect_and_act_plane_stands_alone() -> None:
     assert set(watcher.__all__) == {"IncidentWatcher", "POLICY_BY_KIND", "main"}
 
 
+def test_the_in_group_modules_stand_alone() -> None:
+    """The mesh, the rules, the in-group collectives, the slice bootstrap
+    and the HSDP example are scanned and import nothing of JAX or the JAX
+    package; their entry points are exported."""
+    scanned = set(_port_files())
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+                "parallel/functional.py", "multihost.py", "examples/train_hsdp.py"):
+        path = os.path.join(REPO, "torchft_tpu_torch", rel)
+        assert path in scanned, rel
+        assert not set(_imported_roots(path)) & FORBIDDEN, rel
+        assert "torchft_tpu." not in open(path).read().replace("torchft_tpu_torch", ""), rel
+    from torchft_tpu_torch import models, multihost, parallel
+
+    assert {"FTMesh", "ft_init_mesh", "ShardingRules", "logical_sharding",
+            "TrainStep"} == set(parallel.__all__)
+    assert {"SliceConfig", "slice_config_from_env", "initialize_slice"} == set(multihost.__all__)
+    assert {"param_axes", "parallelize"} <= set(models.__all__)
+
+
 def test_the_durable_state_and_isolation_modules_stand_alone() -> None:
     """Disk checkpoints, the collective transport, the stateful loader, the
     baby collective and the parameter server are scanned and import
@@ -123,7 +142,7 @@ def test_the_durable_state_and_isolation_modules_stand_alone() -> None:
 
     assert {"CollectiveTransport", "DiskCheckpointer", "ManagedDiskCheckpoint",
             "HTTPTransport", "CheckpointTransport"} == set(checkpointing.__all__)
-    assert set(data.__all__) == {"DistributedSampler", "StatefulDataLoader"}
+    assert set(data.__all__) == {"DistributedSampler", "StatefulDataLoader", "shard_batch"}
     assert set(baby.__all__) == {"MonitoredPipe", "BabyCollective", "BabyTCPCollective"}
     assert set(parameter_server.__all__) == {"ParameterServer", "TCPParameterServer"}
 

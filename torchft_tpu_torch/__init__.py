@@ -15,11 +15,14 @@ available by a lease in a shared file with continuous replication to warm
 standbys (``ha``), regional lighthouses under a root (``federation``),
 their CLI (``lighthouse_cli``), a store CLI (``store_cli``), the raw
 coordination API (``coordination``), and a lighthouse client that fails
-over across an address list.  Not ported yet: the in-group mesh and
-sharded state (``parallel.mesh``, ``parallel.sharding``,
-``data.shard_batch``, ``multihost``), long context, MoE and the pipeline,
-the TPU JobSet spec (``spec.py``) and the metrics linter (ROADMAP queue
-1).
+over across an address list.  In-group parallelism: a group's local
+ranks bootstrap one ``torch.distributed`` world (``multihost``) and shard
+the model over a mesh of "data", "fsdp" and "tensor" axes as DTensors
+(``parallel.mesh``, ``parallel.sharding``, ``models.parallelize``,
+``data.shard_batch``), and each rank averages and heals its own shards
+across groups (``examples/train_hsdp.py``).  Not ported yet: long
+context, MoE and the pipeline (the mesh's other axes), the TPU JobSet spec
+(``spec.py``) and the metrics linter (ROADMAP queue 1).
 
 The JAX package ``torchft_tpu`` is the reference; this package imports
 nothing of it, and speaks the same wire to the same native coordination

@@ -144,13 +144,20 @@ class HTTPTransport(CheckpointTransport):
             exactly for states that hold CUDA tensors.
         num_chunks: chunks advertised on ``/metadata`` to single-donor
             receivers (0 or 1: one ``/full`` stream).
+        restore_sharding: the placement restorer of every received state
+            (``serialization.sharding_restorer(state_dict_fn)``): tensors
+            land on their live twins' devices, DTensor shards on their
+            twins' meshes.  None: the state comes back on the CPU, a DTensor
+            leaf as its plain local shard.
     """
 
     serves_all_donors = True
 
     def __init__(self, timeout: float = 60.0, host: Optional[str] = None,
-                 background: Optional[bool] = None, num_chunks: int = DEFAULT_NUM_CHUNKS) -> None:
+                 background: Optional[bool] = None, num_chunks: int = DEFAULT_NUM_CHUNKS,
+                 restore_sharding: Optional[Callable[..., torch.Tensor]] = None) -> None:
         self._timeout = timeout
+        self._restore = restore_sharding
         self._background = background
         self._num_chunks = num_chunks
         # Received buffers are pinned where a card will take them.
@@ -588,7 +595,7 @@ class HTTPTransport(CheckpointTransport):
     def materialize(self, meta: StateDictMeta, buffers: List[Any]) -> Any:
         """(header, buffers) -> the state, as a donor fetch builds it (the
         last leg of an erasure reconstruction)."""
-        return unflatten_state_dict(meta, buffers)
+        return unflatten_state_dict(meta, buffers, self._restore)
 
     def recv_checkpoint(self, src_rank: int, metadata: Union[str, Sequence[str]], step: int,
                         timeout: float) -> Any:
@@ -614,14 +621,14 @@ class HTTPTransport(CheckpointTransport):
                     meta, buffers = read_state_dict(resp, alloc=self._alloc, stats=stats)
                 self._note_fetch(t0, buffers, stats, mode="full", donors=donors, n_stripes=1,
                                  workers=1, by_donor=[1], failovers=0, dead=[])
-                return unflatten_state_dict(meta, buffers)
+                return unflatten_state_dict(meta, buffers, self._restore)
             n_stripes = n_chunks
         else:
             workers = forced or max(len(donors), min(2 * len(donors), os.cpu_count() or 1))
         meta, buffers, got = self._recv_striped(donors, step, n_stripes, workers, timeout, stats)
         self._note_fetch(t0, buffers, stats, mode="striped" if len(donors) > 1 else "chunked",
                          donors=donors, workers=workers, **got)
-        return unflatten_state_dict(meta, buffers)
+        return unflatten_state_dict(meta, buffers, self._restore)
 
     def _note_fetch(self, t0: float, buffers: List[Any], stats: dict, **fields: Any) -> None:
         donors = fields["donors"]

@@ -15,6 +15,17 @@ other value (numbers, strings, ``None``) rides pickled in the header.
 Flattening copies every tensor to host memory, so the result is a snapshot
 that later in-place updates (optimizer steps) cannot change.
 
+A ``DTensor`` leaf (a parameter or optimizer state on an in-group mesh)
+serializes its **local shard** only; its leaf records ``("dtensor",
+(buffer index, layout))``, the layout being the mesh's dim names and shape,
+the placements and the global shape (:func:`dtensor_layout`).  Frames
+without DTensors are byte for byte what they were before DTensors were
+supported.  :func:`sharding_restorer` rebuilds each such leaf with
+``DTensor.from_local`` on its live twin's mesh, so every local rank heals
+or resumes its own shards; a layout that differs from the twin's raises
+(nothing is resharded: a rank holds only its shard, where a JAX process
+holds the global array and can lay it onto any mesh).
+
 The header may carry one checksum a buffer (``crc_algo``, ``crcs``; the
 HTTP transport stamps them), and :func:`read_state_dict` verifies each
 buffer as it lands.  Headers are read with a restricted unpickler
@@ -43,6 +54,7 @@ __all__ = [
     "ForeignFrameError",
     "StateDictMeta",
     "as_u8",
+    "dtensor_layout",
     "flatten_state_dict",
     "read_exact",
     "read_exact_into",
@@ -103,7 +115,8 @@ class StateDictMeta:
 
     step: int
     spec: Any = None
-    # Per leaf in flatten order: ("tensor", buffer index) or ("obj", value).
+    # Per leaf in flatten order: ("tensor", buffer index), ("dtensor",
+    # (buffer index, layout)) or ("obj", value).
     leaves: List[Tuple[str, Any]] = field(default_factory=list)
     # Per buffer: (shape, dtype name, nbytes).
     tensors: List[Tuple[Tuple[int, ...], str, int]] = field(default_factory=list)
@@ -132,9 +145,40 @@ def _host_bytes(t: torch.Tensor) -> np.ndarray:
     return host.contiguous().reshape(-1).view(torch.uint8).numpy()
 
 
+def _dtensor_type() -> Any:
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def _placement_record(p: Any) -> tuple:
+    if p.is_shard():
+        return ("shard", int(p.dim))
+    if p.is_replicate():
+        return ("replicate",)
+    if p.is_partial():
+        return ("partial", str(p.reduce_op))
+    raise ValueError(f"unsupported DTensor placement {p!r}")
+
+
+def dtensor_layout(t: Any) -> Optional[tuple]:
+    """(mesh dim names, mesh shape, placements, global shape) of a DTensor
+    as plain values, placements as ``("shard", dim)``, ``("replicate",)``
+    or ``("partial", op)``; None for any other tensor."""
+    dtensor = _dtensor_type()
+    if dtensor is None or not isinstance(t, dtensor):
+        return None
+    mesh = t.device_mesh
+    return (tuple(mesh.mesh_dim_names or ()), tuple(int(n) for n in mesh.shape),
+            tuple(_placement_record(p) for p in t.placements), tuple(int(n) for n in t.shape))
+
+
 def flatten_state_dict(state_dict: Any, step: int = 0) -> Tuple[StateDictMeta, List[np.ndarray]]:
     """(header, host buffers) of a nested dict/list/tuple of tensors and
-    plain values.  Every buffer is a fresh host copy."""
+    plain values.  Every buffer is a fresh host copy; a DTensor's is its
+    local shard's."""
     meta = StateDictMeta(step=step)
     buffers: List[np.ndarray] = []
 
@@ -146,8 +190,13 @@ def flatten_state_dict(state_dict: Any, step: int = 0) -> Tuple[StateDictMeta, L
         if isinstance(node, (list, tuple)):
             return ("list" if isinstance(node, list) else "tuple", None, [walk(c) for c in node])
         if isinstance(node, torch.Tensor):
+            layout = dtensor_layout(node)
+            if layout is not None:
+                node = node.to_local()
+                meta.leaves.append(("dtensor", (len(buffers), layout)))
+            else:
+                meta.leaves.append(("tensor", len(buffers)))
             buf = _host_bytes(node)
-            meta.leaves.append(("tensor", len(buffers)))
             meta.tensors.append(
                 (tuple(node.shape), str(node.dtype).removeprefix("torch."), buf.nbytes)
             )
@@ -174,12 +223,13 @@ def _tensor(buf, shape: Tuple[int, ...], dtype_name: str) -> torch.Tensor:
 
 
 def unflatten_state_dict(meta: StateDictMeta, buffers: List[Any],
-                         restore: Optional[Callable[[tuple, torch.Tensor], torch.Tensor]] = None
-                         ) -> Any:
+                         restore: Optional[Callable[..., torch.Tensor]] = None) -> Any:
     """Rebuilds the nested structure; tensors come back on the CPU, viewing
     ``buffers`` (each a writable bytes-like object or a uint8 tensor).
     ``restore(path, tensor)`` (a :func:`sharding_restorer`) may place each
-    tensor, ``path`` being its keys and indices from the root."""
+    tensor, ``path`` being its keys and indices from the root; a DTensor
+    leaf's local shard goes as ``restore(path, tensor, layout=...)``
+    (without ``restore`` it comes back as that plain local tensor)."""
     leaves = iter(meta.leaves)
 
     def build(spec: Any, path: tuple) -> Any:
@@ -188,9 +238,14 @@ def unflatten_state_dict(meta: StateDictMeta, buffers: List[Any],
             what, value = next(leaves)
             if what == "obj":
                 return value
+            layout = None
+            if what == "dtensor":
+                value, layout = value
             shape, dtype_name, _ = meta.tensors[value]
             t = _tensor(buffers[value], shape, dtype_name)
-            return restore(path, t) if restore is not None else t
+            if restore is None:
+                return t
+            return restore(path, t) if layout is None else restore(path, t, layout=layout)
         names = keys if keys is not None else range(len(children))
         built = [build(c, path + (k,)) for k, c in zip(names, children)]
         if kind == "dict":
@@ -213,8 +268,7 @@ def _tensor_paths(node: Any, path: tuple, out: Dict[tuple, torch.Tensor]) -> Non
         out[path] = node
 
 
-def sharding_restorer(state_dict_fn: Callable[[], Any]
-                      ) -> Callable[[tuple, torch.Tensor], torch.Tensor]:
+def sharding_restorer(state_dict_fn: Callable[[], Any]) -> Callable[..., torch.Tensor]:
     """The placement restorer of :func:`unflatten_state_dict`, from the live
     state: each restored tensor lands on the device of its live twin, the
     tensor that ``state_dict_fn()`` (a zero-argument callable, the one a
@@ -225,13 +279,18 @@ def sharding_restorer(state_dict_fn: Callable[[], Any]
     ``ValueError``: nothing is cast.  A tensor with no twin stays on the
     CPU, as without a restorer.
 
-    The live state is read once, at the first restored tensor.  The port's
-    state holds plain tensors; placing DTensor shards on an in-group mesh
-    comes with that mesh (ROADMAP Q1.7)."""
+    A DTensor leaf (its local shard and its recorded layout) becomes a
+    DTensor again, ``DTensor.from_local`` on its twin's mesh with the
+    twin's placements; a recorded layout (mesh dim names and shape,
+    placements, global shape) other than the twin's, or a plain leaf whose
+    twin is a DTensor or the other way round, raises ``ValueError``:
+    nothing is resharded.
+
+    The live state is read once, at the first restored tensor."""
     live: Dict[tuple, torch.Tensor] = {}
     read = [False]
 
-    def restore(path: tuple, t: torch.Tensor) -> torch.Tensor:
+    def restore(path: tuple, t: torch.Tensor, layout: Optional[tuple] = None) -> torch.Tensor:
         if not read[0]:
             read[0] = True
             _tensor_paths(state_dict_fn(), (), live)
@@ -242,12 +301,22 @@ def sharding_restorer(state_dict_fn: Callable[[], Any]
                 break
         if twin is None:
             return t
-        if twin.dtype != t.dtype or tuple(twin.shape) != tuple(t.shape):
+        where = "/".join(map(str, path))
+        twin_layout = dtensor_layout(twin)
+        if twin_layout != layout:
+            raise ValueError(f"restored tensor at {where} was saved with layout {layout}, its "
+                             f"live twin has {twin_layout}: a shard is not resharded")
+        local = twin.to_local() if twin_layout is not None else twin
+        if local.dtype != t.dtype or tuple(local.shape) != tuple(t.shape):
             raise ValueError(
-                f"restored tensor at {'/'.join(map(str, path))} is {t.dtype} {tuple(t.shape)}, "
-                f"its live twin {twin.dtype} {tuple(twin.shape)}"
+                f"restored tensor at {where} is {t.dtype} {tuple(t.shape)}, "
+                f"its live twin {local.dtype} {tuple(local.shape)}"
             )
-        return t if twin.device == t.device else t.to(twin.device)
+        t = t if local.device == t.device else t.to(local.device)
+        if twin_layout is None:
+            return t
+        return _dtensor_type().from_local(t, twin.device_mesh, twin.placements, run_check=False,
+                                          shape=twin.shape, stride=twin.stride())
 
     return restore
 

@@ -9,17 +9,17 @@ index stream, and the same index batches, as the JAX package for the same
 arguments.  Sharding is static per run: a group that leaves takes its
 shard's remaining samples with it.
 
-Not ported yet: ``shard_batch``, which comes with the in-group mesh
-(ROADMAP Q1.7).
+:func:`shard_batch` splits one batch's indices the same way, for a
+group's local ranks (``FTMesh.batch_shard``) or for synthetic streams.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Sequence
 
 import numpy as np
 
-__all__ = ["DistributedSampler", "StatefulDataLoader"]
+__all__ = ["DistributedSampler", "StatefulDataLoader", "shard_batch"]
 
 
 class DistributedSampler:
@@ -148,3 +148,18 @@ class StatefulDataLoader:
         self._epoch = int(state["epoch"])
         self._batches_yielded = int(state["batches_yielded"])
         self._roll_if_exhausted()
+
+
+def shard_batch(
+    batch_indices: Sequence[int],
+    replica_group: int,
+    num_replica_groups: int,
+    rank: int = 0,
+    num_replicas: int = 1,
+) -> np.ndarray:
+    """Shards a single global batch's indices the same way the sampler shards
+    the dataset: every ``num_replicas * num_replica_groups``-th index from
+    ``rank + num_replicas * replica_group`` on."""
+    global_rank = rank + num_replicas * replica_group
+    global_ws = num_replicas * num_replica_groups
+    return np.asarray(batch_indices)[global_rank::global_ws]

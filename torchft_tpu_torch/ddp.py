@@ -38,6 +38,11 @@ flight.  ``last_stats``' three waits are the sums of those spans' durations.
 tensor averager, and :func:`allreduce_pytree` the one-shot form of the
 bucket averager (on a list of tensors: torch has no pytrees).
 
+A ``DTensor`` gradient (a parameter on an in-group mesh) is averaged as its
+local shard: local rank r of every group shares one ring (the Manager keys
+its ring by local rank), so each rank averages its own shards, and the
+result lands in the DTensor's local tensor.  Plain tensors ride as before.
+
 :class:`ElasticBatchScaler` is the JAX package's elastic batch engine: with
 ``TPUFT_ELASTIC_GLOBAL_BATCH`` set, the Manager plans each membership's
 split of a constant global batch (``Manager.elastic_plan``).
@@ -64,6 +69,16 @@ TPUFT_ELASTIC_GLOBAL_BATCH_ENV = "TPUFT_ELASTIC_GLOBAL_BATCH"
 TPUFT_ELASTIC_MICROBATCH_ENV = "TPUFT_ELASTIC_MICROBATCH"
 TPUFT_ELASTIC_SCALE_LR_ENV = "TPUFT_ELASTIC_SCALE_LR"
 TPUFT_ELASTIC_BASE_PARTICIPANTS_ENV = "TPUFT_ELASTIC_BASE_PARTICIPANTS"
+
+
+def local_tensor(t: Any) -> Any:
+    """A DTensor's local shard (sharing its storage); anything else as it
+    is."""
+    to_local = getattr(t, "to_local", None)
+    if to_local is None or not isinstance(t, torch.Tensor):
+        return t
+    with torch.no_grad():
+        return to_local()
 
 
 def _env_flag(name: str, default: bool = False) -> bool:
@@ -309,7 +324,7 @@ class GradientAverager:
         the averages are back in the gradients; a bucket whose allreduce
         failed keeps its gradients (the error is latched in the Manager and
         the step's commit vote fails)."""
-        grads = list(grads)
+        grads = [local_tensor(g) for g in grads]
         if not grads:
             return
         manager = self.manager
@@ -405,8 +420,10 @@ class PerLeafGradientAverager:
         """The average across the participating groups of each tensor (or
         numpy array) of ``grads``, each of its input's type and device; a
         tensor whose allreduce failed comes back as itself (the error is
-        latched in the Manager)."""
-        leaves = list(grads)
+        latched in the Manager).  A DTensor's local shard is averaged and
+        comes back as a DTensor of the same placements."""
+        originals = list(grads)
+        leaves = [local_tensor(t) for t in originals]
         if not leaves:
             return leaves
         manager = self._manager
@@ -421,9 +438,20 @@ class PerLeafGradientAverager:
             results = [f.result() for f in futs]
         # A stand-in manager may hand back host arrays: each result goes
         # where its input was.
-        return [torch.as_tensor(r).to(t.device)
-                if isinstance(t, torch.Tensor) and not isinstance(r, torch.Tensor) else r
-                for t, r in zip(leaves, results)]
+        results = [torch.as_tensor(r).to(t.device)
+                   if isinstance(t, torch.Tensor) and not isinstance(r, torch.Tensor) else r
+                   for t, r in zip(leaves, results)]
+        return [_like(o, r) for o, r in zip(originals, results)]
+
+
+def _like(original: Any, result: Any) -> Any:
+    """``result`` (a local average) as a DTensor where ``original`` is one."""
+    if original is result or local_tensor(original) is original:
+        return result
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(result, original.device_mesh, original.placements,
+                              run_check=False, shape=original.shape, stride=original.stride())
 
 
 def allreduce_pytree(manager: Manager, tensors: Sequence[torch.Tensor],

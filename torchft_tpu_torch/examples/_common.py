@@ -19,7 +19,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from torchft_tpu_torch.checkpointing import HTTPTransport
+from torchft_tpu_torch.checkpointing import CollectiveTransport, HTTPTransport
+from torchft_tpu_torch.checkpointing.serialization import sharding_restorer
 from torchft_tpu_torch.collectives import TCPCollective
 from torchft_tpu_torch.manager import Manager
 
@@ -99,35 +100,61 @@ def make_manager(
     min_replicas: int = 1,
     timeout_s: float = 30.0,
     init_sync: bool = True,
+    rank: int = 0,
+    world_size: int = 1,
+    store_port: Optional[int] = None,
+    restore_in_place: bool = False,
+    transport: str = "http",
 ) -> Manager:
-    """One-process replica group's Manager with the examples' wiring: a
-    TCPCollective data plane, the HTTP checkpoint transport and the drain
-    watcher (SIGTERM, the launcher's notice file, the opt-in GCE poll), so
-    a planned departure hands off instead of dying.
+    """A replica group's Manager with the examples' wiring: a TCPCollective
+    data plane and the HTTP checkpoint transport; a one-process group also
+    gets the drain watcher (SIGTERM, the launcher's notice file, the opt-in
+    GCE poll), so a planned departure hands off instead of dying.
 
     Every server of the group (store, manager, ring, checkpoint) listens on
     and is advertised under ``MASTER_ADDR``, the group's store host (the
     launcher sets ``localhost``): peers already reach the store there.
     ``init_sync=False`` skips the step-0 weight sync, for groups that build
-    the same weights from one seed."""
+    the same weights from one seed.  A group of ``world_size`` local ranks
+    (``examples/train_hsdp.py``) gives each its ``rank`` and the
+    ``store_port`` rank 0's store binds.  ``restore_in_place`` places what
+    a heal fetches on the live state's devices and meshes
+    (``serialization.sharding_restorer`` over ``save``).
+    ``transport="collective"`` heals over the data plane's send/recv
+    (``CollectiveTransport``) instead of HTTP."""
     host = os.environ.get("MASTER_ADDR", "localhost")
     timeout = timedelta(seconds=timeout_s)
+    collective = TCPCollective(timeout=timeout_s, host=host)
+    if transport == "http":
+        checkpoint_transport = HTTPTransport(
+            timeout=timeout_s, host=host,
+            restore_sharding=sharding_restorer(save) if restore_in_place else None)
+    elif transport == "collective":
+        checkpoint_transport = CollectiveTransport(
+            collective, timeout=timeout_s, state_dict_fn=save if restore_in_place else None)
+    else:
+        raise ValueError(f"unknown checkpoint transport {transport!r}")
     manager = Manager(
-        collective=TCPCollective(timeout=timeout_s, host=host),
+        collective=collective,
         load_state_dict=load,
         state_dict=save,
         min_replica_size=min_replicas,
         timeout=timeout,
         quorum_timeout=timeout,
-        rank=0,
-        world_size=1,
+        rank=rank,
+        world_size=world_size,
         replica_id=str(replica_group),
         store_addr=host,
+        store_port=store_port,
         manager_bind=f"{host}:0",
-        checkpoint_transport=HTTPTransport(timeout=timeout_s, host=host),
+        checkpoint_transport=checkpoint_transport,
         init_sync=init_sync,
     )
-    manager.attach_drain_watcher()
+    if world_size == 1:
+        # A drain leaves after the step in flight; ranks that saw the
+        # notice at different steps would part on their in-group
+        # collectives, so a multi-rank group stops whole instead.
+        manager.attach_drain_watcher()
     return manager
 
 

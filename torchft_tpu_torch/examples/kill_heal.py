@@ -1,6 +1,9 @@
 """The supervised kill-and-heal drive: two replica groups of the train_ddp
-example under :class:`~torchft_tpu_torch.launch.Launcher`, group 1 killed
-with SIGKILL mid-run, restarted by the supervisor, healed live from group 0.
+example (or another example: ``train_hsdp``, a group of local ranks) under
+:class:`~torchft_tpu_torch.launch.Launcher`, group 1 killed with SIGKILL
+mid-run, restarted by the supervisor, healed live from group 0.  Where the
+killed group's log names its local ranks' pids, the drive also checks that
+none outlives the kill (an orphan rank would heartbeat for a dead group).
 
 :func:`kill_and_heal` runs it, asserts what makes it a recovery (exactly
 one restart, a heal after the kill, both groups ending at the same step
@@ -24,7 +27,7 @@ import os
 import re
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from torchft_tpu_torch.launch import Launcher
 from torchft_tpu_torch.metrics import METRICS_PATH_ENV, MetricsLogger
@@ -33,7 +36,23 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 _STEP = re.compile(r"\[group \d+\] step=(\d+) loss=(\S+) participants=(\d+) committed=(\w+)")
 _FINAL = re.compile(r"FINAL step=(\d+) params_sha256=([0-9a-f]+)")
 _RESUMED = re.compile(r"\[group \d+\] resumed from disk checkpoint step=(\d+)")
+_RANK_PIDS = re.compile(r"\[group \d+\] local ranks pids=\[([0-9, ]*)\]")
 LOG_POLL_S = 0.02
+ORPHAN_GRACE_S = 5.0
+
+
+def _alive(pid: int) -> bool:
+    """Whether ``pid`` is a live process (a zombie is not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False
+
+
+def _command(example: str, device: str, args: Sequence[str]) -> List[str]:
+    return [sys.executable, "-m", f"torchft_tpu_torch.examples.{example}", "--device", device,
+            *args]
 
 
 class _Tail:
@@ -105,15 +124,21 @@ def kill_and_heal(
     merged_before_kill: int = 3,
     timeout_s: float = 300.0,
     env: Optional[Dict[str, Optional[str]]] = None,
+    example: str = "train_ddp",
+    args: Sequence[str] = (),
 ) -> dict:
     """Runs the drive; raises AssertionError or TimeoutError on a failed
     recovery.  ``merged_before_kill``: group 0's merged commits (2
-    participants) before the kill; ``steps`` must exceed it.  The result's
-    ``metrics_path`` is the run's stream."""
+    participants) before the kill; ``steps`` must exceed it.  ``example``
+    names the module under ``torchft_tpu_torch.examples`` and ``args`` adds
+    to its command line.  The result's ``metrics_path`` is the run's
+    stream; ``killed_rank_pids`` lists the killed incarnation's local ranks
+    (empty for a one-process group), each checked gone within
+    ORPHAN_GRACE_S of the kill."""
     metrics_path = os.path.join(log_dir, "metrics.jsonl")
     env = {**(env or {}), METRICS_PATH_ENV: metrics_path}
-    cmd = [sys.executable, "-m", "torchft_tpu_torch.examples.train_ddp", "--device", device,
-           "--steps", str(steps), "--require-merged-final", "2", "--steps-cap", str(steps_cap)]
+    cmd = _command(example, device, ["--steps", str(steps), "--require-merged-final", "2",
+                                     "--steps-cap", str(steps_cap), *args])
     tails = {g: _Tail(os.path.join(log_dir, f"g{g}.log")) for g in (0, 1)}
     deadline = time.monotonic() + timeout_s
     with Launcher(cmd, num_groups=2, lighthouse="embed", max_restarts=3, log_dir=log_dir,
@@ -146,6 +171,14 @@ def kill_and_heal(
         # would take a merged step the killed process logged just before the
         # kill for the restarted group's first.
         reborn = tails[1].close_writer()
+        killed_pids = [int(p) for _, line in tails[1].lines[:reborn]
+                       for m in [_RANK_PIDS.search(line)] if m for p in m[1].split(",") if p]
+        orphan_deadline = time.monotonic() + ORPHAN_GRACE_S
+        while any(map(_alive, killed_pids)) and time.monotonic() < orphan_deadline:
+            time.sleep(LOG_POLL_S)
+        orphans = [p for p in killed_pids if _alive(p)]
+        if orphans:
+            raise AssertionError(f"local ranks {orphans} of the killed group outlived it")
         wait("the restart", lambda: launcher.restarts(1) >= 1)
         t_restart = time.monotonic()
         wait("a heal of the restarted group",
@@ -168,6 +201,7 @@ def kill_and_heal(
     after_kill = tails[0].steps(after=t_kill)
     return {
         "metrics_path": metrics_path,
+        "killed_rank_pids": killed_pids,
         "final_step": step0,
         "params_sha256": sha0,
         "restarts": restarts,
@@ -191,8 +225,10 @@ def stop_and_resume(
     ckpt_every: int = 5,
     timeout_s: float = 300.0,
     env: Optional[Dict[str, Optional[str]]] = None,
+    example: str = "train_ddp",
+    args: Sequence[str] = (),
 ) -> dict:
-    """Runs the train_ddp example's two groups (the lighthouse forms no
+    """Runs the example's (train_ddp by default) two groups (the lighthouse forms no
     quorum of one, so neither trains alone) with ``--ckpt_dir`` to ``steps``, a multiple of
     ``ckpt_every``, so both stop right after a save; then a second job of
     the same groups to ``2 * steps``.  Asserts that each group of the second
@@ -205,9 +241,8 @@ def stop_and_resume(
     out: dict = {"ckpt_dir": ckpt_dir}
     for job, until in (("first", steps), ("resumed", 2 * steps)):
         job_dir = os.path.join(log_dir, job)
-        cmd = [sys.executable, "-m", "torchft_tpu_torch.examples.train_ddp", "--device", device,
-               "--steps", str(until), "--ckpt_dir", ckpt_dir,
-               "--ckpt_every", str(ckpt_every)]
+        cmd = _command(example, device, ["--steps", str(until), "--ckpt_dir", ckpt_dir,
+                                         "--ckpt_every", str(ckpt_every), *args])
         tails = {g: _Tail(os.path.join(job_dir, f"g{g}.log")) for g in (0, 1)}
         t0 = time.monotonic()
         deadline = t0 + timeout_s

@@ -407,6 +407,12 @@ class Manager:
     def _log(self, level: int, msg: str) -> None:
         logger.log(level, f"[{self._replica_id}/{self._rank} - step {self._step}] {msg}")
 
+    @property
+    def checkpoint_transport(self) -> Optional[CheckpointTransport]:
+        """The transport that serves and fetches heals (its ``last_fetch``
+        describes the last heal)."""
+        return self._checkpoint_transport
+
     def set_checkpoint_transport(self, transport: CheckpointTransport) -> None:
         """Replaces the transport that serves and fetches heals.  The
         erasure-coded plane is set up by the constructor's transport only."""
@@ -1209,21 +1215,27 @@ class Manager:
         deadline = time.monotonic() + min(10.0, max(2.0, notice.remaining_s() - 2.0))
         backoff = DecorrelatedBackoff(base_s=0.1, cap_s=1.5)
         last_err: Optional[Exception] = None
-        while time.monotonic() < deadline:
-            try:
-                client = LighthouseClient(self._lighthouse_addr, connect_timeout_ms=2000)
+        # One client for every attempt: a failed attempt leaves it rotated
+        # past the address that failed, so under an HA address list the
+        # next attempt dials the next replica.  (A client made afresh each
+        # attempt dialled the dead leader first every time, and its 2 s
+        # connect budget, the attempt's whole timeout, left the others
+        # untried whenever the refused connect's retries ran past it.)
+        client = LighthouseClient(self._lighthouse_addr, connect_timeout_ms=2000)
+        try:
+            while time.monotonic() < deadline:
                 try:
                     client.drain(self._replica_id, deadline_ms=notice.deadline_ms_from_now(),
                                  timeout_ms=2000, trace_id=self._trace_id)
-                finally:
-                    client.close()
-                return
-            except Exception as e:  # noqa: BLE001 - retried, then logged
-                last_err = e
-                sleep_s = backoff.next()
-                if time.monotonic() + sleep_s >= deadline:
-                    break
-                time.sleep(sleep_s)
+                    return
+                except Exception as e:  # noqa: BLE001 - retried, then logged
+                    last_err = e
+                    sleep_s = backoff.next()
+                    if time.monotonic() + sleep_s >= deadline:
+                        break
+                    time.sleep(sleep_s)
+        finally:
+            client.close()
         self._log(logging.WARNING, f"lighthouse drain notice failed: {last_err}")
 
     def drain_requested(self) -> bool:

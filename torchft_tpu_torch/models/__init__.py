@@ -4,8 +4,11 @@ from torchft_tpu_torch.models.transformer import (
     TransformerConfig,
     flagship_config,
     loss_fn,
+    param_axes,
+    parallelize,
     resolve_device,
     token_cross_entropy,
+    vocab_parallel_cross_entropy,
 )
 
 __all__ = [
@@ -15,6 +18,9 @@ __all__ = [
     "convnet_loss",
     "flagship_config",
     "loss_fn",
+    "param_axes",
+    "parallelize",
     "resolve_device",
     "token_cross_entropy",
+    "vocab_parallel_cross_entropy",
 ]

@@ -10,6 +10,18 @@ for), as the JAX model takes its Pallas kernels where ``_use_pallas`` and
 ``fused_ce_applicable`` hold; everywhere else (the CPU, head dims other
 than 128, ragged widths) the same math runs as plain PyTorch.
 
+Over an in-group mesh (:func:`parallelize`, ``parallel/mesh.py``) the
+parameters are ``DTensor``s placed by :func:`param_axes` and the rules;
+each rank computes on plain local tensors (``FTMesh.materialize``): batch
+axes gather the weights, and under ``tensor`` > 1 each rank holds its
+slice of the heads, the MLP and the vocabulary, Megatron-style.  The
+kernel gate there: K1-K3 run on each rank's local heads wherever
+``flash_applicable`` holds (the head dim stays 128); K4/K5 run where the
+rank holds the whole lm head (``tensor`` 1: "fsdp" and "data" gather it
+before the loss); under ``tensor`` > 1 the loss is a plain vocab-parallel
+cross-entropy (:func:`vocab_parallel_cross_entropy`), as the JAX package
+takes its plain loss under any mesh above one device.
+
 ``remat`` (on by default, as in the JAX package) recomputes each block in
 the backward through ``torch.utils.checkpoint``; the JAX config's other
 fields (``attention``, ``ring_layout``, the ``moe_*`` fields) are not
@@ -20,7 +32,7 @@ as a Python loop.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +47,7 @@ from torchft_tpu_torch.ops import (
     plain_attention,
     rms_norm,
 )
+from torchft_tpu_torch.parallel.functional import copy_to, gather_from, reduce_from
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -121,26 +134,52 @@ class Block(nn.Module):
         self.w_gate = linear(E, Fd)
         self.w_up = linear(E, Fd)
         self.w_down = linear(Fd, E)
+        # The in-group mesh (parallelize); None: the whole model on one device.
+        self.ftmesh = None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
-        H, KV, Dh, dt = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.dtype
+        Dh, dt = cfg.d_head, cfg.dtype
+        w, into, out = _mesh_ops(self.ftmesh)
 
         def proj(lin: nn.Linear, h: torch.Tensor) -> torch.Tensor:
-            return F.linear(h, lin.weight.to(dt))
+            return F.linear(h, w(lin.weight).to(dt))
 
-        h = rms_norm(x, self.attn_norm)
-        q = _rope(proj(self.wq, h).reshape(B, S, H, Dh), positions, cfg.rope_theta)
-        k = _rope(proj(self.wk, h).reshape(B, S, KV, Dh), positions, cfg.rope_theta)
-        v = proj(self.wv, h).reshape(B, S, KV, Dh)
+        # Head counts from the projections: a rank's own under "tensor".
+        h = into(rms_norm(x, w(self.attn_norm)))
+        q = _rope(proj(self.wq, h).reshape(B, S, -1, Dh), positions, cfg.rope_theta)
+        k = _rope(proj(self.wk, h).reshape(B, S, -1, Dh), positions, cfg.rope_theta)
+        v = proj(self.wv, h).reshape(B, S, -1, Dh)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         attend = flash_attention if flash_applicable(q, k) else plain_attention
         attn = attend(q, k, v, causal=True)
-        x = x + proj(self.wo, attn.transpose(1, 2).reshape(B, S, H * Dh))
+        x = x + out(proj(self.wo, attn.transpose(1, 2).reshape(B, S, -1)))
 
-        h = rms_norm(x, self.mlp_norm)
-        return x + proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h))
+        h = into(rms_norm(x, w(self.mlp_norm)))
+        return x + out(proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h)))
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _mesh_ops(ftmesh: Any) -> tuple:
+    """(weight, into, out): the parameter a rank computes with, and the
+    tensor axis's f and g around a column- then row-parallel pair (identity
+    without a mesh or at tensor 1)."""
+    if ftmesh is None:
+        return _identity, _identity, _identity
+    tp = _tensor_group(ftmesh)
+    if tp is None:
+        return ftmesh.materialize, _identity, _identity
+    return (ftmesh.materialize, lambda h: copy_to(h, tp), lambda y: reduce_from(y, tp))
+
+
+def _tensor_group(ftmesh: Any) -> Any:
+    if ftmesh is None or ftmesh.size("tensor") == 1:
+        return None
+    return ftmesh.group("tensor")
 
 
 class Transformer(nn.Module):
@@ -163,11 +202,21 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, gen, device) for _ in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.ones(E, device=device, dtype=pd))
         self.lm_head = _normal((E, V), E, gen, device, pd)
+        self.ftmesh = None
 
     def decoder(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> hidden states [B, S, E] (before the final norm)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self.embed.weight.to(self.cfg.dtype)[tokens]
+        w, _, out = _mesh_ops(self.ftmesh)
+        table = w(self.embed.weight).to(self.cfg.dtype)
+        if _tensor_group(self.ftmesh) is None:
+            x = table[tokens]
+        else:
+            # Vocab-parallel lookup: rows outside this rank's slice are zero.
+            lo, n = self.ftmesh.coordinate("tensor") * table.shape[0], table.shape[0]
+            local = tokens - lo
+            mine = (local >= 0) & (local < n)
+            x = out(table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype))
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
@@ -187,16 +236,24 @@ class Transformer(nn.Module):
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + lm head: [B, S, E] -> f32 logits [B, S, V] (operands
         rounded to cfg.dtype, product and sum in f32)."""
-        x = rms_norm(x, self.final_norm)
-        return torch.matmul(x.float(), self.lm_head.to(self.cfg.dtype).float())
+        w, into, _ = _mesh_ops(self.ftmesh)
+        x = into(rms_norm(x, w(self.final_norm)))
+        logits = torch.matmul(x.float(), w(self.lm_head).to(self.cfg.dtype).float())
+        tp = _tensor_group(self.ftmesh)
+        return logits if tp is None else gather_from(logits, tp)
 
     def lm_head_loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Mean next-token CE from decoder output x [B, S, E]: the fused
         kernels where ``fused_ce_applicable`` holds, else the materialized
         logits."""
         B, S, E = x.shape
-        h = rms_norm(x, self.final_norm).reshape(B * S, E)
-        w = self.lm_head.to(self.cfg.dtype)
+        weight, into, _ = _mesh_ops(self.ftmesh)
+        h = into(rms_norm(x, weight(self.final_norm))).reshape(B * S, E)
+        w = weight(self.lm_head).to(self.cfg.dtype)
+        tp = _tensor_group(self.ftmesh)
+        if tp is not None:
+            return vocab_parallel_cross_entropy(
+                h, w, targets.reshape(B * S), tp, self.ftmesh.coordinate("tensor") * w.shape[1])
         if fused_ce_applicable(h, w):
             return fused_linear_cross_entropy(h, w, targets.reshape(B * S))
         logits = torch.matmul(h.float(), w.float()).reshape(B, S, -1)  # as head()
@@ -213,5 +270,71 @@ def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Te
     return (torch.logsumexp(logits, dim=-1) - tgt).mean()
 
 
+def vocab_parallel_cross_entropy(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                                 group: Any, vocab_start: int) -> torch.Tensor:
+    """Mean CE of ``h`` [N, E] against the lm head when this rank holds
+    only the columns ``w`` [E, V / tp] from ``vocab_start`` on: the global
+    max, the sum of exponentials and the target logit are summed over the
+    tensor group (gradients pass each sum unchanged); ``h`` has passed
+    ``copy_to``.  Plain PyTorch: the fused kernels read the whole
+    vocabulary."""
+    logits = torch.matmul(h.float(), w.float())  # [N, V / tp], as head()
+    m = logits.detach().amax(dim=-1)
+    torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX, group=group)
+    sum_exp = reduce_from(torch.exp(logits - m[:, None]).sum(dim=-1), group)
+    local = targets.long() - vocab_start
+    mine = (local >= 0) & (local < w.shape[1])
+    tgt = torch.gather(logits, -1, local.clamp(0, w.shape[1] - 1)[:, None])[:, 0]
+    tgt = reduce_from(tgt * mine.to(tgt.dtype), group)
+    return (torch.log(sum_exp) + m - tgt).mean()
+
+
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return model.loss(batch)
+
+
+def param_axes(cfg: TransformerConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axis names of every parameter, keyed by the port's parameter
+    names (``named_parameters``): the JAX ``param_axes`` with each
+    ``nn.Linear`` weight's tuple transposed to its ``[out, in]`` layout and
+    no "layers" axis (one module a layer).  Feed to ``FTMesh.shard_params``."""
+    layer = {
+        "attn_norm": ("embed",),
+        "wq.weight": ("heads", "embed"),
+        "wk.weight": ("kv_heads", "embed"),
+        "wv.weight": ("kv_heads", "embed"),
+        "wo.weight": ("embed", "heads"),
+        "mlp_norm": ("embed",),
+        "w_gate.weight": ("mlp", "embed"),
+        "w_up.weight": ("mlp", "embed"),
+        "w_down.weight": ("embed", "mlp"),
+    }
+    axes: Dict[str, Tuple[Optional[str], ...]] = {
+        "embed.weight": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+    for i in range(cfg.n_layers):
+        axes.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return axes
+
+
+def parallelize(model: Transformer, ftmesh: Any) -> Transformer:
+    """Runs ``model`` over ``ftmesh``'s in-group mesh: its parameters become
+    DTensors placed by :func:`param_axes` and the mesh's rules (every rank
+    built the same weights from one seed), and the forward computes each
+    rank's share (module docstring).  Feed each rank its slice of the
+    group's batch (``ftmesh.batch_shard``).  In place; returns ``model``."""
+    if ftmesh.mesh is None:
+        return model
+    cfg = model.cfg
+    tp = ftmesh.size("tensor")
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{what} {n} does not divide over tensor {tp}")
+    ftmesh.shard_params(model, param_axes(cfg))
+    model.ftmesh = ftmesh
+    for layer in model.layers:
+        layer.ftmesh = ftmesh
+    return model

@@ -65,10 +65,16 @@ def launch_counts() -> Dict[str, int]:
 
 
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
-    """Raises unless every tensor is a contiguous, 16-byte-aligned CUDA
-    tensor of ``dtype`` on one device."""
+    """Raises unless every tensor is a plain (not a DTensor), contiguous,
+    16-byte-aligned CUDA tensor of ``dtype`` on one device."""
+    from torch.distributed.tensor import DTensor
+
     dev = tensors[0].device
     for t in tensors:
+        if isinstance(t, DTensor):
+            # The kernels read data_ptr(): a sharded parameter's local tensor
+            # is what a rank computes with (FTMesh.materialize).
+            raise TypeError(f"{name}: got a DTensor; pass its local tensor")
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all inputs must be on one CUDA device, got {t.device}")
         if t.dtype != dtype:

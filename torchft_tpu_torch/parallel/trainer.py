@@ -22,11 +22,11 @@ import copy
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from torchft_tpu_torch.ddp import GradientAverager
+from torchft_tpu_torch.ddp import GradientAverager, local_tensor
 from torchft_tpu_torch.manager import Manager
 
 logger = logging.getLogger(__name__)
@@ -34,6 +34,13 @@ logger = logging.getLogger(__name__)
 # Fraction of the remaining device memory the speculative step's copy of
 # the state may claim; the rest is headroom for the optimizer's temporaries.
 _SPECULATION_HEADROOM = 0.9
+
+
+class _Held(NamedTuple):
+    """An optimizer-state tensor and its snapshot copy."""
+
+    tensor: torch.Tensor
+    copy: torch.Tensor
 
 
 def _tensor_leaves(tree: Any) -> Iterator[torch.Tensor]:
@@ -52,10 +59,11 @@ def tree_device_bytes(tree: Any, device: Any = None) -> int:
     tuples of them); with ``device``, of those on that device only (AdamW's
     ``step`` counter stays on the host unless the optimizer is capturable or
     fused).  Over the parameters and the optimizer's state this is the copy
-    that a speculative step holds."""
+    that a speculative step holds.  A DTensor counts its local shard: what
+    it costs this rank's device."""
     want = torch.device(device) if device is not None else None
     total = 0
-    for t in _tensor_leaves(tree):
+    for t in map(local_tensor, _tensor_leaves(tree)):
         if want is None or (t.device.type == want.type
                             and (want.index is None or t.device.index == want.index)):
             total += t.numel() * t.element_size()
@@ -175,15 +183,17 @@ class TrainStep:
 
     def _snapshot(self) -> list:
         """Copies of every trained parameter and its optimizer state, made
-        on the caller's (the train thread's) stream."""
+        on the caller's (the train thread's) stream; a DTensor's copy is of
+        its local shard.  Each state tensor is kept beside its copy."""
         snap = []
         with torch.no_grad():
             for p in self._trained():
                 state = self.optimizer.state[p] if p in self.optimizer.state else None
                 saved = None if state is None else {
-                    k: v.clone() if torch.is_tensor(v) else copy.deepcopy(v)
+                    k: _Held(v, local_tensor(v).clone()) if torch.is_tensor(v)
+                    else copy.deepcopy(v)
                     for k, v in state.items()}
-                snap.append((p, p.detach().clone(), saved))
+                snap.append((p, local_tensor(p).detach().clone(), saved))
         return snap
 
     def _restore(self, snap: list) -> None:
@@ -192,7 +202,7 @@ class TrainStep:
         opt_state = self.optimizer.state
         with torch.no_grad():
             for p, value, saved in snap:
-                p.copy_(value)
+                local_tensor(p).copy_(value)
                 if saved is None:
                     opt_state.pop(p, None)  # state the failed step created
                     continue
@@ -200,12 +210,16 @@ class TrainStep:
                 for k in [k for k in state if k not in saved]:
                     del state[k]
                 for k, v in saved.items():
-                    cur = state.get(k)
-                    if (torch.is_tensor(v) and torch.is_tensor(cur) and cur.shape == v.shape
-                            and cur.dtype == v.dtype and cur.device == v.device):
-                        cur.copy_(v)
-                    else:
+                    if not isinstance(v, _Held):
                         state[k] = v
+                        continue
+                    held, value = v
+                    cur = state.get(k)
+                    if not (torch.is_tensor(cur) and type(cur) is type(held)
+                            and cur.shape == held.shape and cur.dtype == held.dtype
+                            and cur.device == held.device):
+                        cur = state[k] = held  # the step replaced it: the kept one goes back
+                    local_tensor(cur).copy_(value)
 
     def snapshot_ms(self) -> Optional[float]:
         """Milliseconds of the last ``ft_step``'s snapshot copy: device time

@@ -6,7 +6,9 @@ per-layer weights stacked along a leading L axis and matrices in the
 layer and ``nn.Linear`` weights in ``[out, in]``.  :func:`params_from_jax`
 maps the former (as numpy arrays) onto the latter's state dict, so both
 packages can run from identical weights; :func:`convnet_params_from_jax`
-does the same for the example's conv net.
+does the same for the example's conv net.  :func:`load_params` copies such
+a state dict into a model, each DTensor parameter of a sharded model
+(``models.parallelize``) taking its rank's local shard.
 """
 
 from __future__ import annotations
@@ -39,6 +41,23 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name in _LINEARS:
             sd[f"layers.{i}.{name}.weight"] = t(np.asarray(layers[name])[i].T)
     return sd
+
+
+def load_params(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """Copies the full tensors of ``state_dict`` into ``model``'s
+    parameters in place: a plain parameter takes the whole tensor, a
+    DTensor parameter its rank's shard of it (``FTMesh.local_shard`` under
+    its own placements).  Every parameter must have an entry."""
+    ftmesh = getattr(model, "ftmesh", None)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            full = state_dict[name]
+            if p.shape != full.shape:
+                raise ValueError(f"{name}: {tuple(full.shape)} for a {tuple(p.shape)} parameter")
+            if hasattr(p, "to_local"):
+                p.to_local().copy_(ftmesh.local_shard(full, p.placements))
+            else:
+                p.copy_(full)
 
 
 def convnet_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
