@@ -126,7 +126,8 @@ result):
    2^-24 of the sum of magnitudes of the exact sum, ``tiers`` row and
    col); and allgather, broadcast, reduce_scatter, alltoall, send/recv and
    barrier at 2 ranks, each exact against numpy.  Printed: seconds and
-   GB/s of payload per op, the bytes a hop, each op's seconds.
+   GB/s of payload per op, the bytes a hop, each op's seconds, each line
+   naming the leg that ran beside it (phase 16 (c)).
 8. Raw-step profile: ``torchft_tpu_torch.tools.profile_step`` runs
    ``torch.profiler`` over PROFILE_STEPS chained flagship ``full_step``s.
    Printed: wall and device ms a step, the device busy share, the top 20
@@ -178,7 +179,9 @@ result):
    Printed: the fetch modes' seconds and GB/s, the checksum stamp and
    verify ms, the erasure encode and reconstruct ms, the failover heal's
    seconds, each SIGKILL to group 2's first merged commit, each process's
-   peak device memory.
+   peak device memory, each line naming the legs that ran beside it
+   (phase 17 (a), (b), then phase 16 (a), (b), (d)); phases 12 and 13
+   name them beside the times of this phase they print.
 12. Elastic: ``torchft_tpu_torch.launch``'s Launcher runs three groups
    (the flagship's widths at ELASTIC_LAYERS layers) of
    this script's ``--elastic-group`` mode and one hot spare on the card
@@ -325,10 +328,39 @@ result):
    each restarted rank heals its own shards over HTTP from group 0's same
    rank, and both groups end at one step with one ``params_sha256`` over
    the gathered parameters; printed: each rank's heal span and fetch, the
-   merged and solo steps, the recovery.  (d) one rank on a one-rank mesh
-   over NCCL in this process while (c) runs, a lone Manager, HSDP_NCCL_STEPS committed
+   merged and solo steps, the recovery; (c) runs from a thread beside
+   phase 7, and (a), (b) and (d) beside phase 11 (all bound by process
+   starts and the heal), so their walls fall there.  (d) one rank on a
+   one-rank mesh over NCCL in this process, a lone Manager, HSDP_NCCL_STEPS committed
    ``ft_step``s with K1-K5 12 / 12 / 12 / 1 / 1 a step.
-17. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
+17. The mixture of experts and the pipeline on the flagship's widths.
+   (a) and (b): two local ranks on the card (``chip_smoke.py --p17-rank``,
+   each with a Manager, over gloo), run from a thread beside phase 11
+   (three-layer groups, bound by process starts and the heal) and read
+   here.  (a) the
+   flagship's widths with MOE_EXPERTS experts a block (top 2, capacity
+   1.25, batch MOE_BATCH) over {expert 2} against the same model unsharded
+   in rank 0: in f32 (the plain path, batch MOE_F32_BATCH) the loss within
+   TOL_P17_F32_LOSS, every gathered gradient within TOL_P17_F32_GRAD of its
+   tensor's max and no token routed otherwise; in bf16 (the kernels), the
+   unsharded model on the sharded run's routing, the loss within
+   TOL_P17_LOSS, every gathered gradient within TOL_P17_GRAD, and the
+   tokens its own router sends elsewhere within TOL_P17_REROUTE of a
+   layer's (see TOL_P17_*); then MOE_FT_STEPS committed
+   ``ft_step``s under the Managers; K1-K5 12 / 12 / 12 / 1 / 1 a rank a
+   bf16 step; printed, the combine's product at a rank's shapes (moe_ffn's
+   f32-output product against the bf16 one and the f32 one of operands
+   cast up).  (b) the flagship over {pipeline 2}, GPipe and 1F1B at M
+   PIPE_MICRO against the unsharded model's loss and every gradient of the
+   stage (TOL_P17_*), K1-K5 a stage a step 24 / 24 / 24 and 1F1B's K1 48
+   (the recompute), K4/K5 on the last stage only (GPipe 1, 1F1B M), and at
+   M PIPE_MEM_MICRO 1F1B's peak below GPipe's.  (c), run from a thread
+   beside phases 9 and 10: ``train_pipeline --model flagship --schedule 1f1b``, two
+   groups of {pipeline 2} under the launcher, group 1 SIGKILLed after
+   P17_KILL_AFTER merged commits: its ranks die with it, each restarted
+   rank heals its own stage from group 0's same rank, and both groups end
+   with one ``params_sha256``.
+18. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
    and ``host_ms`` beside ``ms``, and its four shapes under ``shapes``;
    each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
@@ -336,7 +368,9 @@ result):
    ``launches_elastic``, on the durable run as ``launches_durable``, on
    the control-plane run as ``launches_control``, on phase 15 (a)'s
    steps with and without remat as ``launches_remat`` and
-   ``launches_no_remat``, and over phase 16's legs as ``launches_hsdp``),
+   ``launches_no_remat``, over phase 16's legs as ``launches_hsdp``, and
+   over phase 17's as ``launches_moe``, ``launches_pipeline`` and
+   ``launches_train_pipeline``),
    the run's seconds, then
    the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -1680,13 +1714,14 @@ def _ring_ranks(store, tag: str, cols: list, body) -> list:
             c.shutdown()
 
 
-def bare_ring(card: str) -> dict:
+def bare_ring(card: str, beside: str) -> dict:
     """Two in-process ranks allreduce the flagship's gradient payload over
     127.0.0.1 in each of BARE_RING_CONFIGS, each op on a fresh copy handed
     over with ``donate=True`` (as the averager hands its pinned buffers).
     The Python and native engines' results must be bitwise equal on the f32
     wire and under each codec, and every shm result bitwise equal to the
-    TCP result of the same engine, wire and codec."""
+    TCP result of the same engine, wire and codec.  ``beside`` names what
+    ran on the host and the card meanwhile; every timing line says it."""
     import numpy as np
 
     from torchft_tpu_torch._native import StoreServer
@@ -1696,7 +1731,8 @@ def bare_ring(card: str) -> dict:
     data = [np.random.default_rng(11 + r).standard_normal(n, dtype=np.float32) for r in range(2)]
     exact = data[0] + data[1]  # two addends: one IEEE sum, in any order
     store = StoreServer(bind="127.0.0.1:0")
-    report = {"payload_bytes": 4 * n, "ops": {}}
+    report = {"payload_bytes": 4 * n, "ops": {}, "beside": beside}
+    card = f"{card}; taken beside {beside}"
     outs, digests = {}, {}
     try:
         for i, (engine, lanes, wire, codec, transport) in enumerate(BARE_RING_CONFIGS):
@@ -2639,15 +2675,16 @@ def heal_modes(transport, step: int) -> dict:
     return out
 
 
-def healing_phase(card: str, device: str = "cuda") -> dict:
+def healing_phase(card: str, beside: str, device: str = "cuda") -> dict:
     """A lighthouse and three flagship groups on the card with the
     erasure-coded plane (k 2, m 1).  (a) Groups 0 and 1 train merged; group
     2 joins and heals striped from both.  (b) Group 2 is SIGKILLed and
     restarted with TPUFT_EC_MODE=prefer: it heals from the survivors'
     shards.  (c) Group 2 is SIGKILLed and restarted on the donor path;
     group 0's link is paced and group 0 is SIGKILLed in the middle of the
-    fetch: the stripes fail over to group 1.  Returns what
-    :func:`heal_checks` returns."""
+    fetch: the stripes fail over to group 1.  ``beside`` names what ran on
+    the host and the card meanwhile.  Returns what :func:`heal_checks`
+    returns."""
     from torchft_tpu_torch._native import LighthouseServer
     from torchft_tpu_torch.models import flagship_config
     from torchft_tpu_torch.obs import report
@@ -2770,14 +2807,15 @@ def healing_phase(card: str, device: str = "cuda") -> dict:
         lighthouse.shutdown()
         shutil.rmtree(run_dir, ignore_errors=True)
     phase_s = time.monotonic() - t_phase
-    return heal_checks(card, recs, streams, events, phase_s, device)
+    return heal_checks(card, recs, streams, events, phase_s, device, beside)
 
 
 def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: float,
-                device: str) -> dict:
+                device: str, beside: str) -> dict:
     """Phase 11's assertions and prints; returns the K1-K5 launches of all
     its processes and the seconds from each SIGKILL of group 2 to its
-    restart's first merged commit."""
+    restart's first merged commit (under "beside", what ran meanwhile)."""
+    card = f"{card}; taken beside {beside}"
     cfg, _, _ = cut_config(HEAL_LAYERS)
     per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dkdv": cfg.n_layers,
                 "flash_bwd_dq": cfg.n_layers, "ce_lse": 1, "ce_dlogits": 1}
@@ -2906,8 +2944,10 @@ def heal_checks(card: str, recs: dict, streams: dict, events: dict, phase_s: flo
     print(f"  healing phase: {phase_s:.1f} s ({card})", flush=True)
     print("HEALING " + json.dumps({"modes": modes, "striped": fa, "failover": fc,
                                    "reconstruct": recon[0], "encode_ms": enc,
-                                   "crc_stamp_ms": crc_ms, "phase_s": phase_s}), flush=True)
+                                   "crc_stamp_ms": crc_ms, "phase_s": phase_s,
+                                   "beside": beside}), flush=True)
     recovery["http_striped"] = {k: modes["striped"][k] for k in ("fetch_s", "gb_per_s", "bytes")}
+    recovery["beside"] = recovery["http_striped"]["beside"] = beside
     return launches, recovery
 
 
@@ -3483,7 +3523,8 @@ def elastic_checks(card: str, cold: dict, recs: list, events: list, flight: dict
           f"exit {exits[0]['drain_s']:.3f} s ({card})", flush=True)
     print(f"  (b) SIGKILL -> hot spare's first merged commit {ev['merged_1']:.3f} s, beside "
           f"the cold restarts of this run: phase 11 "
-          f"{', '.join(f'{v:.3f}' for v in cold.get('heal', []))} s (flagship), phase 6 "
+          f"{', '.join(f'{v:.3f}' for v in cold.get('heal', []))} s (flagship, taken beside "
+          f"{cold.get('heal_beside')}), phase 6 "
           f"{cold.get('kill_heal', float('nan')):.3f} s (conv net) ({card})", flush=True)
     # (c)'s timeline.
     raised = alert["raised_ms"] / 1e3
@@ -4091,7 +4132,8 @@ def durable_checks(card: str, recs: dict, lines: dict, streams: dict, events: di
     print(f"  (c) group 1 cold-started and healed over CollectiveTransport: "
           f"{fetch['bytes'] / 1e9:.3f} GB in {fetch['fetch_s']:.3f} s "
           f"({fetch['gb_per_s']:.3f} GB/s) against phase 11's HTTP striped transfer "
-          f"{http_striped['fetch_s']:.3f} s ({http_striped['gb_per_s']:.3f} GB/s); the heal "
+          f"{http_striped['fetch_s']:.3f} s ({http_striped['gb_per_s']:.3f} GB/s, taken beside "
+          f"{http_striped['beside']}); the heal "
           f"span {spans[0]['duration_ms']:.1f} ms; SIGKILL -> first merged commit "
           f"{merged_first(recs, (1, 3)) - events['kill_c']:.3f} s ({card})", flush=True)
 
@@ -5151,20 +5193,20 @@ def hsdp_in_group(card: str) -> dict:
     return out
 
 
-def hsdp_kill(card: str) -> dict:
-    """Phase 16 (c): train_hsdp at the flagship's widths under the launcher,
-    two groups of two ranks ({fsdp 2}, gloo on the shared card), group 1
-    SIGKILLed after HSDP_KILL_AFTER merged commits; its ranks must die with
-    it and each heal its shards over HTTP from group 0's same rank."""
+def ranked_kill(phase: str, example: str, args: list, steps: int, cap: int, after: int,
+                timeout_s: float) -> dict:
+    """A kill drive of an example whose groups are two local ranks each
+    (``kill_and_heal``): group 1 SIGKILLed after ``after`` merged commits;
+    its ranks must die with it and each restarted rank heal from group 0's
+    same rank.  Returns the drive's result with each rank's heal spans and
+    heal line and the launches the ranks logged; raises for ``phase`` if a
+    rank did not heal or a kernel never launched."""
     from torchft_tpu_torch.examples.kill_heal import kill_and_heal
 
-    log_dir = tempfile.mkdtemp(prefix="tpuft_hsdp_kill_")
+    log_dir = tempfile.mkdtemp(prefix="tpuft_ranked_kill_")
     try:
-        r = kill_and_heal("cuda", log_dir, steps=HSDP_KILL_STEPS, steps_cap=HSDP_KILL_STEPS + 40,
-                          merged_before_kill=HSDP_KILL_AFTER, timeout_s=HSDP_KILL_TIMEOUT_S,
-                          example="train_hsdp",
-                          args=["--model", "flagship", "--devices", "2", "--fsdp", "2",
-                                "--tensor", "1", "--batch", "16"])
+        r = kill_and_heal("cuda", log_dir, steps=steps, steps_cap=cap, merged_before_kill=after,
+                          timeout_s=timeout_s, example=example, args=args)
         heals, launches, healed = {}, collections.Counter(), {}
         for rank in (0, 1):
             path = r["metrics_path"] + (f".rank{rank}" if rank else "")
@@ -5176,7 +5218,7 @@ def hsdp_kill(card: str) -> dict:
         # The ranks share their group's log; each line is one write.
         counted = re.compile(r"\[group \d+ rank \d+\] kernel launches (\{[^{}]*\})")
         heal_line = re.compile(r"\[group 1 rank (\d+)\] healed step=(\d+) bytes=(\d+) "
-                               r"fetch_s=([0-9.]+)")
+                               r"fetch_s=([0-9.]+)(?: stage=(\d+))?")
         for g in (0, 1):
             with open(os.path.join(log_dir, f"g{g}.log"), errors="replace") as f:
                 text = f.read()
@@ -5185,29 +5227,41 @@ def hsdp_kill(card: str) -> dict:
             for m in heal_line.finditer(text):
                 if int(m[2]) > 0:
                     healed[int(m[1])] = {"step": int(m[2]), "bytes": int(m[3]),
-                                         "fetch_s": float(m[4])}
+                                         "fetch_s": float(m[4]),
+                                         **({"stage": int(m[5])} if m[5] else {})}
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     if sorted(healed) != [0, 1] or not all(heals[k] for k in (0, 1)):
-        raise AssertionError(f"phase 16 (c): not every rank of group 1 healed: {healed}, "
+        raise AssertionError(f"{phase}: not every rank of group 1 healed: {healed}, "
                              f"heal spans {heals}")
     missing = [k for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "ce_lse", "ce_dlogits")
                if launches.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"phase 16 (c): no launch of {missing}")
-    out = {"final_step": r["final_step"], "params_sha256": r["params_sha256"],
-           "killed_rank_pids": r["killed_rank_pids"], "recovery_s": r["recovery_s"],
-           "kill_to_heal_line_s": r["kill_to_heal_line_s"],
-           "merged_step_ms": r["survivor_merged_step_ms"],
-           "solo_step_ms": r["survivor_solo_step_ms"], "heal_ms": heals, "healed": healed,
-           "launches": dict(launches)}
-    print(f"  (c) 2 groups x fsdp 2, group 1 SIGKILLed: its ranks {r['killed_rank_pids']} gone; "
-          f"each rank healed its shards (heal span ms {heals}; fetched "
-          f"{ {k: (v['bytes'], v['fetch_s']) for k, v in healed.items()} } bytes, s); "
-          f"kill -> first merged commit {r['recovery_s']:.3f} s; merged step "
-          f"{r['survivor_merged_step_ms']:.1f} ms, solo {r['survivor_solo_step_ms'] or 0:.1f} ms "
-          f"(group 0's rank 0, host clock); both groups end at step {r['final_step']} with "
-          f"params_sha256 {r['params_sha256'][:16]}...; launches {dict(launches)} ({card})",
+        raise AssertionError(f"{phase}: no launch of {missing}")
+    return {"final_step": r["final_step"], "params_sha256": r["params_sha256"],
+            "killed_rank_pids": r["killed_rank_pids"], "recovery_s": r["recovery_s"],
+            "kill_to_heal_line_s": r["kill_to_heal_line_s"],
+            "merged_step_ms": r["survivor_merged_step_ms"],
+            "solo_step_ms": r["survivor_solo_step_ms"], "heal_ms": heals, "healed": healed,
+            "launches": dict(launches)}
+
+
+def hsdp_kill(card: str) -> dict:
+    """Phase 16 (c): train_hsdp at the flagship's widths under the launcher,
+    two groups of two ranks ({fsdp 2}, gloo on the shared card), group 1
+    SIGKILLed after HSDP_KILL_AFTER merged commits; its ranks must die with
+    it and each heal its shards over HTTP from group 0's same rank."""
+    out = ranked_kill("phase 16 (c)", "train_hsdp",
+                      ["--model", "flagship", "--devices", "2", "--fsdp", "2", "--tensor", "1",
+                       "--batch", "16"], HSDP_KILL_STEPS, HSDP_KILL_STEPS + 40, HSDP_KILL_AFTER,
+                      HSDP_KILL_TIMEOUT_S)
+    print(f"  (c) 2 groups x fsdp 2, group 1 SIGKILLed: its ranks {out['killed_rank_pids']} gone; "
+          f"each rank healed its shards (heal span ms {out['heal_ms']}; fetched "
+          f"{ {k: (v['bytes'], v['fetch_s']) for k, v in out['healed'].items()} } bytes, s); "
+          f"kill -> first merged commit {out['recovery_s']:.3f} s; merged step "
+          f"{out['merged_step_ms']:.1f} ms, solo {out['solo_step_ms'] or 0:.1f} ms "
+          f"(group 0's rank 0, host clock); both groups end at step {out['final_step']} with "
+          f"params_sha256 {out['params_sha256'][:16]}...; launches {out['launches']} ({card})",
           flush=True)
     return out
 
@@ -5281,16 +5335,14 @@ def hsdp_nccl(card: str) -> dict:
     return {"backend": backend, "losses": losses, "launches": dict(launches)}
 
 
-def hsdp_phase(card: str) -> dict:
+def hsdp_phase(card: str, kill: dict) -> dict:
+    """Phase 16: (a), (b) and (d) here; ``kill``: (c)'s result
+    (:func:`hsdp_kill`, run earlier beside another phase, its launches
+    counted in its own processes)."""
     t0 = time.monotonic()
     out = hsdp_in_group(card)
-    # (c) drives its processes from a thread while (d) runs here: (d)'s
-    # kernels launch in this process and (c)'s in its children, so their
-    # counts stay apart.
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        kill = pool.submit(hsdp_kill, card)
-        out["nccl"] = hsdp_nccl(card)
-        out["kill"] = kill.result()
+    out["nccl"] = hsdp_nccl(card)
+    out["kill"] = kill
     out["phase_s"] = time.monotonic() - t0
     launches = collections.Counter()
     for leg in ("fsdp", "tensor"):
@@ -5301,6 +5353,609 @@ def hsdp_phase(card: str) -> dict:
     out["card"] = card
     print("HSDP " + json.dumps(out), flush=True)
     print(f"  in-group phase: {out['phase_s']:.1f} s ({card})", flush=True)
+    return out
+
+
+# -- phase 17: the mixture of experts and the pipeline on the flagship's widths ---
+
+# (a): the flagship's widths with each block's MLP a mixture of 8 experts
+# (d_ff 2048 an expert, top 2, capacity factor 1.25, aux 0.01: the JAX
+# defaults), about 530M parameters.  A group's batch is 8, cut from 16:
+# the dense dispatch and combine are [T, 8, C] f32, 0.67 GB each a layer at
+# T 8192 (C 2568) and 2.69 GB at batch 16 (C 5128), with two ranks and the
+# unsharded model sharing the card.
+MOE_EXPERTS = 8
+MOE_BATCH = 8
+MOE_STEPS = 2             # bf16 passes, sharded against unsharded (the first a warm-up)
+MOE_F32_BATCH = 2         # the f32 pass's batch (f32 activations take twice the bytes)
+MOE_FT_STEPS = 2          # committed ft_steps of TrainStep under a Manager
+# (b): the flagship unchanged (12 layers, batch 16) over {pipeline 2}.
+PIPE_MICRO = 4            # microbatches of the parity steps
+PIPE_STEPS = 2            # each schedule's steps on the same weights (the first a warm-up)
+PIPE_MEM_MICRO = 8        # microbatches of the peak-memory step of each schedule
+P17_LR = 1e-2
+P17_RANK_TIMEOUT_S = 420.0
+# (c): train_pipeline --model flagship --schedule 1f1b, 2 groups x {pipeline
+# 2} on the card; group 0's merged commits before group 1's SIGKILL, and the
+# steps both end merged past.
+P17_KILL_AFTER = 3
+P17_KILL_STEPS = 8
+# The survivor's step bound while it waits for the restarted group (whose
+# start, build and heal take tens of seconds) to merge back.
+P17_KILL_CAP = 160
+P17_KILL_TIMEOUT_S = 360.0
+# Sharded against unsharded, both bf16 compute: the tolerances of phase 16
+# (TOL_HSDP_*), for the same reason, on the loss and every gradient.  The
+# unsharded MoE takes the sharded run's routing: routing is discrete, and a
+# product summed in another order (each rank's experts' share, then the sum
+# over "expert") moves a few outputs by an ulp, which can send near-tied
+# tokens to another expert in later layers and move the gradients by 12-20%
+# of their max (on an H100 80GB HBM3 at 700 W, with an extra rounding a
+# rank: up to 170 of 8192 tokens a layer, PERF.md section 6).  Those tokens
+# are counted and held to TOL_P17_REROUTE of a layer's tokens (a wrong
+# shard or gate sends most tokens elsewhere).  In f32 the same
+# reassociation moves values by about 1e-7 and routes no token otherwise:
+# there the loss is held within TOL_P17_F32_LOSS of its value and each
+# gathered gradient within TOL_P17_F32_GRAD of its tensor's max (f32 sums
+# of a few thousand terms reassociated: about 1e-6; a wrong shard or a lost
+# sum moves them by their own size).
+TOL_P17_LOSS = TOL_HSDP_LOSS
+TOL_P17_GRAD = TOL_HSDP_GRAD
+TOL_P17_REROUTE = 0.05
+TOL_P17_F32_LOSS = 1e-5
+TOL_P17_F32_GRAD = 1e-3
+
+
+def moe_config():
+    """The flagship's widths, depth and sequence with the MoE MLP."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg, _, seq = flagship_config()
+    return dataclasses.replace(cfg, moe_experts=MOE_EXPERTS), MOE_BATCH, seq
+
+
+def _grad_errs(got: dict, want: dict) -> dict:
+    return {n: float((got[n].float() - g.float()).abs().max()
+                     / g.float().abs().max().clamp_min(1e-30)) for n, g in want.items()}
+
+
+def _timed(fn) -> tuple:
+    """fn() between CUDA events, the launch counts set to 0 just before and
+    the allocator's peak reset: (result, ms, launches, peak bytes)."""
+    import torch
+
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    out = fn()
+    events[1].record()
+    events[1].synchronize()
+    return out, events[0].elapsed_time(events[1]), launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def _moe_passes(cfg, batch: int, seq: int, passes: int, seed: int, rank: int, dev) -> tuple:
+    """``passes`` forward and backward passes of the MoE model over {expert
+    2} and, in rank 0, of the same model unsharded, on one set of weights,
+    each pass on a batch of its own (the group's, replicated over "expert").
+    The unsharded model takes the sharded one's routing (each Block's
+    ``moe_route``), so their losses and gradients differ by rounding alone;
+    the tokens its own router would send elsewhere are counted.  No update
+    between passes.  Returns (the sharded model, its mesh, the records)."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import Transformer, parallelize
+    from torchft_tpu_torch.parallel import ft_init_mesh
+    from torchft_tpu_torch.parallel.trainer import tree_device_bytes
+
+    ftmesh = ft_init_mesh({"expert": dist.get_world_size()}, device_type="cuda")
+    model = parallelize(Transformer(cfg, device=dev, generator=torch.Generator(device=dev)
+                                    .manual_seed(17)), ftmesh)
+    ref = None
+    if rank == 0:
+        ref = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(17))
+    out = {"batch": batch, "losses": [], "ref_losses": [], "loss_err": [], "grad_err": [],
+           "worst_grads": [], "step_ms": [], "launches": [], "peak_bytes": [], "dropped": [],
+           "rerouted": [], "choices": 0, "tokens": 0,
+           "local_param_bytes": tree_device_bytes(list(model.parameters())),
+           "global_param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+
+    def recording(m):
+        records = [[] for _ in m.layers]
+        for layer, rec in zip(m.layers, records):
+            layer.moe_record = rec
+        return records
+
+    for s in range(passes):
+        b = _hsdp_batch(cfg, batch, seq, seed + s, dev)
+        records = recording(model)
+        dist.barrier()
+
+        def step():
+            loss = model.loss(b)
+            loss.backward()
+            return loss
+
+        loss, ms, counts, peak = _timed(step)
+        out["step_ms"].append(ms)
+        out["launches"].append(counts)
+        out["peak_bytes"].append(peak)
+        out["losses"].append(loss.item())
+        out["dropped"].append(sum(int((~r[0]["kept"]).sum()) for r in records))
+        out["choices"] = sum(r[0]["kept"].numel() for r in records)
+        out["tokens"] = records[0][0]["kept"].shape[0]
+        grads = {n: ftmesh.full_tensor(p.grad) for n, p in model.named_parameters()}
+        if ref is not None:
+            ref_records = recording(ref)
+            for layer, rec in zip(ref.layers, records):
+                layer.moe_route = rec[0]["gate_idx"]
+            ref_loss = ref.loss(b)
+            ref_loss.backward()
+            out["ref_losses"].append(ref_loss.item())
+            out["loss_err"].append(abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()))
+            # Tokens whose unsharded router would pick another expert, a layer.
+            out["rerouted"].append([int((r[0]["own_idx"] != r[0]["gate_idx"]).any(-1).sum())
+                                    for r in ref_records])
+            errs = _grad_errs(grads, {n: q.grad for n, q in ref.named_parameters()})
+            worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+            out["grad_err"].append(worst[0][1])
+            out["worst_grads"].append(worst)
+            ref.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
+        del grads
+    for m in (model, ref):
+        for layer in m.layers if m is not None else ():
+            layer.moe_record = layer.moe_route = None
+    del ref
+    torch.cuda.empty_cache()
+    return model, ftmesh, out
+
+
+def moe_leg(rank: int, dev, manager) -> dict:
+    """Phase 17 (a) in this rank: the MoE model sharded against unsharded,
+    in f32 (the plain path, batch MOE_F32_BATCH) and in bf16 (the kernels,
+    batch MOE_BATCH, MOE_STEPS passes); then MOE_FT_STEPS ft_steps of the
+    bf16 model under the rank's Manager."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import loss_fn
+    from torchft_tpu_torch.parallel import TrainStep
+
+    cfg, batch, seq = moe_config()
+    model, _, f32 = _moe_passes(dataclasses.replace(cfg, dtype=torch.float32), MOE_F32_BATCH,
+                                seq, 1, 169, rank, dev)
+    del model
+    torch.cuda.empty_cache()
+    model, _, out = _moe_passes(cfg, batch, seq, MOE_STEPS, 170, rank, dev)
+    out["f32"] = f32
+    # Committed ft_steps of the sharded model under this rank's Manager.
+    opt = torch.optim.SGD(model.parameters(), lr=P17_LR)
+    trainer = TrainStep(model, opt, loss_fn, manager, overlap_commit=False)
+    out["ft"] = []
+    for s in range(MOE_FT_STEPS):
+        b = _hsdp_batch(cfg, batch, seq, 175 + s, dev)
+        manager.start_quorum()
+        (loss, committed), ms, counts, _ = _timed(lambda: trainer.ft_step(b))
+        out["ft"].append({"loss": loss.item(), "committed": committed, "ms": ms,
+                          "launches": counts})
+    del model, opt, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_leg(rank: int, dev) -> dict:
+    """Phase 17 (b) in this rank: its stage of the flagship over {pipeline
+    2} under GPipe and 1F1B (PIPE_STEPS steps each on the same weights and
+    batch, M PIPE_MICRO), against the unsharded flagship's loss and
+    gradients, which every rank computes; then each schedule's peak at M
+    PIPE_MEM_MICRO."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import Transformer, flagship_config
+    from torchft_tpu_torch.parallel import (
+        ft_init_mesh,
+        pipeline_1f1b_value_and_grad,
+        pipeline_loss_fn,
+        pipeline_stage,
+    )
+    from torchft_tpu_torch.parallel import pipeline as pl
+
+    cfg, batch, seq = flagship_config()
+    ftmesh = ft_init_mesh({"pipeline": dist.get_world_size()}, device_type="cuda")
+    b = _hsdp_batch(cfg, batch, seq, 171, dev)
+    ref = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(17))
+    ref_loss = ref.loss(b)
+    ref_loss.backward()
+    ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+    del ref
+    model = pipeline_stage(Transformer(cfg, device=dev, generator=torch.Generator(device=dev)
+                                       .manual_seed(17)), ftmesh)
+    lo = model.stage[2].start
+
+    def global_name(name: str) -> str:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts[1] = str(lo + int(parts[1]))
+        return ".".join(parts)
+
+    def run(schedule: str, micro: int):
+        if schedule == "gpipe":
+            loss = pipeline_loss_fn(model, b, ftmesh, num_microbatches=micro)
+            loss.backward()
+            return loss.detach()
+        return pipeline_1f1b_value_and_grad(model, b, ftmesh, num_microbatches=micro)
+
+    out = {"ref_loss": ref_loss.item(), "stage": model.stage[0],
+           "layers": list(model.stage[2])}
+    for schedule in ("gpipe", "1f1b"):
+        rec = out[schedule] = {"losses": [], "loss_err": [], "grad_err": [], "worst_grad": [],
+                               "step_ms": [], "launches": []}
+        for _ in range(PIPE_STEPS):
+            model.zero_grad(set_to_none=True)
+            dist.barrier()
+            loss, ms, counts, _ = _timed(lambda: run(schedule, PIPE_MICRO))
+            rec["losses"].append(loss.item())
+            rec["loss_err"].append(abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()))
+            errs = _grad_errs({global_name(n): p.grad for n, p in model.named_parameters()},
+                              {global_name(n): ref_grads[global_name(n)]
+                               for n, _ in model.named_parameters()})
+            worst = max(errs, key=errs.get)
+            rec["grad_err"].append(errs[worst])
+            rec["worst_grad"].append(worst)
+            rec["step_ms"].append(ms)
+            rec["launches"].append(counts)
+        rec["schedule"] = dict(pl.last_schedule)
+    del ref_grads, ref_loss
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    # Peak a rank at M PIPE_MEM_MICRO: the resident stage, then one step.
+    out["resident_bytes"] = torch.cuda.memory_allocated()
+    for schedule in ("gpipe", "1f1b"):
+        dist.barrier()
+        _, ms, counts, peak = _timed(lambda: run(schedule, PIPE_MEM_MICRO))
+        out[f"peak_{schedule}"] = peak
+        out[f"mem_ms_{schedule}"] = ms
+        out[f"mem_held_{schedule}"] = pl.last_schedule["max_held"]
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_p17_rank(args: argparse.Namespace) -> None:
+    """One local rank of phase 17 (a) and (b): the rank's Manager (which
+    hosts the group's store on rank 0, as train_hsdp's ranks do), the
+    group's world over gloo through the slice bootstrap (ranks share the
+    card), then each leg on its own mesh; the results go to the run
+    directory."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.examples._common import make_manager
+    from torchft_tpu_torch.multihost import initialize_slice
+
+    rank = args.p17_rank
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    manager = make_manager(lambda: {}, lambda sd: None, 0, rank=rank, world_size=2,
+                           store_port=int(os.environ["MASTER_PORT"]), init_sync=False,
+                           timeout_s=120.0)
+    try:
+        initialize_slice(backend="gloo")
+        out = {"moe": moe_leg(rank, dev, manager), "pipe": pipe_leg(rank, dev)}
+    finally:
+        manager.shutdown()
+    with open(os.path.join(args.run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def p17_start() -> dict:
+    """Starts phase 17 (a) and (b): two local ranks on the card, spawned as
+    ``chip_smoke.py --p17-rank r``, each with its Manager on a lighthouse
+    of this process.  :func:`p17_finish` waits for them."""
+    from torchft_tpu_torch._native import LighthouseServer
+
+    run = {"dir": tempfile.mkdtemp(prefix="tpuft_p17_"), "procs": [], "t0": time.monotonic(),
+           "lighthouse": LighthouseServer(bind="127.0.0.1:0", min_replicas=1,
+                                          join_timeout_ms=100)}
+    try:
+        port = free_port()
+        env = dict(os.environ, TPUFT_NUM_HOSTS="2", TPUFT_STORE=f"127.0.0.1:{port}",
+                   MASTER_PORT=str(port), TPUFT_COORD_PORT=str(free_port()),
+                   MASTER_ADDR="127.0.0.1", TPUFT_LIGHTHOUSE=run["lighthouse"].address())
+        for r in range(2):
+            run["procs"].append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--p17-rank", str(r),
+                 "--run-dir", run["dir"]], env=dict(env, TPUFT_HOST_RANK=str(r)), cwd=HERE))
+    except BaseException:
+        _p17_stop(run)
+        raise
+    return run
+
+
+def _p17_stop(run: dict) -> None:
+    if run.get("stopped"):
+        return
+    run["stopped"] = True
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    run["lighthouse"].shutdown()
+    shutil.rmtree(run["dir"], ignore_errors=True)
+
+
+def p17_wait(run: dict) -> None:
+    """Waits until :func:`p17_start`'s ranks have exited; raises if one
+    failed or they ran past P17_RANK_TIMEOUT_S."""
+    procs = run["procs"]
+    deadline = run["t0"] + P17_RANK_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"phase 17: the in-group ranks ran past {P17_RANK_TIMEOUT_S} s")
+        if any(p.poll() not in (None, 0) for p in procs):
+            raise AssertionError(f"phase 17: a rank failed: {[p.poll() for p in procs]}")
+        time.sleep(0.1)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 17: a rank failed: {[p.returncode for p in procs]}")
+    run.setdefault("wall", time.monotonic() - run["t0"])
+
+
+def p17_finish(run: dict, card: str) -> dict:
+    """Waits for :func:`p17_start`'s ranks, stops what it started, and holds
+    their records (:func:`moe_checks`, :func:`pipe_checks`)."""
+    try:
+        p17_wait(run)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(run["dir"], f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        _p17_stop(run)
+    wall = run["wall"]
+    out = {"moe": moe_checks(card, [r["moe"] for r in ranks]),
+           "pipe": pipe_checks(card, [r["pipe"] for r in ranks]), "ranks_s": wall}
+    print(f"  (a) and (b): {wall:.1f} s from the ranks' start to their results ({card})",
+          flush=True)
+    return out
+
+
+def _kernel_counts(counts: dict) -> dict:
+    return {k: counts.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                                          "ce_lse", "ce_dlogits")}
+
+
+def moe_checks(card: str, recs: list) -> dict:
+    """Prints (a)'s numbers, then holds them: K1-K5 12 / 12 / 12 / 1 / 1 a
+    rank a bf16 pass and ft_step, none in f32 (the plain path); the f32
+    loss and every gathered f32 gradient against the unsharded, no token
+    routed otherwise; the bf16 loss and every gathered bf16 gradient, the
+    tokens routed otherwise a layer; committed ft_steps, finite losses."""
+    L = moe_config()[0].n_layers
+    want = {"flash_fwd": L, "flash_bwd_dkdv": L, "flash_bwd_dq": L, "ce_lse": 1, "ce_dlogits": 1}
+    head, f32 = recs[0], recs[0]["f32"]
+    launches = collections.Counter()
+    for rec in recs:
+        for counts in rec["launches"] + [f["launches"] for f in rec["ft"]]:
+            launches.update(counts)
+    out = {"losses": head["losses"], "ref_losses": head["ref_losses"],
+           "loss_err": head["loss_err"], "grad_err": head["grad_err"],
+           "worst_grads": head["worst_grads"], "dropped": head["dropped"],
+           "rerouted": head["rerouted"], "tokens": head["tokens"],
+           "choices": head["choices"], "f32": {k: f32[k] for k in (
+               "losses", "ref_losses", "loss_err", "grad_err", "worst_grads", "dropped",
+               "rerouted", "step_ms", "batch")},
+           "step_ms": [rec["step_ms"] for rec in recs],
+           "peak_bytes": [rec["peak_bytes"] for rec in recs],
+           "ft": [[f["ms"] for f in rec["ft"]] for rec in recs],
+           "ft_losses": [f["loss"] for f in head["ft"]],
+           "local_param_bytes": head["local_param_bytes"],
+           "global_param_bytes": head["global_param_bytes"], "launches": dict(launches)}
+    print(f"  (a) MoE {MOE_EXPERTS} experts over expert 2, f32 (plain path), batch "
+          f"{MOE_F32_BATCH}: loss {f32['losses'][0]:.6f} against unsharded "
+          f"{f32['ref_losses'][0]:.6f} ({f32['loss_err'][0]:.2e} of it, allowed "
+          f"{TOL_P17_F32_LOSS}); gathered gradients within {f32['grad_err'][0]:.2e} of each max "
+          f"(allowed {TOL_P17_F32_GRAD}; the worst {f32['worst_grads'][0]}); tokens routed "
+          f"otherwise a layer {f32['rerouted'][0]}; choices dropped {f32['dropped'][0]} of "
+          f"{f32['choices']} ({card})", flush=True)
+    print(f"  (a) bf16 (the kernels), batch {MOE_BATCH}: losses "
+          f"{', '.join(f'{x:.6f}' for x in head['losses'])} against unsharded "
+          f"{', '.join(f'{x:.6f}' for x in head['ref_losses'])} (worst {max(head['loss_err']):.2e} of "
+          f"it, allowed {TOL_P17_LOSS}); gathered gradients within {head['grad_err']} of each max "
+          f"(allowed {TOL_P17_GRAD}; the worst {head['worst_grads']}), the unsharded model on "
+          f"the sharded routing; tokens its own router sends elsewhere, a layer, "
+          f"{head['rerouted']} of {head['tokens']} (allowed "
+          f"{int(TOL_P17_REROUTE * head['tokens'])}); choices dropped {head['dropped']} of "
+          f"{head['choices']}; forward + backward ms a rank "
+          f"{[[round(x, 2) for x in rec['step_ms']] for rec in recs]} (CUDA events, the ranks "
+          f"sharing the card; the first a warm-up); peak "
+          f"{[round(max(rec['peak_bytes']) / 2**30, 3) for rec in recs]} GiB a rank (rank 0 also "
+          f"holds the unsharded model); parameters {head['local_param_bytes'] / 2**20:.1f} of "
+          f"{head['global_param_bytes'] / 2**20:.1f} MiB a rank; {MOE_FT_STEPS} committed "
+          f"ft_steps, losses {out['ft_losses']}, ms a rank {out['ft']}; launches "
+          f"{dict(launches)} ({card})", flush=True)
+    for r, rec in enumerate(recs):
+        for s, counts in enumerate(rec["launches"] + [f["launches"] for f in rec["ft"]]):
+            if _kernel_counts(counts) != want:
+                raise AssertionError(f"phase 17 (a) rank {r} step {s} launched "
+                                     f"{_kernel_counts(counts)}, expected {want}")
+        if any(rec["f32"]["launches"][0].get(k, 0) for k in want):
+            raise AssertionError(f"phase 17 (a) rank {r}: the f32 pass launched "
+                                 f"{rec['f32']['launches'][0]}, expected the plain path")
+        for s, f in enumerate(rec["ft"]):
+            if not f["committed"] or not math.isfinite(f["loss"]):
+                raise AssertionError(f"phase 17 (a) rank {r} ft_step {s}: committed "
+                                     f"{f['committed']}, loss {f['loss']}")
+        if rec["losses"] != head["losses"] or rec["f32"]["losses"] != f32["losses"]:
+            raise AssertionError("phase 17 (a): the expert ranks' losses differ")
+    if any(f32["rerouted"][0]):
+        raise AssertionError(f"phase 17 (a) f32: tokens routed otherwise {f32['rerouted'][0]}")
+    if f32["loss_err"][0] > TOL_P17_F32_LOSS or f32["grad_err"][0] > TOL_P17_F32_GRAD:
+        raise AssertionError(f"phase 17 (a) f32: loss {f32['loss_err'][0]:.3e} (allowed "
+                             f"{TOL_P17_F32_LOSS}), gradient {f32['grad_err'][0]:.3e} (allowed "
+                             f"{TOL_P17_F32_GRAD})")
+    for s, (l, err, gerr) in enumerate(zip(head["losses"], head["loss_err"], head["grad_err"])):
+        if not math.isfinite(l) or err > TOL_P17_LOSS:
+            raise AssertionError(f"phase 17 (a) step {s}: loss {l} against the unsharded "
+                                 f"{head['ref_losses'][s]}: {err:.3e} > {TOL_P17_LOSS}")
+        if gerr > TOL_P17_GRAD:
+            raise AssertionError(f"phase 17 (a) step {s}: gradient {head['worst_grads'][s][0]} "
+                                 f"differs from the unsharded by {gerr:.3e} of its max > "
+                                 f"{TOL_P17_GRAD}")
+        if max(head["rerouted"][s]) > TOL_P17_REROUTE * head["tokens"]:
+            raise AssertionError(f"phase 17 (a) step {s}: tokens routed otherwise a layer "
+                                 f"{head['rerouted'][s]} of {head['tokens']} > {TOL_P17_REROUTE}")
+    return out
+
+
+def pipe_checks(card: str, recs: list) -> dict:
+    """Prints (b)'s numbers, then holds them: each schedule's launches a
+    stage a step, its loss and every gradient of the stage against the
+    unsharded model's, and 1F1B's peak below GPipe's at M PIPE_MEM_MICRO."""
+    from torchft_tpu_torch.models import flagship_config
+
+    per = flagship_config()[0].n_layers // 2
+    M = PIPE_MICRO
+    want = {"gpipe": [{"flash_fwd": per * M, "flash_bwd_dkdv": per * M, "flash_bwd_dq": per * M,
+                       "ce_lse": int(s == 1), "ce_dlogits": int(s == 1)} for s in (0, 1)],
+            "1f1b": [{"flash_fwd": 2 * per * M, "flash_bwd_dkdv": per * M,
+                      "flash_bwd_dq": per * M, "ce_lse": M * int(s == 1),
+                      "ce_dlogits": M * int(s == 1)} for s in (0, 1)]}
+    recs = sorted(recs, key=lambda rec: rec["stage"])
+    launches = collections.Counter()
+    out = {"resident_bytes": [rec["resident_bytes"] for rec in recs]}
+    for schedule in ("gpipe", "1f1b"):
+        for rec in recs:
+            for counts in rec[schedule]["launches"]:
+                launches.update(counts)
+        o = out[schedule] = {
+            "losses": recs[0][schedule]["losses"],
+            "loss_err": max(max(rec[schedule]["loss_err"]) for rec in recs),
+            "grad_err": max(max(rec[schedule]["grad_err"]) for rec in recs),
+            "worst_grad": [rec[schedule]["worst_grad"] for rec in recs],
+            "step_ms": [rec[schedule]["step_ms"] for rec in recs],
+            "launches": [rec[schedule]["launches"][-1] for rec in recs],
+            "peak_bytes": [rec[f"peak_{schedule}"] for rec in recs],
+            "mem_ms": [rec[f"mem_ms_{schedule}"] for rec in recs],
+            "held": [rec[f"mem_held_{schedule}"] for rec in recs]}
+        print(f"  (b) {schedule} over pipeline 2, M {M}: losses "
+              f"{', '.join(f'{x:.6f}' for x in o['losses'])} against unsharded "
+              f"{recs[0]['ref_loss']:.6f} (worst {o['loss_err']:.2e}, allowed {TOL_P17_LOSS}); "
+              f"gradients within {o['grad_err']:.2e} of each max (allowed {TOL_P17_GRAD}; the "
+              f"worst {o['worst_grad']}); forward + backward ms a stage "
+              f"{[[round(x, 2) for x in ms] for ms in o['step_ms']]} (CUDA events, the first a "
+              f"warm-up); launches a stage a step {[_kernel_counts(c) for c in o['launches']]}; "
+              f"at M {PIPE_MEM_MICRO}: peak {[round(p / 2**30, 3) for p in o['peak_bytes']]} GiB a "
+              f"stage over resident {[round(p / 2**30, 3) for p in out['resident_bytes']]}, "
+              f"microbatches held at once {o['held']}, ms {[round(x, 2) for x in o['mem_ms']]} "
+              f"({card})", flush=True)
+    out["launches"] = dict(launches)
+    for schedule in ("gpipe", "1f1b"):
+        for rec in recs:
+            r, s = rec[schedule], rec["stage"]
+            for i, counts in enumerate(r["launches"]):
+                if _kernel_counts(counts) != want[schedule][s]:
+                    raise AssertionError(f"phase 17 (b) {schedule} stage {s} step {i} launched "
+                                         f"{_kernel_counts(counts)}, expected {want[schedule][s]}")
+            for i, (l, err, gerr) in enumerate(zip(r["losses"], r["loss_err"], r["grad_err"])):
+                if not math.isfinite(l) or err > TOL_P17_LOSS:
+                    raise AssertionError(f"phase 17 (b) {schedule} stage {s} step {i}: loss {l} "
+                                         f"against the unsharded {rec['ref_loss']}: {err:.3e} > "
+                                         f"{TOL_P17_LOSS}")
+                if gerr > TOL_P17_GRAD:
+                    raise AssertionError(f"phase 17 (b) {schedule} stage {s} step {i}: gradient "
+                                         f"{r['worst_grad'][i]} differs from the unsharded by "
+                                         f"{gerr:.3e} of its max > {TOL_P17_GRAD}")
+    for rec in recs:
+        if not rec["peak_1f1b"] < rec["peak_gpipe"]:
+            raise AssertionError(f"phase 17 (b) stage {rec['stage']}: 1F1B's peak "
+                                 f"{rec['peak_1f1b']} is not below GPipe's {rec['peak_gpipe']} "
+                                 f"at M {PIPE_MEM_MICRO}")
+    return out
+
+
+def p17_kill(card: str) -> dict:
+    """Phase 17 (c): train_pipeline --model flagship --schedule 1f1b under
+    the launcher, two groups of {pipeline 2} (gloo on the shared card),
+    group 1 SIGKILLed after P17_KILL_AFTER merged commits: its ranks die
+    with it, each restarted rank heals its own stage over HTTP from group
+    0's same rank, and both groups end with one params_sha256."""
+    out = ranked_kill("phase 17 (c)", "train_pipeline",
+                      ["--model", "flagship", "--devices", "2", "--pipe", "2", "--schedule",
+                       "1f1b", "--batch", "16", "--microbatches", str(PIPE_MICRO)],
+                      P17_KILL_STEPS, P17_KILL_CAP, P17_KILL_AFTER, P17_KILL_TIMEOUT_S)
+    print(f"  (c) train_pipeline 1f1b, 2 groups x pipeline 2, group 1 SIGKILLed: its ranks "
+          f"{out['killed_rank_pids']} gone; each rank healed its stage (heal span ms {out['heal_ms']}; "
+          f"fetched { {k: (v['stage'], v['bytes'], v['fetch_s']) for k, v in out['healed'].items()} } "
+          f"stage, bytes, s); kill -> first merged commit {out['recovery_s']:.3f} s; merged step "
+          f"{out['merged_step_ms']:.1f} ms, solo {out['solo_step_ms'] or 0:.1f} ms "
+          f"(group 0's rank 0, host clock); both groups end at step {out['final_step']} with "
+          f"params_sha256 {out['params_sha256'][:16]}...; launches {out['launches']} ({card})",
+          flush=True)
+    return out
+
+
+def combine_cost(card: str, repeats: int = 10) -> dict:
+    """The MoE combine's product at (a)'s shapes a rank, [T, X/2 * C] @
+    [X/2 * C, E] in bf16: ms a call (CUDA events, ``repeats`` calls) of the
+    f32-output product that ``moe_ffn`` runs, of the plain bf16 product,
+    and of the f32 product of the operands cast up."""
+    import torch
+
+    from torchft_tpu_torch.models import moe_capacity
+    from torchft_tpu_torch.models.moe import _F32Product
+
+    cfg, batch, seq = moe_config()
+    T = batch * seq
+    xc = cfg.moe_experts // 2 * moe_capacity(T, cfg.moe_experts, cfg.moe_top_k,
+                                            cfg.moe_capacity_factor)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    a = torch.randn(T, xc, device="cuda", generator=gen).to(torch.bfloat16)
+    b = torch.randn(xc, cfg.d_model, device="cuda", generator=gen).to(torch.bfloat16)
+    out = {"shape": [T, xc, cfg.d_model]}
+    for name, fn in (("f32_out", lambda: _F32Product.apply(a, b)), ("bf16", lambda: a @ b),
+                     ("cast_up", lambda: a.float() @ b.float())):
+        fn()
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+        for _ in range(repeats):
+            fn()
+        events[1].record()
+        events[1].synchronize()
+        out[name] = events[0].elapsed_time(events[1]) / repeats
+    print(f"  (a) the combine's product a rank, {out['shape']}: f32-output (moe_ffn's) "
+          f"{out['f32_out']:.4f} ms, bf16 {out['bf16']:.4f} ms, f32 of operands cast up "
+          f"{out['cast_up']:.4f} ms ({card})", flush=True)
+    return out
+
+
+def p17_phase(card: str, ranks: dict, kill: dict) -> dict:
+    """Phase 17: (a) and (b) from ``ranks`` (:func:`p17_start`'s, started
+    earlier beside another phase), and ``kill``: (c)'s result
+    (:func:`p17_kill`, run earlier beside another phase).  Each counts its
+    own processes' launches."""
+    t0 = time.monotonic()
+    out = p17_finish(ranks, card)
+    out["moe"]["combine_ms"] = combine_cost(card)
+    out["kill"] = kill
+    out["phase_s"] = time.monotonic() - t0
+    launches = collections.Counter()
+    for leg in ("moe", "pipe", "kill"):
+        launches.update(out[leg]["launches"])
+    out["launches"] = dict(launches)
+    out["card"] = card
+    print("MOE_PIPELINE " + json.dumps(out), flush=True)
+    print(f"  MoE and pipeline phase: {out['phase_s']:.1f} s here ({card})", flush=True)
     return out
 
 
@@ -5318,6 +5973,7 @@ def main() -> int:
     parser.add_argument("--durable-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--control-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--hsdp-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--p17-rank", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -5348,6 +6004,9 @@ def main() -> int:
         return 0
     if args.hsdp_rank is not None:
         run_hsdp_rank(args)
+        return 0
+    if args.p17_rank is not None:
+        run_p17_rank(args)
         return 0
 
     # 1. Card.
@@ -5413,105 +6072,151 @@ def main() -> int:
 
     lap("5")
 
-    # 6. Kill and heal through the launcher and the train_ddp example.
-    print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
-          flush=True)
-    kill_heal = kill_heal_phase(card)
-    print(f"disk resume: Launcher + train_ddp --ckpt_dir, both groups stopped at step "
-          f"{RESUME_STEPS} and resumed from disk", flush=True)
-    resume_phase(card)
+    # Three legs run beside host-bound phases from a side thread, each with
+    # processes (and launch counts) of its own, joined at its phase's end
+    # and read at its own phase: 16 (c) beside 7, 17 (c) beside 9 and 10,
+    # and 17 (a), (b) then 16 (a), (b), (d) beside 11.
+    side_pool = ThreadPoolExecutor(max_workers=1)
+    side = {}
 
-    lap("6")
+    def beside_healing() -> dict:
+        side["p17"] = p17_start()
+        p17_wait(side["p17"])
+        return hsdp_phase(card, kill=hsdp_c)
 
-    # 7. The bare ring on the card's host.
-    print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
-          f"{BARE_RING_REPEATS} allreduces a configuration on TCP and shm lanes; then max / "
-          f"min, a shaped link, a {RING2D_RANKS}-rank ring2d and the ops beyond allreduce",
-          flush=True)
-    bare_ring(card)
+    try:
+        # 6. Kill and heal through the launcher and the train_ddp example.
+        print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
+              flush=True)
+        kill_heal = kill_heal_phase(card)
+        print(f"disk resume: Launcher + train_ddp --ckpt_dir, both groups stopped at step "
+              f"{RESUME_STEPS} and resumed from disk", flush=True)
+        resume_phase(card)
 
-    lap("7")
+        lap("6")
 
-    # 8. The raw-step profile.
-    print(f"raw-step profile: torch.profiler over {PROFILE_STEPS} chained flagship full_steps",
-          flush=True)
-    profile_phase(card)
+        # 7. The bare ring on the card's host.
+        print(f"bare ring: 2 in-process ranks, the flagship's gradient payload, "
+              f"{BARE_RING_REPEATS} allreduces a configuration on TCP and shm lanes; then max / "
+              f"min, a shaped link, a {RING2D_RANKS}-rank ring2d and the ops beyond allreduce",
+              flush=True)
+        # Phase 16 (c), host-bound (process starts, the heal), beside it.
+        hsdp_c = side_pool.submit(hsdp_kill, card)
+        print("phase 16 (c) started beside phase 7: train_hsdp --model flagship, 2 groups x "
+              "fsdp 2, under the launcher", flush=True)
+        bare_ring(card, "phase 16 (c)'s processes (train_hsdp, 2 groups x fsdp 2)")
+        hsdp_c = hsdp_c.result()
 
-    lap("8")
+        lap("7")
 
-    # 9. The semisync codec's device encoders.
-    print("semisync codec: device int8 / int4 encoders against the host quantizers",
-          flush=True)
-    codec_phase(card)
+        # 8. The raw-step profile.
+        print(f"raw-step profile: torch.profiler over {PROFILE_STEPS} chained flagship full_steps",
+              flush=True)
+        profile_phase(card)
 
-    lap("9")
+        lap("8")
 
-    # 10. Streaming DiLoCo on the flagship.
-    print(f"DiLoCo: lighthouse + 2 groups, flagship width at {DILOCO_LAYERS} layers, "
-          f"StreamingDiLoCo(sync_every="
-          f"{DILOCO_SYNC_EVERY}, codec='int8'), group 1 heals into round "
-          f"{DILOCO_SOLO_ROUNDS + 1}", flush=True)
-    diloco_launches = diloco_phase(card)
+        # 9. The semisync codec's device encoders, with phase 17 (c)'s drive
+        # started beside phases 9 and 10 (its processes, launch counts and
+        # result are its own; phase 17 reads them).
+        p17c = side_pool.submit(p17_kill, card)
+        print("phase 17 (c) started beside phases 9 and 10: train_pipeline --model flagship "
+              "--schedule 1f1b, 2 groups x pipeline 2, under the launcher", flush=True)
+        print("semisync codec: device int8 / int4 encoders against the host quantizers",
+              flush=True)
+        codec_phase(card)
 
-    lap("10")
+        lap("9")
 
-    # 11. The healing plane on the flagship.
-    print(f"healing: lighthouse + 3 groups, flagship widths at {HEAL_LAYERS} layers, "
-          "erasure-coded state k 2 m 1; "
-          "a striped two-donor heal, an erasure heal, a donor killed mid-fetch", flush=True)
-    healing_launches, heal_recovery = healing_phase(card)
+        # 10. Streaming DiLoCo on the flagship.
+        print(f"DiLoCo: lighthouse + 2 groups, flagship width at {DILOCO_LAYERS} layers, "
+              f"StreamingDiLoCo(sync_every="
+              f"{DILOCO_SYNC_EVERY}, codec='int8'), group 1 heals into round "
+              f"{DILOCO_SOLO_ROUNDS + 1}", flush=True)
+        diloco_launches = diloco_phase(card)
+        p17c_result = p17c.result()
 
-    lap("11")
+        lap("10")
 
-    # 12. The elastic plane on the flagship.
-    print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship widths at {ELASTIC_LAYERS} "
-          f"layers, elastic global batch "
-          f"{ELASTIC_GLOBAL_BATCH} (microbatch {ELASTIC_MICROBATCH}); a cooperative drain, "
-          f"then a SIGKILL, each handed to the spare, then a straggler rotated out by the "
-          f"sentinel", flush=True)
-    elastic_launches = elastic_phase(card, {"heal": [heal_recovery["kill_b"],
-                                                     heal_recovery["kill_c"]],
-                                            "kill_heal": kill_heal["recovery_s"]})
+        # 11. The healing plane on the flagship.
+        print(f"healing: lighthouse + 3 groups, flagship widths at {HEAL_LAYERS} layers, "
+              "erasure-coded state k 2 m 1; "
+              "a striped two-donor heal, an erasure heal, a donor killed mid-fetch", flush=True)
+        in_group = side_pool.submit(beside_healing)
+        print("phase 17 (a) and (b), then phase 16 (a), (b) and (d), started beside phase 11",
+              flush=True)
+        healing_launches, heal_recovery = healing_phase(
+            card, "phase 17 (a), (b) and phase 16 (a), (b), (d)'s processes (in-group ranks "
+            "on gloo)")
+        hsdp = in_group.result()
 
-    lap("12")
+        lap("11")
 
-    # 13. Durable state and isolated communication on the flagship.
-    print(f"durable state: lighthouse + 2 groups, flagship widths at {DURABLE_LAYERS} layers, "
-          f"StatefulDataLoader; (a) "
-          f"{DURABLE_STEPS} steps, (b) the same stopped at {DURABLE_STEPS // 2} and resumed "
-          f"from disk, (c) a lost group healed over CollectiveTransport, (d) a baby "
-          f"collective's child SIGKILLed", flush=True)
-    durable_launches = durable_phase(card, heal_recovery["http_striped"])
+        # 12. The elastic plane on the flagship.
+        print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship widths at {ELASTIC_LAYERS} "
+              f"layers, elastic global batch "
+              f"{ELASTIC_GLOBAL_BATCH} (microbatch {ELASTIC_MICROBATCH}); a cooperative drain, "
+              f"then a SIGKILL, each handed to the spare, then a straggler rotated out by the "
+              f"sentinel", flush=True)
+        elastic_launches = elastic_phase(card, {"heal": [heal_recovery["kill_b"],
+                                                         heal_recovery["kill_c"]],
+                                                "heal_beside": heal_recovery["beside"],
+                                                "kill_heal": kill_heal["recovery_s"]})
 
-    lap("13")
+        lap("12")
 
-    # 14. The highly-available and federated control plane on the flagship.
-    print(f"control plane: (a) 2 HA lighthouse processes (lease {CONTROL_LEASE_MS} ms) + 2 "
-          f"groups, flagship widths at {CONTROL_LAYERS} layers, the leader SIGKILLed after "
-          f"{CONTROL_KILL_AT} merged steps; "
-          f"(b) a root + 2 region lighthouses, one group in each, {CONTROL_STEPS} steps",
-          flush=True)
-    control_launches = control_phase(card)
+        # 13. Durable state and isolated communication on the flagship.
+        print(f"durable state: lighthouse + 2 groups, flagship widths at {DURABLE_LAYERS} layers, "
+              f"StatefulDataLoader; (a) "
+              f"{DURABLE_STEPS} steps, (b) the same stopped at {DURABLE_STEPS // 2} and resumed "
+              f"from disk, (c) a lost group healed over CollectiveTransport, (d) a baby "
+              f"collective's child SIGKILLed", flush=True)
+        durable_launches = durable_phase(card, heal_recovery["http_striped"])
 
-    lap("14")
+        lap("13")
 
-    # 15. The step options on the flagship.
-    print(f"step options: (a) {OPTION_STEPS} flagship full_steps with and without remat from "
-          f"one seed; (b) one group alone, {OVERLAP_STEPS} ft_steps with overlap_commit True "
-          f"and then False, the vote of step {OVERLAP_FAIL_AT} failed", flush=True)
-    options = step_options_phase(card)
+        # 14. The highly-available and federated control plane on the flagship.
+        print(f"control plane: (a) 2 HA lighthouse processes (lease {CONTROL_LEASE_MS} ms) + 2 "
+              f"groups, flagship widths at {CONTROL_LAYERS} layers, the leader SIGKILLed after "
+              f"{CONTROL_KILL_AT} merged steps; "
+              f"(b) a root + 2 region lighthouses, one group in each, {CONTROL_STEPS} steps",
+              flush=True)
+        control_launches = control_phase(card)
 
-    lap("15")
+        lap("14")
 
-    # 16. In-group parallelism and sharded healing on the flagship.
-    print("in-group parallelism: (a) fsdp 2 and (b) tensor 2, two local ranks on the card over "
-          "gloo, the flagship sharded against it unsharded; (c) train_hsdp, 2 groups x fsdp 2, "
-          "group 1 SIGKILLed and its shards healed; (d) one rank over NCCL", flush=True)
-    hsdp = hsdp_phase(card)
+        # 15. The step options on the flagship.
+        print(f"step options: (a) {OPTION_STEPS} flagship full_steps with and without remat from "
+              f"one seed; (b) one group alone, {OVERLAP_STEPS} ft_steps with overlap_commit True "
+              f"and then False, the vote of step {OVERLAP_FAIL_AT} failed", flush=True)
+        options = step_options_phase(card)
 
-    lap("16")
+        lap("15")
 
-    # 17. The kernels line, then the last line.
+        # 16. In-group parallelism and sharded healing on the flagship.
+        print("in-group parallelism: (a) fsdp 2 and (b) tensor 2, two local ranks on the card over "
+              "gloo, the flagship sharded against it unsharded; (c) train_hsdp, 2 groups x fsdp 2, "
+              "group 1 SIGKILLed and its shards healed; (d) one rank over NCCL", flush=True)
+        print(f"  (its legs ran beside phases 7 and 11: {hsdp['phase_s']:.1f} s for (a), (b) and "
+              f"(d) there)", flush=True)
+
+        lap("16")
+
+        # 17. The mixture of experts and the pipeline on the flagship's widths.
+        print(f"MoE and pipeline: (a) the flagship's widths with {MOE_EXPERTS} experts a block over "
+              f"expert 2 against it unsharded, then {MOE_FT_STEPS} ft_steps under a Manager; (b) the "
+              f"flagship over pipeline 2, GPipe and 1F1B against it unsharded, and each's peak at M "
+              f"{PIPE_MEM_MICRO}; (c) train_pipeline --schedule 1f1b, 2 groups x pipeline 2, group 1 "
+              f"SIGKILLed and healed stage by stage", flush=True)
+        moe_pipe = p17_phase(card, ranks=side["p17"], kill=p17c_result)
+    finally:
+        if "p17" in side:
+            _p17_stop(side["p17"])  # a phase between failed: no rank outlives the run
+        side_pool.shutdown()  # a side drive ends by its own deadline and stops its processes
+
+    lap("17")
+
+    # 18. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -5532,6 +6237,9 @@ def main() -> int:
             "launches_remat": options["remat"]["remat_True"]["launches"].get(name, 0),
             "launches_no_remat": options["remat"]["remat_False"]["launches"].get(name, 0),
             "launches_hsdp": hsdp["launches"].get(name, 0),
+            "launches_moe": moe_pipe["moe"]["launches"].get(name, 0),
+            "launches_pipeline": moe_pipe["pipe"]["launches"].get(name, 0),
+            "launches_train_pipeline": moe_pipe["kill"]["launches"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -142,9 +142,29 @@ def test_ftmesh_rejects_unknown_axis() -> None:
 
 
 @pytest.mark.parametrize("axis", ["sequence", "expert", "pipeline"])
-def test_q14_axes_above_one_raise(axis) -> None:
-    with pytest.raises(NotImplementedError, match="Q1.4"):
-        ft_init_mesh({"fsdp": 1, axis: 2}, device_type="cpu")
+def test_q14_axes_above_one_raise(fake_world, axis) -> None:
+    """"sequence" above 1 still raises (ROADMAP Q1.4 (b)); "expert" and
+    "pipeline" are ported: a mesh over them places the experts' dim on
+    "expert" and keeps every parameter whole over "pipeline"."""
+    if axis == "sequence":
+        with pytest.raises(NotImplementedError, match="Q1.4"):
+            ft_init_mesh({"fsdp": 1, axis: 2}, device_type="cpu")
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    fake_world(4, rank=3)  # data coordinate 1, axis coordinate 1
+    ftmesh = ft_init_mesh({"data": 2, axis: 2}, device_type="cpu")
+    assert ftmesh.mesh_axis_names == ("data", axis) and ftmesh.size(axis) == 2
+    assert ftmesh.coordinate(axis) == 1 and ftmesh.batch_shard() == (1, 2)
+    cfg = TransformerConfig(**SMALL, dtype=torch.float32, moe_experts=4)
+    axes = param_axes(cfg)
+    want = Shard(0) if axis == "expert" else Replicate()
+    assert ftmesh.placements(*axes["layers.0.w_gate"]) == (Replicate(), want)
+    assert ftmesh.placements(*axes["layers.0.router"]) == (
+        Replicate(), Shard(1) if axis == "expert" else Replicate())
+    full = torch.arange(4 * 8 * 2, dtype=torch.float32).reshape(4, 8, 2)
+    local = ftmesh.local_shard(full, ftmesh.placements("expert", "embed", "mlp"))
+    assert torch.equal(local, full[2:] if axis == "expert" else full)
 
 
 def test_q14_axis_of_size_one_is_kept(fake_world) -> None:

@@ -103,22 +103,25 @@ def test_the_detect_and_act_plane_stands_alone() -> None:
 
 
 def test_the_in_group_modules_stand_alone() -> None:
-    """The mesh, the rules, the in-group collectives, the slice bootstrap
-    and the HSDP example are scanned and import nothing of JAX or the JAX
-    package; their entry points are exported."""
+    """The mesh, the rules, the in-group collectives, the slice bootstrap,
+    the pipeline, the mixture of experts and the HSDP and pipeline examples
+    are scanned and import nothing of JAX or the JAX package; their entry
+    points are exported."""
     scanned = set(_port_files())
     for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
-                "parallel/functional.py", "multihost.py", "examples/train_hsdp.py"):
+                "parallel/functional.py", "parallel/pipeline.py", "models/moe.py",
+                "multihost.py", "examples/train_hsdp.py", "examples/train_pipeline.py"):
         path = os.path.join(REPO, "torchft_tpu_torch", rel)
         assert path in scanned, rel
         assert not set(_imported_roots(path)) & FORBIDDEN, rel
         assert "torchft_tpu." not in open(path).read().replace("torchft_tpu_torch", ""), rel
     from torchft_tpu_torch import models, multihost, parallel
 
-    assert {"FTMesh", "ft_init_mesh", "ShardingRules", "logical_sharding",
-            "TrainStep"} == set(parallel.__all__)
+    assert {"FTMesh", "ft_init_mesh", "ShardingRules", "logical_sharding", "TrainStep",
+            "pipeline_1f1b_value_and_grad", "pipeline_apply", "pipeline_apply_sharded",
+            "pipeline_loss_fn", "pipeline_stage"} == set(parallel.__all__)
     assert {"SliceConfig", "slice_config_from_env", "initialize_slice"} == set(multihost.__all__)
-    assert {"param_axes", "parallelize"} <= set(models.__all__)
+    assert {"param_axes", "parallelize", "moe_ffn", "moe_capacity"} <= set(models.__all__)
 
 
 def test_the_durable_state_and_isolation_modules_stand_alone() -> None:

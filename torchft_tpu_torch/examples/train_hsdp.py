@@ -69,9 +69,11 @@ def _die_with_parent(parent: int) -> None:
         os._exit(1)
 
 
-def launch_ranks(args: argparse.Namespace, argv: List[str]) -> int:
-    """The group's process: starts one rank a device, forwards SIGTERM, and
-    exits with the first failing rank's code (0 when all succeed)."""
+def launch_ranks(args: argparse.Namespace, argv: List[str],
+                 module: str = "torchft_tpu_torch.examples.train_hsdp") -> int:
+    """The group's process: starts one rank a device (``module`` with
+    ``argv`` and ``--local-rank r``), forwards SIGTERM, and exits with the
+    first failing rank's code (0 when all succeed)."""
     host = os.environ.get("MASTER_ADDR", "localhost")
     env = dict(os.environ, WORLD_SIZE=str(args.devices), TPUFT_NUM_HOSTS=str(args.devices),
                MASTER_ADDR=host, MASTER_PORT=str(_free_port(host)),
@@ -87,8 +89,7 @@ def launch_ranks(args: argparse.Namespace, argv: List[str]) -> int:
             # 0 writes the group's stream, each other rank one of its own.
             env_r["TPUFT_METRICS_PATH"] = f"{metrics}.rank{r}"
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "torchft_tpu_torch.examples.train_hsdp", *argv,
-             "--local-rank", str(r)],
+            [sys.executable, "-m", module, *argv, "--local-rank", str(r)],
             env=env_r, preexec_fn=lambda: _die_with_parent(parent)))
 
     def stop(signum, _frame):

@@ -217,8 +217,11 @@ class HALighthouse:
             self._stop.wait(self._backoff.next())
             return
         with self._role_lock:
-            self._held = won
+            # The server's role and epoch first: is_leader() reads _held
+            # without the lock, and must not report a leader whose epoch
+            # the server does not hold yet.
             self._server.set_role(True, self._addr, self._http, won.epoch, won.expires_ms)
+            self._held = won
         logger.warning("lighthouse %s: took over leadership (epoch %d)", self._owner, won.epoch)
         if won.epoch > 1:
             # Epoch 1 is the group's first election, not a failover.

@@ -1,4 +1,5 @@
 from torchft_tpu_torch.models.convnet import ConvNet, convnet_loss
+from torchft_tpu_torch.models.moe import moe_capacity, moe_ffn
 from torchft_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -18,6 +19,8 @@ __all__ = [
     "convnet_loss",
     "flagship_config",
     "loss_fn",
+    "moe_capacity",
+    "moe_ffn",
     "param_axes",
     "parallelize",
     "resolve_device",

@@ -23,10 +23,13 @@ cross-entropy (:func:`vocab_parallel_cross_entropy`), as the JAX package
 takes its plain loss under any mesh above one device.
 
 ``remat`` (on by default, as in the JAX package) recomputes each block in
-the backward through ``torch.utils.checkpoint``; the JAX config's other
-fields (``attention``, ``ring_layout``, the ``moe_*`` fields) are not
-ported yet, and ``scan_unroll`` has no eager counterpart: the blocks run
-as a Python loop.
+the backward through ``torch.utils.checkpoint``.  ``moe_experts`` > 0
+makes each block's MLP a mixture of experts (``models/moe.py``, the JAX
+``moe_ffn``), its stacked experts placed over the "expert" axis, and the
+loss adds ``moe_aux_coef`` times the load-balance term summed over the
+layers.  The JAX config's ``attention`` and ``ring_layout`` are not ported
+yet (ROADMAP Q1.4 (b)), and ``scan_unroll`` has no eager counterpart: the
+blocks run as a Python loop.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from torchft_tpu_torch.ops import (
     plain_attention,
     rms_norm,
 )
+from torchft_tpu_torch.models.moe import moe_ffn
 from torchft_tpu_torch.parallel.functional import copy_to, gather_from, reduce_from
 
 
@@ -76,6 +80,12 @@ class TransformerConfig:
     # Recompute each block's activations in the backward instead of keeping
     # them (the JAX model's jax.checkpoint of its layer body).
     remat: bool = True
+    # Mixture of experts: > 0 replaces each block's dense MLP with
+    # moe_experts stacked experts, shardable over the "expert" mesh axis.
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
 
     @property
     def d_head(self) -> int:
@@ -112,7 +122,9 @@ def _normal(shape, fan_in: int, gen: torch.Generator, device, dtype) -> nn.Param
 
 
 class Block(nn.Module):
-    """One pre-norm decoder block: attention then SwiGLU MLP."""
+    """One pre-norm decoder block: attention then a SwiGLU MLP, or the
+    mixture of experts (``cfg.moe_experts`` > 0).  ``forward`` returns the
+    block's output and its load-balance term (None for a dense block)."""
 
     def __init__(self, cfg: TransformerConfig, gen: torch.Generator, device) -> None:
         super().__init__()
@@ -131,13 +143,27 @@ class Block(nn.Module):
         self.wv = linear(E, KV * Dh)
         self.wo = linear(H * Dh, E)
         self.mlp_norm = nn.Parameter(torch.ones(E, device=device, dtype=pd))
-        self.w_gate = linear(E, Fd)
-        self.w_up = linear(E, Fd)
-        self.w_down = linear(Fd, E)
+        if cfg.moe_experts > 0:
+            # The JAX layout: router [E, X], stacked experts [X, E, F] / [X, F, E].
+            X = cfg.moe_experts
+            self.router = _normal((E, X), E, gen, device, pd)
+            self.w_gate = _normal((X, E, Fd), E, gen, device, pd)
+            self.w_up = _normal((X, E, Fd), E, gen, device, pd)
+            self.w_down = _normal((X, Fd, E), Fd, gen, device, pd)
+        else:
+            self.w_gate = linear(E, Fd)
+            self.w_up = linear(E, Fd)
+            self.w_down = linear(Fd, E)
         # The in-group mesh (parallelize); None: the whole model on one device.
         self.ftmesh = None
+        # A list to receive each MoE call's routing (moe_ffn's record), or None.
+        self.moe_record = None
+        # [T, k] expert choices the MoE takes instead of its router's
+        # (moe_ffn's route: another run's recorded gate_idx), or None.
+        self.moe_route = None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.cfg
         B, S, _ = x.shape
         Dh, dt = cfg.d_head, cfg.dtype
@@ -157,7 +183,13 @@ class Block(nn.Module):
         x = x + out(proj(self.wo, attn.transpose(1, 2).reshape(B, S, -1)))
 
         h = into(rms_norm(x, w(self.mlp_norm)))
-        return x + out(proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h)))
+        if cfg.moe_experts > 0:
+            y, aux = moe_ffn(h, w(self.router), w(self.w_gate), w(self.w_up), w(self.w_down),
+                             top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                             dtype=dt, ftmesh=self.ftmesh, record=self.moe_record,
+                             route=self.moe_route)
+            return x + y, aux
+        return x + out(proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h))), None
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -204,30 +236,42 @@ class Transformer(nn.Module):
         self.lm_head = _normal((E, V), E, gen, device, pd)
         self.ftmesh = None
 
-    def decoder(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> hidden states [B, S, E] (before the final norm)."""
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> embeddings [B, S, E] in cfg.dtype."""
         w, _, out = _mesh_ops(self.ftmesh)
         table = w(self.embed.weight).to(self.cfg.dtype)
         if _tensor_group(self.ftmesh) is None:
-            x = table[tokens]
-        else:
-            # Vocab-parallel lookup: rows outside this rank's slice are zero.
-            lo, n = self.ftmesh.coordinate("tensor") * table.shape[0], table.shape[0]
-            local = tokens - lo
-            mine = (local >= 0) & (local < n)
-            x = out(table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype))
+            return table[tokens]
+        # Vocab-parallel lookup: rows outside this rank's slice are zero.
+        lo, n = self.ftmesh.coordinate("tensor") * table.shape[0], table.shape[0]
+        local = tokens - lo
+        mine = (local >= 0) & (local < n)
+        return out(table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype))
+
+    def decoder_with_aux(self, tokens: torch.Tensor
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """tokens [B, S] -> (hidden states [B, S, E] before the final norm,
+        the load-balance terms summed over the layers; None if dense)."""
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux_total = None
         for layer in self.layers:
             if remat:
                 # One checkpoint a block: its forward runs again in the
                 # backward.  A block draws no random numbers, so the RNG
                 # state is not saved and restored around it.
-                x = checkpoint(layer, x, positions, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(layer, x, positions, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = layer(x, positions)
-        return x
+                x, aux = layer(x, positions)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, aux_total
+
+    def decoder(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B, S] -> hidden states [B, S, E] (before the final norm)."""
+        return self.decoder_with_aux(tokens)[0]
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B, S] -> f32 logits [B, S, V]."""
@@ -260,8 +304,11 @@ class Transformer(nn.Module):
         return token_cross_entropy(logits, targets)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Next-token CE; batch: {"tokens": [B, S], "targets": [B, S]}."""
-        return self.lm_head_loss(self.decoder(batch["tokens"]), batch["targets"])
+        """Next-token CE; batch: {"tokens": [B, S], "targets": [B, S]}.  A
+        mixture-of-experts model adds moe_aux_coef x its load-balance term."""
+        x, aux = self.decoder_with_aux(batch["tokens"])
+        ce = self.lm_head_loss(x, batch["targets"])
+        return ce if aux is None else ce + self.cfg.moe_aux_coef * aux
 
 
 def token_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -314,6 +361,16 @@ def param_axes(cfg: TransformerConfig) -> Dict[str, Tuple[Optional[str], ...]]:
         "final_norm": ("embed",),
         "lm_head": ("embed", "vocab"),
     }
+    if cfg.moe_experts > 0:
+        # The stacked experts keep the JAX layout (no transpose).
+        for k in ("w_gate.weight", "w_up.weight", "w_down.weight"):
+            del layer[k]
+        layer.update({
+            "router": ("embed", "expert"),
+            "w_gate": ("expert", "embed", "mlp"),
+            "w_up": ("expert", "embed", "mlp"),
+            "w_down": ("expert", "mlp", "embed"),
+        })
     for i in range(cfg.n_layers):
         axes.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     return axes
@@ -324,7 +381,9 @@ def parallelize(model: Transformer, ftmesh: Any) -> Transformer:
     DTensors placed by :func:`param_axes` and the mesh's rules (every rank
     built the same weights from one seed), and the forward computes each
     rank's share (module docstring).  Feed each rank its slice of the
-    group's batch (``ftmesh.batch_shard``).  In place; returns ``model``."""
+    group's batch (``ftmesh.batch_shard``).  In place; returns ``model``.
+    A mixture-of-experts model composes with "data", "fsdp" and "expert";
+    over "tensor" above 1 it raises ``NotImplementedError``."""
     if ftmesh.mesh is None:
         return model
     cfg = model.cfg
@@ -333,6 +392,13 @@ def parallelize(model: Transformer, ftmesh: Any) -> Transformer:
                     ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"{what} {n} does not divide over tensor {tp}")
+    if cfg.moe_experts > 0:
+        if tp > 1:
+            raise NotImplementedError("the mixture of experts over a 'tensor' axis above 1 is "
+                                      "not ported yet (ROADMAP Q1.4 (a))")
+        if cfg.moe_experts % ftmesh.size("expert"):
+            raise ValueError(f"moe_experts {cfg.moe_experts} does not divide over expert "
+                             f"{ftmesh.size('expert')}")
     ftmesh.shard_params(model, param_axes(cfg))
     model.ftmesh = ftmesh
     for layer in model.layers:

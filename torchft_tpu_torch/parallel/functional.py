@@ -14,10 +14,20 @@ from sharding annotations in the JAX package.
   f32) and passes the gradient through.
 - :func:`gather_from`: concatenates the ranks' slices of the last dim; the
   gradient keeps this rank's slice.
+- :func:`all_sum`: the sum over the group with the sum's own adjoint (a sum
+  of the gradients): statistics every rank of a batch axis uses whole, such
+  as the mixture of experts' load-balance means over the group's batch.
+- :func:`ring_hop`: ``lax.ppermute`` over a ring, each rank's tensor to the
+  rank ``shift`` on; the gradient takes the inverse hop.  The pipeline's
+  stage-to-stage link (``parallel/pipeline.py``); :func:`ring_shift` is the
+  same hop without a gradient.
 
 Every collective is a blocking ``torch.distributed`` call on plain tensors,
 on whatever backend the group has (NCCL on separate cards, gloo where ranks
-share one).  Gradient sums and averages run in the gradient's dtype.
+share one).  Gradient sums and averages run in the gradient's dtype.  The
+ring hop's point-to-point calls take CUDA tensors over NCCL; over gloo a
+CUDA tensor is staged through host memory by hand (gloo's point-to-point
+calls read host memory), never by a fallback that hides which path ran.
 """
 
 from __future__ import annotations
@@ -25,8 +35,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_cat", "average_grad", "copy_to", "gather_from", "gather_shards",
-           "reduce_from"]
+__all__ = ["all_gather_cat", "all_sum", "average_grad", "copy_to", "gather_from",
+           "gather_shards", "reduce_from", "ring_hop", "ring_shift"]
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -99,6 +109,51 @@ class _GatherFrom(torch.autograd.Function):
         return grad.chunk(n, dim=-1)[r].contiguous(), None
 
 
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum(grad, ctx.group), None
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return ring_shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ring_shift(grad, ctx.group, -ctx.shift), None, None
+
+
+def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Sends ``x`` to the rank ``shift`` on in the group's ring and returns
+    what the rank ``shift`` back sent (every rank calls it; no gradient)."""
+    n = dist.get_world_size(group)
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    r = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (r + shift) % n)
+    src = dist.get_global_rank(group, (r - shift) % n)
+    send = x.detach().contiguous()
+    # gloo's send and recv take host memory only (a CUDA tensor fails with
+    # "Bad address"): stage it through the host.
+    staged = send.is_cuda and dist.get_backend(group) == "gloo"
+    if staged:
+        send = send.to("cpu")
+    recv = torch.empty_like(send)
+    works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
+                                    dist.P2POp(dist.irecv, recv, src, group)])
+    for w in works:
+        w.wait()
+    return recv.to(x.device) if staged else recv
+
+
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group's ranks, accumulated in f32 (a bf16 partial
     product is summed as the unsharded matmul accumulates it)."""
@@ -125,3 +180,11 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherFrom.apply(x, group)
+
+
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return _AllSum.apply(x, group)
+
+
+def ring_hop(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    return _RingHop.apply(x, group, shift)

@@ -15,10 +15,9 @@ device (``WORLD_SIZE`` local ranks, each with its own Manager), so:
     averages its own local shards through its own ring (the Manager keys
     its ring by local rank).
 
-This slice supports "data", "fsdp" and "tensor".  The "sequence",
-"expert" and "pipeline" axes are accepted at size 1 only: ring attention,
-Ulysses, the mixture of experts and the pipeline that would use them are
-ROADMAP Q1.4.
+This port supports "data", "fsdp", "tensor", "expert" and "pipeline".  The
+"sequence" axis is accepted at size 1 only: ring attention and Ulysses,
+which would use it, are ROADMAP Q1.4 (b).
 
 How the model computes over the mesh (``models/transformer.py``
 ``parallelize``): "data" and "fsdp" split the group's batch, each rank
@@ -27,7 +26,12 @@ over either is all-gathered for its use and its gradient reduce-scattered
 and averaged (:func:`~.functional.gather_shards`), and one replicated over
 either has its gradient averaged.  "tensor" keeps each rank's slice of the
 heads, the MLP and the vocabulary (Megatron-style, with the sums placed by
-:mod:`.functional`).
+:mod:`.functional`).  "expert" keeps each rank's slice of the stacked
+experts (``models/moe.py``): the batch is replicated over it and the
+combine's partial outputs are summed over it.  "pipeline" holds no
+parameter dim: each stage keeps its own layer modules
+(``parallel/pipeline.py`` ``pipeline_stage``) and its other parameters are
+replicated over it.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ __all__ = ["FTMesh", "INTRA_GROUP_AXES", "REPLICA_AXIS", "ft_init_mesh"]
 # Axis names understood by the default sharding rules.
 INTRA_GROUP_AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 REPLICA_AXIS = "replica"
-# The axes this port computes over; the rest are ROADMAP Q1.4's.
-SUPPORTED_AXES = ("data", "fsdp", "tensor")
+# The axes this port computes over; "sequence" is ROADMAP Q1.4 (b)'s.
+SUPPORTED_AXES = ("data", "fsdp", "tensor", "expert", "pipeline")
 BATCH_AXES = ("data", "fsdp")
 
 
@@ -168,8 +172,9 @@ class FTMesh:
         DTensor's local shard, all-gathered over the batch axes it is
         sharded on (its gradient reduce-scattered and averaged there), its
         gradient averaged over the batch axes it is replicated on, and kept
-        as this rank's slice over "tensor".  A plain tensor is returned as
-        it is."""
+        as this rank's slice over "tensor" and "expert".  Over "pipeline"
+        it is replicated (a stage's layers are its own modules).  A plain
+        tensor is returned as it is."""
         from torch.distributed.tensor import DTensor
 
         if not isinstance(p, DTensor):
@@ -211,8 +216,8 @@ def ft_init_mesh(
 
     The "replica" axis, if present, is ignored for placement: it is the
     cross-group dimension the Manager handles.  An unknown axis raises
-    ``ValueError``; "sequence", "expert" or "pipeline" above size 1 raises
-    ``NotImplementedError`` (ROADMAP Q1.4).  A one-rank mesh outside
+    ``ValueError``; "sequence" above size 1 raises ``NotImplementedError``
+    (ROADMAP Q1.4 (b)).  A one-rank mesh outside
     ``torch.distributed`` has no DeviceMesh (``FTMesh.mesh`` None)."""
     import torch.distributed as dist
 
@@ -223,8 +228,8 @@ def ft_init_mesh(
     for name, n in sizes.items():
         if name not in SUPPORTED_AXES and n > 1:
             raise NotImplementedError(
-                f"mesh axis {name!r} of size {n}: its consumers (ring attention, Ulysses, "
-                "the mixture of experts, the pipeline) are not ported yet (ROADMAP Q1.4)")
+                f"mesh axis {name!r} of size {n}: its consumers (ring attention, Ulysses) "
+                "are not ported yet (ROADMAP Q1.4 (b))")
     n = math.prod(sizes.values()) if sizes else 1
     rules = rules or ShardingRules()
     if not (dist.is_available() and dist.is_initialized()):

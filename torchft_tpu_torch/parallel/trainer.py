@@ -125,16 +125,23 @@ class TrainStep:
             keeps no statistics (an out-of-memory error is loud, a silently
             serialized vote is not).  The choice sticks.  Pass True or
             False to force it.
+        value_and_grad_fn: (model, batch) -> scalar loss, the gradients
+            left in ``param.grad``: for a loss that runs its own backward,
+            the 1F1B pipeline's (``parallel.pipeline``).  Exactly one of
+            ``loss_fn`` and ``value_and_grad_fn``.
     """
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor]
+    loss_fn: Optional[Callable[[torch.nn.Module, Any], torch.Tensor]] = None
     manager: Optional[Manager] = None
     bucket_bytes: int = 25 << 20
     overlap_commit: Optional[bool] = None
+    value_and_grad_fn: Optional[Callable[[torch.nn.Module, Any], torch.Tensor]] = None
 
     def __post_init__(self) -> None:
+        if (self.loss_fn is None) == (self.value_and_grad_fn is None):
+            raise ValueError("TrainStep needs exactly one of loss_fn / value_and_grad_fn")
         self._averager: Optional[GradientAverager] = None
         self._overlap_resolved: Optional[bool] = self.overlap_commit
         # What decided overlap_commit=None: the extra bytes, the device's
@@ -153,6 +160,8 @@ class TrainStep:
     def grads(self, batch: Any) -> torch.Tensor:
         """Forward and backward; leaves the gradients in ``param.grad``."""
         self.optimizer.zero_grad(set_to_none=True)
+        if self.value_and_grad_fn is not None:
+            return self.value_and_grad_fn(self.model, batch).detach()
         loss = self.loss_fn(self.model, batch)
         loss.backward()
         return loss.detach()

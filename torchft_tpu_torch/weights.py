@@ -5,7 +5,8 @@ per-layer weights stacked along a leading L axis and matrices in the
 ``[in, out]`` layout; the port's :class:`Transformer` keeps one module per
 layer and ``nn.Linear`` weights in ``[out, in]``.  :func:`params_from_jax`
 maps the former (as numpy arrays) onto the latter's state dict, so both
-packages can run from identical weights; :func:`convnet_params_from_jax`
+packages can run from identical weights (a pipeline stage's slice of the
+layers too); :func:`convnet_params_from_jax`
 does the same for the example's conv net.  :func:`load_params` copies such
 a state dict into a model, each DTensor parameter of a sharded model
 (``models.parallelize``) taking its rank's local shard.
@@ -13,33 +14,41 @@ a state dict into a model, each DTensor parameter of a sharded model
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 _LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _NORMS = ("attn_norm", "mlp_norm")
+_EXPERTS = ("router", "w_gate", "w_up", "w_down")
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Dict[str, Any], layers: Optional[Sequence[int]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """State dict of :class:`~torchft_tpu_torch.models.Transformer` from the
-    JAX ``init_params`` tree of numpy arrays (dense models)."""
+    JAX ``init_params`` tree of numpy arrays.  A mixture-of-experts tree
+    (a ``router`` [L, E, X] and stacked experts [L, X, E, F] / [L, X, F,
+    E]) keeps its experts in the JAX layout.  ``layers``: only these global
+    layer indices, numbered from 0 in order (a pipeline stage's slice,
+    ``parallel/pipeline.py`` ``stage_layers``)."""
     def t(a: Any) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    layers = tree["layers"]
-    n_layers = np.asarray(layers["wq"]).shape[0]
+    stacked = tree["layers"]
+    moe = "router" in stacked
+    if layers is None:
+        layers = range(np.asarray(stacked["wq"]).shape[0])
     sd: Dict[str, torch.Tensor] = {
         "embed.weight": t(tree["embed"]),
         "final_norm": t(tree["final_norm"]),
         "lm_head": t(tree["lm_head"]),
     }
-    for i in range(n_layers):
-        for name in _NORMS:
-            sd[f"layers.{i}.{name}"] = t(np.asarray(layers[name])[i])
-        for name in _LINEARS:
-            sd[f"layers.{i}.{name}.weight"] = t(np.asarray(layers[name])[i].T)
+    for i, g in enumerate(layers):
+        for name in _NORMS + (_EXPERTS if moe else ()):
+            sd[f"layers.{i}.{name}"] = t(np.asarray(stacked[name])[g])
+        for name in _LINEARS[:4] if moe else _LINEARS:
+            sd[f"layers.{i}.{name}.weight"] = t(np.asarray(stacked[name])[g].T)
     return sd
 
 
