@@ -360,7 +360,26 @@ result):
    P17_KILL_AFTER merged commits: its ranks die with it, each restarted
    rank heals its own stage from group 0's same rank, and both groups end
    with one ``params_sha256``.
-18. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
+18. Long context on the flagship (its widths, depth and sequence, batch
+   P18_BATCH) over {sequence 2}.  (a): two local ranks on the card
+   (``chip_smoke.py --p18-rank``, over gloo) run ring attention
+   contiguous, ring attention zigzag and Ulysses against the same model
+   unsharded (flash) in rank 0, on the same weights and batches: in f32
+   (the plain path, batch P18_F32_BATCH) the loss within TOL_P18_F32_LOSS
+   and every gradient within TOL_P18_F32_GRAD of its tensor's max, and a
+   planted fault in each backend (the ring drops a block, the zigzag ropes
+   with contiguous positions, the exchange runs on the wrong dims) must
+   fail that check; in bf16 (the kernels, P18_PASSES passes) within
+   TOL_P18_LOSS and TOL_P18_GRAD; K1-K5 a rank a pass 12 / 12 / 12 / 1 / 1
+   under Ulysses and 0 / 0 / 0 / 1 / 1 under the ring; printed, forward
+   and backward ms, the peak and the bytes hopped or exchanged a rank a
+   step.  (b) ``train_ring --model flagship --layout zigzag``, two groups
+   of {sequence 2} under the launcher, group 1 SIGKILLed after
+   P18_KILL_AFTER merged commits: each restarted rank heals its own state
+   from group 0's same rank, and both groups end with one
+   ``params_sha256``.  (b) then (a) run from a thread beside phases 12-14,
+   whose lines say so.
+19. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
    and ``host_ms`` beside ``ms``, and its four shapes under ``shapes``;
    each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
@@ -370,7 +389,9 @@ result):
    steps with and without remat as ``launches_remat`` and
    ``launches_no_remat``, over phase 16's legs as ``launches_hsdp``, and
    over phase 17's as ``launches_moe``, ``launches_pipeline`` and
-   ``launches_train_pipeline``),
+   ``launches_train_pipeline``, and over phase 18's as ``launches_ring``
+   (contiguous and zigzag), ``launches_ulysses`` and
+   ``launches_train_ring``),
    the run's seconds, then
    the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -5194,13 +5215,16 @@ def hsdp_in_group(card: str) -> dict:
 
 
 def ranked_kill(phase: str, example: str, args: list, steps: int, cap: int, after: int,
-                timeout_s: float) -> dict:
+                timeout_s: float,
+                kernels: tuple = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "ce_lse",
+                                  "ce_dlogits")) -> dict:
     """A kill drive of an example whose groups are two local ranks each
     (``kill_and_heal``): group 1 SIGKILLed after ``after`` merged commits;
     its ranks must die with it and each restarted rank heal from group 0's
     same rank.  Returns the drive's result with each rank's heal spans and
     heal line and the launches the ranks logged; raises for ``phase`` if a
-    rank did not heal or a kernel never launched."""
+    rank did not heal or one of ``kernels`` (the example's path's) never
+    launched."""
     from torchft_tpu_torch.examples.kill_heal import kill_and_heal
 
     log_dir = tempfile.mkdtemp(prefix="tpuft_ranked_kill_")
@@ -5234,8 +5258,7 @@ def ranked_kill(phase: str, example: str, args: list, steps: int, cap: int, afte
     if sorted(healed) != [0, 1] or not all(heals[k] for k in (0, 1)):
         raise AssertionError(f"{phase}: not every rank of group 1 healed: {healed}, "
                              f"heal spans {heals}")
-    missing = [k for k in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "ce_lse", "ce_dlogits")
-               if launches.get(k, 0) == 0]
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"{phase}: no launch of {missing}")
     return {"final_step": r["final_step"], "params_sha256": r["params_sha256"],
@@ -5959,6 +5982,415 @@ def p17_phase(card: str, ranks: dict, kill: dict) -> dict:
     return out
 
 
+# Phase 18: long context on the flagship (12 layers, d_model 768, 6 x 128
+# heads, vocab 32000, seq 1024) over {sequence 2}: each rank holds 512
+# positions of every sequence.  (a) ring contiguous, ring zigzag and Ulysses
+# against the flagship unsharded (flash) in rank 0, on the same weights
+# and batch (zigzag's tokens and targets permuted on the host).
+P18_BACKENDS = (("ring", "ring", "contiguous"), ("zigzag", "ring", "zigzag"),
+                ("ulysses", "ulysses", "contiguous"))
+P18_BATCH = 16
+P18_PASSES = 2            # bf16 passes a backend, each held (the first a warm-up for its times)
+P18_F32_BATCH = 2         # the f32 pass's batch (the plain path materializes the scores)
+P18_RANK_TIMEOUT_S = 420.0
+# (b): train_ring --model flagship --layout zigzag, 2 groups x {sequence 2}
+# on the card; group 0's merged commits before group 1's SIGKILL, and the
+# steps both end merged past (the cap: phase 17 (c)'s).
+P18_KILL_AFTER = 3
+P18_KILL_STEPS = 8
+P18_KILL_CAP = 160
+P18_KILL_TIMEOUT_S = 360.0
+# Sharded against unsharded.  bf16 (the kernels): the ring's block products
+# round p to bf16 per block and merge in f32, the flash kernel per tile, so
+# the two agree to bf16 rounding: the loss within TOL_P18_LOSS of its value
+# and each gradient within TOL_P18_GRAD of its tensor's max.  f32 (the plain
+# path): the same sums reassociated, within TOL_P18_F32_*.  Each limit is at
+# most 10x the worst reading over the recorded runs on an H100 80GB HBM3 at
+# 700 W (PERF.md section 6, long context): bf16 loss 4.73e-6, gradient 3.62e-2;
+# f32 gradient 6.95e-6, and the f32 loss equal bit for bit in every run, so
+# held equal.  A planted fault in each backend (a dropped block, the zigzag
+# positions left contiguous, the exchange on the wrong dims) moved the f32
+# loss by 1.2e-4 to 1.6e-3 and a gradient by 1.7 of its max or more, and
+# must fail the f32 check.
+TOL_P18_LOSS = 4e-5
+TOL_P18_GRAD = 5e-2
+TOL_P18_F32_LOSS = 0.0
+TOL_P18_F32_GRAD = 5e-5
+
+
+def p18_config(backend: str, dtype):
+    """The flagship under one of P18_BACKENDS (``name`` "flash": unsharded)."""
+    import dataclasses
+
+    from torchft_tpu_torch.models import flagship_config
+
+    cfg = dataclasses.replace(flagship_config()[0], dtype=dtype)
+    for name, attention, layout in P18_BACKENDS:
+        if name == backend:
+            return dataclasses.replace(cfg, attention=attention, ring_layout=layout)
+    return cfg
+
+
+def _p18_shard(b: dict, cfg, ftmesh) -> dict:
+    """This rank's slice of each sequence of the group's batch (zigzag
+    order first under ring_layout "zigzag")."""
+    from torchft_tpu_torch.data import shard_sequence
+    from torchft_tpu_torch.ops.ring_attention import to_zigzag
+
+    n = ftmesh.size("sequence")
+    if cfg.attention == "ring" and cfg.ring_layout == "zigzag":
+        b = {k: to_zigzag(v, n, dim=1) for k, v in b.items()}
+    return {k: shard_sequence(v, ftmesh.coordinate("sequence"), n) for k, v in b.items()}
+
+
+def _wire_bytes(counter: dict):
+    """Counts the bytes each ring hop and each exchange hands to gloo in
+    this process (``counter["hop"]``, ``counter["exchange"]``) while on;
+    returns the restore function."""
+    import torchft_tpu_torch.ops.ring_attention as ra
+    from torchft_tpu_torch.parallel import functional
+
+    hop, exchange = ra.ring_shift, functional.exchange
+
+    def counted_hop(x, group, shift=1):
+        counter["hop"] += x.numel() * x.element_size()
+        return hop(x, group, shift)
+
+    def counted_exchange(x, split_dim, concat_dim, group):
+        counter["exchange"] += x.numel() * x.element_size()
+        return exchange(x, split_dim, concat_dim, group)
+
+    ra.ring_shift, functional.exchange = counted_hop, counted_exchange
+
+    def restore():
+        ra.ring_shift, functional.exchange = hop, exchange
+    return restore
+
+
+def _p18_pass(model, b: dict, ftmesh) -> dict:
+    """One forward and backward of the sharded ``model`` on this rank's
+    slice of ``b``: loss, gradients, forward and backward ms (CUDA events),
+    the launches, the peak and the bytes hopped and exchanged."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    mine = _p18_shard(b, model.cfg, ftmesh)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    counter = {"hop": 0, "exchange": 0}
+    restore = _wire_bytes(counter)
+    try:
+        reset_launch_counts()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        loss = model.loss(mine)
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        events[2].synchronize()
+    finally:
+        restore()
+    return {"loss": loss.item(), "fwd_ms": events[0].elapsed_time(events[1]),
+            "bwd_ms": events[1].elapsed_time(events[2]), "launches": launch_counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "bytes": dict(counter),
+            "grads": {n: ftmesh.full_tensor(p.grad) for n, p in model.named_parameters()}}
+
+
+def _p18_errs(rec: dict, ref: dict) -> dict:
+    errs = _grad_errs(rec.pop("grads"), ref["grads"])
+    worst = max(errs, key=errs.get)
+    rec.update(loss_err=abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]), grad_err=errs[worst],
+               worst_grad=worst)
+    return rec
+
+
+def p18_check(what: str, rec: dict, tol_loss: float, tol_grad: float) -> None:
+    """Raises unless ``rec``'s loss is finite and within ``tol_loss`` of the
+    unsharded one and its worst gradient within ``tol_grad`` of its max."""
+    if not math.isfinite(rec["loss"]) or rec["loss_err"] > tol_loss:
+        raise AssertionError(f"phase 18 (a) {what}: loss {rec['loss']} against the unsharded: "
+                             f"{rec['loss_err']:.3e} > {tol_loss}")
+    if rec["grad_err"] > tol_grad:
+        raise AssertionError(f"phase 18 (a) {what}: gradient {rec['worst_grad']} differs from "
+                             f"the unsharded by {rec['grad_err']:.3e} of its max > {tol_grad}")
+
+
+def _p18_faults() -> dict:
+    """Each backend's planted fault, as (patch, restore): the ring drops
+    each off-diagonal block (on rank 1 of 2, the block of rank 0's keys),
+    the zigzag ropes with contiguous positions, the exchange swaps the head
+    dim with itself instead of the sequence dim."""
+    import dataclasses
+
+    import torchft_tpu_torch.models.transformer as tr
+    import torchft_tpu_torch.ops.ring_attention as ra
+    import torchft_tpu_torch.ops.ulysses as ul
+
+    block, positions, exchange = ra._block_attn, tr._positions, ul.all_to_all
+
+    def dropped(q, k, v, scale, row0, col0, causal):
+        if row0 != col0:
+            return ra._neutral(q)
+        return block(q, k, v, scale, row0, col0, causal)
+
+    def contiguous(cfg, ftmesh, s_local, device):
+        return positions(dataclasses.replace(cfg, ring_layout="contiguous"), ftmesh, s_local,
+                         device)
+
+    def wrong_dims(x, split_dim, concat_dim, group):
+        return exchange(x, 1, 1, group)
+
+    def setter(mod, name, fn, real):
+        return (lambda: setattr(mod, name, fn)), (lambda: setattr(mod, name, real))
+
+    return {"ring": setter(ra, "_block_attn", dropped, block),
+            "zigzag": setter(tr, "_positions", contiguous, positions),
+            "ulysses": setter(ul, "all_to_all", wrong_dims, exchange)}
+
+
+def ring_leg(rank: int, dev) -> dict:
+    """Phase 18 (a) in this rank: each backend of P18_BACKENDS over {sequence
+    2} against the flagship unsharded, which rank 0 computes on the same
+    weights and batches: in f32 (the plain path, batch P18_F32_BATCH, then
+    each backend's planted fault) and in bf16 (the kernels, batch
+    P18_BATCH, P18_PASSES passes)."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import Transformer, parallelize
+    from torchft_tpu_torch.parallel import ft_init_mesh
+
+    seq = p18_config("flash", torch.float32).max_seq
+    ftmesh = ft_init_mesh({"sequence": dist.get_world_size()}, device_type="cuda")
+    faults = _p18_faults()
+    out = {}
+
+    def build(cfg):
+        return Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(18))
+
+    for dtype, batch, passes in ((torch.float32, P18_F32_BATCH, 1),
+                                 (torch.bfloat16, P18_BATCH, P18_PASSES)):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        batches = [_hsdp_batch(p18_config("flash", dtype), batch, seq, 1800 + s, dev)
+                   for s in range(passes)]
+        refs = []
+        if rank == 0:
+            ref = build(p18_config("flash", dtype))
+            for b in batches:
+                ref.zero_grad(set_to_none=True)
+                loss = ref.loss(b)
+                loss.backward()
+                refs.append({"loss": loss.item(),
+                             "grads": {n: p.grad for n, p in ref.named_parameters()}})
+            del ref
+        for name, _, _ in P18_BACKENDS:
+            model = parallelize(build(p18_config(name, dtype)), ftmesh)
+            recs = []
+            for s, b in enumerate(batches):
+                rec = _p18_pass(model, b, ftmesh)
+                recs.append(_p18_errs(rec, refs[s]) if refs else
+                            {k: v for k, v in rec.items() if k != "grads"})
+            if dtype == torch.float32:
+                patch, restore = faults[name]
+                patch()
+                try:
+                    rec = _p18_pass(model, batches[0], ftmesh)
+                finally:
+                    restore()
+                fault = _p18_errs(rec, refs[0]) if refs else None
+                out.setdefault("faults", {})[name] = fault and {
+                    k: fault[k] for k in ("loss", "loss_err", "grad_err", "worst_grad")}
+            out.setdefault(key, {})[name] = recs
+            del model
+            torch.cuda.empty_cache()
+        out[key]["ref_losses"] = [r["loss"] for r in refs]
+        out[key]["batch"] = batch
+        del refs
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_p18_rank(args: argparse.Namespace) -> None:
+    """One local rank of phase 18 (a): the group's world over gloo through
+    the slice bootstrap (the ranks share the card), then :func:`ring_leg`;
+    the result goes to the run directory."""
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.multihost import initialize_slice
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_slice(backend="gloo")
+    out = ring_leg(args.p18_rank, dev)
+    with open(os.path.join(args.run_dir, f"rank{args.p18_rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def p18_ranks(card: str) -> dict:
+    """Phase 18 (a): two local ranks on the card, spawned as ``chip_smoke.py
+    --p18-rank r``, rendezvous through a Store; returns their records and
+    their wall time."""
+    from torchft_tpu_torch.coordination import StoreServer
+
+    run_dir = tempfile.mkdtemp(prefix="tpuft_p18_")
+    store = StoreServer(bind="127.0.0.1:0")
+    procs = []
+    t0 = time.monotonic()
+    try:
+        env = dict(os.environ, TPUFT_NUM_HOSTS="2", TPUFT_STORE=store.address(),
+                   TPUFT_COORD_PORT=str(free_port()), MASTER_ADDR="127.0.0.1")
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--p18-rank", str(r),
+                 "--run-dir", run_dir], env=dict(env, TPUFT_HOST_RANK=str(r)), cwd=HERE))
+        deadline = t0 + P18_RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"phase 18: the ranks ran past {P18_RANK_TIMEOUT_S} s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                raise AssertionError(f"phase 18: a rank failed: {[p.poll() for p in procs]}")
+            time.sleep(0.1)
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"phase 18: a rank failed: {[p.returncode for p in procs]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.shutdown()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return {"ranks": ranks, "wall_s": time.monotonic() - t0}
+
+
+def p18_checks(card: str, ranks: list) -> dict:
+    """Prints (a)'s numbers a backend, then holds them: K1-K5 12 / 12 / 12 /
+    1 / 1 a rank a bf16 pass under Ulysses and 0 / 0 / 0 / 1 / 1 under the
+    ring, none in f32; the ranks' losses equal; the f32 and bf16 losses
+    and gradients against the unsharded (TOL_P18_*); each planted fault
+    failing its backend's f32 check."""
+    from torchft_tpu_torch.models import flagship_config
+
+    L = flagship_config()[0].n_layers
+    head = ranks[0]
+    out = {"launches": {}}
+    for name, _, _ in P18_BACKENDS:
+        flash = L if name == "ulysses" else 0
+        want = {"flash_fwd": flash, "flash_bwd_dkdv": flash, "flash_bwd_dq": flash, "ce_lse": 1,
+                "ce_dlogits": 1}
+        launches = collections.Counter()
+        for r, rank in enumerate(ranks):
+            for s, rec in enumerate(rank["bf16"][name]):
+                launches.update(rec["launches"])
+                if _kernel_counts(rec["launches"]) != want:
+                    raise AssertionError(f"phase 18 (a) {name} rank {r} pass {s} launched "
+                                         f"{_kernel_counts(rec['launches'])}, expected {want}")
+            if any(rank["f32"][name][0]["launches"].get(k, 0) for k in want):
+                raise AssertionError(f"phase 18 (a) {name} rank {r}: the f32 pass launched "
+                                     f"{rank['f32'][name][0]['launches']}, expected the plain path")
+            for key in ("f32", "bf16"):
+                if [x["loss"] for x in rank[key][name]] != [x["loss"] for x in head[key][name]]:
+                    raise AssertionError(f"phase 18 (a) {name} {key}: the ranks' losses differ")
+        f32, bf16 = head["f32"][name][0], head["bf16"][name]
+        fault = head["faults"][name]
+        o = out[name] = {
+            "f32": {k: f32[k] for k in ("loss", "loss_err", "grad_err", "worst_grad")},
+            "bf16": {k: [x[k] for x in bf16] for k in ("loss", "loss_err", "grad_err",
+                                                          "worst_grad")},
+            "fwd_ms": [[x["fwd_ms"] for x in rank["bf16"][name]] for rank in ranks],
+            "bwd_ms": [[x["bwd_ms"] for x in rank["bf16"][name]] for rank in ranks],
+            "peak_bytes": [max(x["peak_bytes"] for x in rank["bf16"][name]) for rank in ranks],
+            "bytes": [rank["bf16"][name][-1]["bytes"] for rank in ranks],
+            "fault": fault, "launches": dict(launches)}
+        out["launches"][name] = dict(launches)
+        print(f"  (a) {name} over sequence 2: f32 (plain path, batch {head['f32']['batch']}) loss "
+              f"{f32['loss']:.7f} against unsharded {head['f32']['ref_losses'][0]:.7f} "
+              f"({f32['loss_err']:.2e} of it, allowed {TOL_P18_F32_LOSS}), gradients within "
+              f"{f32['grad_err']:.2e} of each max (allowed {TOL_P18_F32_GRAD}; the worst "
+              f"{f32['worst_grad']}); planted fault: loss {fault['loss_err']:.2e}, gradient "
+              f"{fault['grad_err']:.2e}; bf16 (the kernels, batch {head['bf16']['batch']}) losses "
+              f"{', '.join(f'{x:.6f}' for x in o['bf16']['loss'])} against unsharded "
+              f"{', '.join(f'{x:.6f}' for x in head['bf16']['ref_losses'])} (worst "
+              f"{max(o['bf16']['loss_err']):.2e}, allowed {TOL_P18_LOSS}), gradients within "
+              f"{max(o['bf16']['grad_err']):.2e} of each max (allowed {TOL_P18_GRAD}; the worst "
+              f"{o['bf16']['worst_grad']}); forward ms a rank "
+              f"{[[round(x, 2) for x in ms] for ms in o['fwd_ms']]}, backward "
+              f"{[[round(x, 2) for x in ms] for ms in o['bwd_ms']]} (CUDA events, the ranks sharing "
+              f"the card, the first a warm-up); peak "
+              f"{[round(p / 2**30, 3) for p in o['peak_bytes']]} GiB a rank (rank 0 also held the "
+              f"unsharded model's gradients); bytes a rank a step {o['bytes']}; launches a rank a "
+              f"pass {_kernel_counts(bf16[-1]['launches'])} ({card})", flush=True)
+        p18_check(f"{name} f32", f32, TOL_P18_F32_LOSS, TOL_P18_F32_GRAD)
+        for s in range(P18_PASSES):
+            p18_check(f"{name} bf16 pass {s}", bf16[s], TOL_P18_LOSS, TOL_P18_GRAD)
+        try:
+            p18_check(f"{name} planted fault", dict(fault), TOL_P18_F32_LOSS, TOL_P18_F32_GRAD)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"phase 18 (a) {name}: the planted fault passed the f32 check "
+                                 f"(loss {fault['loss_err']:.3e}, gradient "
+                                 f"{fault['grad_err']:.3e})")
+    return out
+
+
+def p18_kill(card: str) -> dict:
+    """Phase 18 (b): train_ring --model flagship --layout zigzag under the
+    launcher, two groups of {sequence 2} (gloo on the shared card), group 1
+    SIGKILLed after P18_KILL_AFTER merged commits: its ranks die with it,
+    each restarted rank heals its own state over HTTP from group 0's same
+    rank, and both groups end with one params_sha256.  The ring runs no
+    flash kernel: K4 and K5 must launch."""
+    out = ranked_kill("phase 18 (b)", "train_ring",
+                      ["--model", "flagship", "--devices", "2", "--sequence", "2", "--layout",
+                       "zigzag", "--batch", str(P18_BATCH)],
+                      P18_KILL_STEPS, P18_KILL_CAP, P18_KILL_AFTER, P18_KILL_TIMEOUT_S,
+                      kernels=("ce_lse", "ce_dlogits"))
+    print(f"  (b) train_ring zigzag, 2 groups x sequence 2, group 1 SIGKILLed: its ranks "
+          f"{out['killed_rank_pids']} gone; each rank healed its state (heal span ms "
+          f"{out['heal_ms']}; fetched { {k: (v['bytes'], v['fetch_s']) for k, v in out['healed'].items()} } "
+          f"bytes, s); kill -> first merged commit {out['recovery_s']:.3f} s; merged step "
+          f"{out['merged_step_ms']:.1f} ms, solo {out['solo_step_ms'] or 0:.1f} ms (group 0's "
+          f"rank 0, host clock); both groups end at step {out['final_step']} with params_sha256 "
+          f"{out['params_sha256'][:16]}...; launches {out['launches']} ({card})", flush=True)
+    return out
+
+
+def p18_legs(card: str) -> dict:
+    """Phase 18's legs, run from a side thread beside other phases: (b),
+    then (a)'s ranks."""
+    return {"kill": p18_kill(card), "a": p18_ranks(card)}
+
+
+def p18_phase(card: str, legs: dict) -> dict:
+    """Phase 18: holds (a)'s records and reads (b)'s result, both from
+    ``legs`` (:func:`p18_legs`, run earlier beside other phases)."""
+    t0 = time.monotonic()
+    out = p18_checks(card, legs["a"]["ranks"])
+    out["kill"] = legs["kill"]
+    out["ranks_s"] = legs["a"]["wall_s"]
+    print(f"  (a): {out['ranks_s']:.1f} s from the ranks' start to their results ({card})",
+          flush=True)
+    launches = {"ring": collections.Counter(), "ulysses": collections.Counter()}
+    for name, _, _ in P18_BACKENDS:
+        launches["ulysses" if name == "ulysses" else "ring"].update(out["launches"][name])
+    out["launches"] = {k: dict(v) for k, v in launches.items()}
+    out["phase_s"] = time.monotonic() - t0
+    out["card"] = card
+    print("LONG_CONTEXT " + json.dumps(out), flush=True)
+    print(f"  long-context phase: {out['phase_s']:.1f} s here ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     t_run = time.monotonic()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5974,6 +6406,7 @@ def main() -> int:
     parser.add_argument("--control-group", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--hsdp-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--p17-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--p18-rank", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -6007,6 +6440,9 @@ def main() -> int:
         return 0
     if args.p17_rank is not None:
         run_p17_rank(args)
+        return 0
+    if args.p18_rank is not None:
+        run_p18_rank(args)
         return 0
 
     # 1. Card.
@@ -6072,10 +6508,11 @@ def main() -> int:
 
     lap("5")
 
-    # Three legs run beside host-bound phases from a side thread, each with
+    # Four legs run beside host-bound phases from a side thread, each with
     # processes (and launch counts) of its own, joined at its phase's end
     # and read at its own phase: 16 (c) beside 7, 17 (c) beside 9 and 10,
-    # and 17 (a), (b) then 16 (a), (b), (d) beside 11.
+    # 17 (a), (b) then 16 (a), (b), (d) beside 11, and 18 (b) then (a)
+    # beside 12, 13 and 14.
     side_pool = ThreadPoolExecutor(max_workers=1)
     side = {}
 
@@ -6152,13 +6589,23 @@ def main() -> int:
 
         lap("11")
 
+        # Phase 18's legs, (b) then (a), beside phases 12-14 (bound by
+        # process starts, heals and the lighthouses' timeouts); each of
+        # those phases' lines names them.
+        p18 = side_pool.submit(p18_legs, card)
+        beside_18 = (f"{card}; taken beside phase 18 (b) and (a)'s processes (train_ring, 2 groups "
+                     f"x sequence 2, then 2 ranks over gloo)")
+        print("phase 18 (b) then (a) started beside phases 12, 13 and 14: train_ring --model "
+              "flagship --layout zigzag, 2 groups x sequence 2, under the launcher; then ring, "
+              "zigzag and Ulysses over sequence 2 against the flagship unsharded", flush=True)
+
         # 12. The elastic plane on the flagship.
         print(f"elastic: Launcher + 3 groups + 1 hot spare, flagship widths at {ELASTIC_LAYERS} "
               f"layers, elastic global batch "
               f"{ELASTIC_GLOBAL_BATCH} (microbatch {ELASTIC_MICROBATCH}); a cooperative drain, "
               f"then a SIGKILL, each handed to the spare, then a straggler rotated out by the "
               f"sentinel", flush=True)
-        elastic_launches = elastic_phase(card, {"heal": [heal_recovery["kill_b"],
+        elastic_launches = elastic_phase(beside_18, {"heal": [heal_recovery["kill_b"],
                                                          heal_recovery["kill_c"]],
                                                 "heal_beside": heal_recovery["beside"],
                                                 "kill_heal": kill_heal["recovery_s"]})
@@ -6171,7 +6618,7 @@ def main() -> int:
               f"{DURABLE_STEPS} steps, (b) the same stopped at {DURABLE_STEPS // 2} and resumed "
               f"from disk, (c) a lost group healed over CollectiveTransport, (d) a baby "
               f"collective's child SIGKILLed", flush=True)
-        durable_launches = durable_phase(card, heal_recovery["http_striped"])
+        durable_launches = durable_phase(beside_18, heal_recovery["http_striped"])
 
         lap("13")
 
@@ -6181,7 +6628,8 @@ def main() -> int:
               f"{CONTROL_KILL_AT} merged steps; "
               f"(b) a root + 2 region lighthouses, one group in each, {CONTROL_STEPS} steps",
               flush=True)
-        control_launches = control_phase(card)
+        control_launches = control_phase(beside_18)
+        p18_result = p18.result()
 
         lap("14")
 
@@ -6209,14 +6657,24 @@ def main() -> int:
               f"{PIPE_MEM_MICRO}; (c) train_pipeline --schedule 1f1b, 2 groups x pipeline 2, group 1 "
               f"SIGKILLed and healed stage by stage", flush=True)
         moe_pipe = p17_phase(card, ranks=side["p17"], kill=p17c_result)
+
+        lap("17")
+
+        # 18. Long context on the flagship.
+        print("long context: (a) ring contiguous, ring zigzag and Ulysses over sequence 2 "
+              "against the flagship unsharded, f32 then bf16, and a planted fault in each; (b) "
+              "train_ring --layout zigzag, 2 groups x sequence 2, group 1 SIGKILLed and healed "
+              "rank by rank", flush=True)
+        print("  (its legs ran beside phases 12-14)", flush=True)
+        long_context = p18_phase(card, p18_result)
     finally:
         if "p17" in side:
             _p17_stop(side["p17"])  # a phase between failed: no rank outlives the run
         side_pool.shutdown()  # a side drive ends by its own deadline and stops its processes
 
-    lap("17")
+    lap("18")
 
-    # 18. The kernels line, then the last line.
+    # 19. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -6240,6 +6698,9 @@ def main() -> int:
             "launches_moe": moe_pipe["moe"]["launches"].get(name, 0),
             "launches_pipeline": moe_pipe["pipe"]["launches"].get(name, 0),
             "launches_train_pipeline": moe_pipe["kill"]["launches"].get(name, 0),
+            "launches_ring": long_context["launches"]["ring"].get(name, 0),
+            "launches_ulysses": long_context["launches"]["ulysses"].get(name, 0),
+            "launches_train_ring": long_context["kill"]["launches"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -17,7 +17,7 @@ import torch
 import torch.distributed as dist
 
 from torch_port_ref import import_reference
-from torchft_tpu_torch.data import shard_batch
+from torchft_tpu_torch.data import shard_batch, shard_sequence
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models import Transformer, TransformerConfig, param_axes
 from torchft_tpu_torch.parallel import FTMesh, ShardingRules, ft_init_mesh, logical_sharding
@@ -143,14 +143,28 @@ def test_ftmesh_rejects_unknown_axis() -> None:
 
 @pytest.mark.parametrize("axis", ["sequence", "expert", "pipeline"])
 def test_q14_axes_above_one_raise(fake_world, axis) -> None:
-    """"sequence" above 1 still raises (ROADMAP Q1.4 (b)); "expert" and
-    "pipeline" are ported: a mesh over them places the experts' dim on
-    "expert" and keeps every parameter whole over "pipeline"."""
-    if axis == "sequence":
-        with pytest.raises(NotImplementedError, match="Q1.4"):
-            ft_init_mesh({"fsdp": 1, axis: 2}, device_type="cpu")
-        return
+    """The Q1.4 axes are ported and none raises any more: a mesh over
+    "expert" places the experts' dim on it; "pipeline" keeps every
+    parameter whole; "sequence" keeps every parameter whole, splits the
+    "seq" dim and not the batch, and averages each parameter's gradient over
+    it (on the fake group the all-reduce leaves the gradient as it is, so
+    the averages over "data" and "sequence" halve it twice)."""
     from torch.distributed.tensor import Replicate, Shard
+
+    if axis == "sequence":
+        fake_world(4, rank=3)
+        ftmesh = ft_init_mesh({"data": 2, axis: 2}, device_type="cpu")
+        assert ftmesh.coordinate(axis) == 1 and ftmesh.batch_shard() == (1, 2)
+        assert ftmesh.spec("batch", "seq") == ("data", "sequence")
+        cfg = TransformerConfig(**SMALL, dtype=torch.float32, attention="ring")
+        model = Transformer(cfg, device="cpu")
+        ftmesh.shard_params(model, param_axes(cfg))
+        for name, p in model.named_parameters():
+            assert p.placements == (Replicate(), Replicate()), name
+        w = model.layers[0].attn_norm
+        ftmesh.materialize(w).sum().backward()
+        assert torch.equal(w.grad.to_local(), torch.full_like(w.grad.to_local(), 0.25))
+        return
 
     fake_world(4, rank=3)  # data coordinate 1, axis coordinate 1
     ftmesh = ft_init_mesh({"data": 2, axis: 2}, device_type="cpu")
@@ -247,3 +261,24 @@ def test_shard_batch_equals_jax(n) -> None:
     for g, ng, r, nr in GRID:
         np.testing.assert_array_equal(shard_batch(idx, g, ng, r, nr),
                                       ref_data.shard_batch(idx, g, ng, r, nr))
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_shard_sequence_equals_jax_placement(ref, n) -> None:
+    """Each "sequence" rank's slice is the block the JAX package's
+    ``ftmesh.sharding("batch", "seq")`` places on the device at that
+    coordinate, for numpy and torch batches."""
+    import jax
+
+    ref_parallel = ref[1]
+    ftmesh = ref_parallel.ft_init_mesh({"sequence": n})
+    x = np.random.default_rng(n).integers(0, 512, size=(3, 64)).astype(np.int32)
+    placed = jax.device_put(x, ftmesh.sharding("batch", "seq"))
+    devices = list(ftmesh.mesh.devices.reshape(-1))
+    for shard in placed.addressable_shards:
+        s = devices.index(shard.device)
+        np.testing.assert_array_equal(shard_sequence(x, s, n), np.asarray(shard.data))
+        assert torch.equal(shard_sequence(torch.from_numpy(x), s, n),
+                           torch.from_numpy(np.asarray(shard.data)))
+    with pytest.raises(ValueError, match="does not divide"):
+        shard_sequence(x[:, :63], 0, n)

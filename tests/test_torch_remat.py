@@ -23,12 +23,11 @@ from torchft_tpu_torch.weights import params_from_jax
 
 SMALL = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1,
              d_ff=512, max_seq=256)
-# The JAX config's fields that the port does not have yet (ROADMAP Q1.4
-# (b): the ring and Ulysses attention backends), and those it leaves out by
-# design: scan_unroll unrolls the JAX model's lax.scan over the stacked
-# layers, and the port's eager blocks run as a Python loop, which has
-# nothing to unroll.
-NOT_YET_PORTED = ("attention", "ring_layout")
+# The JAX config's fields that the port does not have yet (none), and
+# those it leaves out by design: scan_unroll unrolls the JAX model's
+# lax.scan over the stacked layers, and the port's eager blocks run as a
+# Python loop, which has nothing to unroll.
+NOT_YET_PORTED = ()
 BY_DESIGN = ("scan_unroll",)
 
 

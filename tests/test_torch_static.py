@@ -104,24 +104,33 @@ def test_the_detect_and_act_plane_stands_alone() -> None:
 
 def test_the_in_group_modules_stand_alone() -> None:
     """The mesh, the rules, the in-group collectives, the slice bootstrap,
-    the pipeline, the mixture of experts and the HSDP and pipeline examples
-    are scanned and import nothing of JAX or the JAX package; their entry
-    points are exported."""
+    the pipeline, the mixture of experts, ring attention, Ulysses and the
+    HSDP, pipeline and ring examples are scanned and import nothing of JAX
+    or the JAX package; their entry points are exported."""
     scanned = set(_port_files())
     for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
                 "parallel/functional.py", "parallel/pipeline.py", "models/moe.py",
-                "multihost.py", "examples/train_hsdp.py", "examples/train_pipeline.py"):
+                "ops/ring_attention.py", "ops/ulysses.py", "multihost.py",
+                "examples/train_hsdp.py", "examples/train_pipeline.py",
+                "examples/train_ring.py"):
         path = os.path.join(REPO, "torchft_tpu_torch", rel)
         assert path in scanned, rel
         assert not set(_imported_roots(path)) & FORBIDDEN, rel
         assert "torchft_tpu." not in open(path).read().replace("torchft_tpu_torch", ""), rel
     from torchft_tpu_torch import models, multihost, parallel
+    from torchft_tpu_torch.ops import ring_attention, ulysses
+    from torchft_tpu_torch.parallel import functional
 
     assert {"FTMesh", "ft_init_mesh", "ShardingRules", "logical_sharding", "TrainStep",
             "pipeline_1f1b_value_and_grad", "pipeline_apply", "pipeline_apply_sharded",
             "pipeline_loss_fn", "pipeline_stage"} == set(parallel.__all__)
     assert {"SliceConfig", "slice_config_from_env", "initialize_slice"} == set(multihost.__all__)
     assert {"param_axes", "parallelize", "moe_ffn", "moe_capacity"} <= set(models.__all__)
+    assert {"ring_attention", "ring_attention_sharded", "zigzag_permutation",
+            "inverse_zigzag_permutation", "to_zigzag", "from_zigzag"} == set(ring_attention.__all__)
+    assert {"ulysses_attention", "ulysses_attention_sharded", "check_heads"} == set(
+        ulysses.__all__)
+    assert {"all_to_all", "ring_hop", "mean_value"} <= set(functional.__all__)
 
 
 def test_the_durable_state_and_isolation_modules_stand_alone() -> None:
@@ -145,7 +154,8 @@ def test_the_durable_state_and_isolation_modules_stand_alone() -> None:
 
     assert {"CollectiveTransport", "DiskCheckpointer", "ManagedDiskCheckpoint",
             "HTTPTransport", "CheckpointTransport"} == set(checkpointing.__all__)
-    assert set(data.__all__) == {"DistributedSampler", "StatefulDataLoader", "shard_batch"}
+    assert set(data.__all__) == {"DistributedSampler", "StatefulDataLoader", "shard_batch",
+                                 "shard_sequence"}
     assert set(baby.__all__) == {"MonitoredPipe", "BabyCollective", "BabyTCPCollective"}
     assert set(parameter_server.__all__) == {"ParameterServer", "TCPParameterServer"}
 

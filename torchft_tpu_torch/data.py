@@ -10,7 +10,10 @@ arguments.  Sharding is static per run: a group that leaves takes its
 shard's remaining samples with it.
 
 :func:`shard_batch` splits one batch's indices the same way, for a
-group's local ranks (``FTMesh.batch_shard``) or for synthetic streams.
+group's local ranks (``FTMesh.batch_shard``) or for synthetic streams;
+:func:`shard_sequence` splits each sequence of a rank's batch over the
+"sequence" axis, as the JAX package's ``ftmesh.sharding("batch", "seq")``
+places the "seq" dim.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-__all__ = ["DistributedSampler", "StatefulDataLoader", "shard_batch"]
+__all__ = ["DistributedSampler", "StatefulDataLoader", "shard_batch", "shard_sequence"]
 
 
 class DistributedSampler:
@@ -163,3 +166,15 @@ def shard_batch(
     global_rank = rank + num_replicas * replica_group
     global_ws = num_replicas * num_replica_groups
     return np.asarray(batch_indices)[global_rank::global_ws]
+
+
+def shard_sequence(batch, rank: int, count: int):
+    """This rank's contiguous slice of the sequence dim (dim 1) of ``batch``
+    ([B, S, ...], a numpy array or a torch tensor), the ``rank``-th of
+    ``count``: the "sequence" axis's share of a batch whose rows
+    :func:`shard_batch` chose.  The sequence must divide evenly."""
+    seq = batch.shape[1]
+    if seq % count:
+        raise ValueError(f"sequence length {seq} does not divide over {count} ranks")
+    width = seq // count
+    return batch[:, rank * width:(rank + 1) * width]

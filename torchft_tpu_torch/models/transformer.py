@@ -22,19 +22,28 @@ before the loss); under ``tensor`` > 1 the loss is a plain vocab-parallel
 cross-entropy (:func:`vocab_parallel_cross_entropy`), as the JAX package
 takes its plain loss under any mesh above one device.
 
+Over a "sequence" axis above 1 each rank holds a slice of every
+sequence and ``attention`` picks how attention crosses the slices: "ring"
+(``ops/ring_attention.py``, K/V rotated around the ring, in the
+``ring_layout`` "contiguous" or "zigzag") or "ulysses" (``ops/ulysses.py``,
+two all-to-alls around the flash kernels); rope takes each slot's global
+position, and the loss is each rank's mean over its own tokens, its value
+averaged over the axis (K4/K5 on each rank's rows).  Without such an axis
+"ring" and "ulysses" warn once and take flash, as in the JAX package.
+
 ``remat`` (on by default, as in the JAX package) recomputes each block in
 the backward through ``torch.utils.checkpoint``.  ``moe_experts`` > 0
 makes each block's MLP a mixture of experts (``models/moe.py``, the JAX
 ``moe_ffn``), its stacked experts placed over the "expert" axis, and the
 loss adds ``moe_aux_coef`` times the load-balance term summed over the
-layers.  The JAX config's ``attention`` and ``ring_layout`` are not ported
-yet (ROADMAP Q1.4 (b)), and ``scan_unroll`` has no eager counterpart: the
+layers.  The JAX config's ``scan_unroll`` has no eager counterpart: the
 blocks run as a Python loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -51,7 +60,14 @@ from torchft_tpu_torch.ops import (
     rms_norm,
 )
 from torchft_tpu_torch.models.moe import moe_ffn
-from torchft_tpu_torch.parallel.functional import copy_to, gather_from, reduce_from
+from torchft_tpu_torch.ops.ring_attention import ring_attention, zigzag_permutation
+from torchft_tpu_torch.ops.ulysses import check_heads, ulysses_attention
+from torchft_tpu_torch.parallel.functional import (
+    copy_to,
+    gather_from,
+    mean_value,
+    reduce_from,
+)
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -86,6 +102,24 @@ class TransformerConfig:
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01
+    # Attention over a "sequence" axis above 1: "ring" (K/V rotated around
+    # the axis) or "ulysses" (all-to-all head<->sequence resharding);
+    # "flash" runs on whole sequences.
+    attention: str = "flash"
+    # The ring's sequence layout: "contiguous" or "zigzag" (balanced causal
+    # work).  With "zigzag" the caller feeds tokens and targets permuted by
+    # ops.ring_attention.to_zigzag(..., n_shards=the "sequence" size); the
+    # model ropes with the original positions, and the mean loss does not
+    # change with the order.
+    ring_layout: str = "contiguous"
+
+    def __post_init__(self) -> None:
+        # The JAX config's asserts, raised outright (an assert goes under -O).
+        if self.attention not in ("flash", "ring", "ulysses"):
+            raise AssertionError(f"unknown attention backend {self.attention!r}; "
+                                 "expected 'flash', 'ring', or 'ulysses'")
+        if self.ring_layout not in ("contiguous", "zigzag"):
+            raise AssertionError(f"unknown ring_layout {self.ring_layout!r}")
 
     @property
     def d_head(self) -> int:
@@ -178,8 +212,7 @@ class Block(nn.Module):
         k = _rope(proj(self.wk, h).reshape(B, S, -1, Dh), positions, cfg.rope_theta)
         v = proj(self.wv, h).reshape(B, S, -1, Dh)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        attend = flash_attention if flash_applicable(q, k) else plain_attention
-        attn = attend(q, k, v, causal=True)
+        attn = _attend(cfg, self.ftmesh, q, k, v)
         x = x + out(proj(self.wo, attn.transpose(1, 2).reshape(B, S, -1)))
 
         h = into(rms_norm(x, w(self.mlp_norm)))
@@ -190,6 +223,59 @@ class Block(nn.Module):
                              route=self.moe_route)
             return x + y, aux
         return x + out(proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h))), None
+
+
+def _sequence_group(cfg: TransformerConfig, ftmesh: Any) -> Any:
+    """The "sequence" axis's group where ring or Ulysses attention engages
+    (the axis above 1); None otherwise."""
+    if cfg.attention == "flash" or ftmesh is None or ftmesh.size("sequence") == 1:
+        return None
+    return ftmesh.group("sequence")
+
+
+def _attend(cfg: TransformerConfig, ftmesh: Any, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """Causal attention of a rank's q/k/v [B, H|KV, S_local, Dh] (its heads
+    under "tensor"): the JAX ``_attention``'s choice of backend."""
+    group = _sequence_group(cfg, ftmesh)
+    if cfg.attention != "flash" and group is None:
+        warnings.warn(
+            f"attention={cfg.attention!r} requested but the mesh has no >1-sized 'sequence' "
+            "axis; falling back to single-shard flash attention", stacklevel=2)
+    if group is None:
+        attend = flash_attention if flash_applicable(q, k) else plain_attention
+        return attend(q, k, v, causal=True)
+    n, tp = ftmesh.size("sequence"), ftmesh.size("tensor")
+    if cfg.attention == "ring":
+        # The ring body needs equal q and kv head counts.
+        broadcast_gqa = cfg.n_kv_heads != cfg.n_heads
+    else:
+        # Ulysses keeps GQA compressed through the exchange unless the kv
+        # heads of a tensor shard do not tile the sequence axis.
+        broadcast_gqa = cfg.n_kv_heads != cfg.n_heads and (cfg.n_kv_heads // tp) % n != 0
+    kv_heads = cfg.n_kv_heads
+    if broadcast_gqa:
+        rep = cfg.n_heads // cfg.n_kv_heads
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+        kv_heads = cfg.n_heads
+    if cfg.attention == "ring":
+        return ring_attention(q, k, v, group, causal=True, layout=cfg.ring_layout)
+    check_heads(cfg.n_heads, kv_heads, tp, n)
+    return ulysses_attention(q, k, v, group, causal=True)
+
+
+def _positions(cfg: TransformerConfig, ftmesh: Any, s_local: int, device) -> torch.Tensor:
+    """The global rope positions of a rank's [S_local] slots: its shard of
+    0..S-1 over the "sequence" axis where ring or Ulysses engages, in the
+    zigzag order under ring_layout "zigzag" (the tokens arrive permuted)."""
+    if _sequence_group(cfg, ftmesh) is None:
+        return torch.arange(s_local, device=device)
+    n, idx = ftmesh.size("sequence"), ftmesh.coordinate("sequence")
+    if cfg.attention == "ring" and cfg.ring_layout == "zigzag":
+        pos = torch.from_numpy(zigzag_permutation(s_local * n, n)).to(device)
+    else:
+        pos = torch.arange(s_local * n, device=device)
+    return pos[idx * s_local:(idx + 1) * s_local]
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -253,7 +339,7 @@ class Transformer(nn.Module):
         """tokens [B, S] -> (hidden states [B, S, E] before the final norm,
         the load-balance terms summed over the layers; None if dense)."""
         x = self.embed_tokens(tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = _positions(self.cfg, self.ftmesh, tokens.shape[1], tokens.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         aux_total = None
         for layer in self.layers:
@@ -305,9 +391,14 @@ class Transformer(nn.Module):
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Next-token CE; batch: {"tokens": [B, S], "targets": [B, S]}.  A
-        mixture-of-experts model adds moe_aux_coef x its load-balance term."""
+        mixture-of-experts model adds moe_aux_coef x its load-balance term.
+        Over a "sequence" axis the value is the mean over the ranks' tokens,
+        the gradient this rank's own (``mean_value``)."""
         x, aux = self.decoder_with_aux(batch["tokens"])
         ce = self.lm_head_loss(x, batch["targets"])
+        group = _sequence_group(self.cfg, self.ftmesh)
+        if group is not None:
+            ce = mean_value(ce, group)
         return ce if aux is None else ce + self.cfg.moe_aux_coef * aux
 
 
@@ -381,13 +472,26 @@ def parallelize(model: Transformer, ftmesh: Any) -> Transformer:
     DTensors placed by :func:`param_axes` and the mesh's rules (every rank
     built the same weights from one seed), and the forward computes each
     rank's share (module docstring).  Feed each rank its slice of the
-    group's batch (``ftmesh.batch_shard``).  In place; returns ``model``.
-    A mixture-of-experts model composes with "data", "fsdp" and "expert";
-    over "tensor" above 1 it raises ``NotImplementedError``."""
+    group's batch (``ftmesh.batch_shard``), and over "sequence" its slice
+    of each sequence (``data.shard_sequence``).  In place; returns
+    ``model``.  A mixture-of-experts model composes with "data", "fsdp" and
+    "expert"; over "tensor" or "sequence" above 1 it raises
+    ``NotImplementedError``.  Over "sequence" above 1 attention must be
+    "ring" or "ulysses": "flash" would attend each rank's slice alone, and
+    raises ``ValueError``."""
     if ftmesh.mesh is None:
         return model
     cfg = model.cfg
     tp = ftmesh.size("tensor")
+    if ftmesh.size("sequence") > 1:
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "the mixture of experts over a 'sequence' axis above 1 is not ported yet "
+                "(ROADMAP Q1.4 (d)): moe_ffn routes over the group's batch, and its counts "
+                "would need the sequence axis too")
+        if cfg.attention == "flash":
+            raise ValueError("attention 'flash' over a 'sequence' axis above 1 attends each "
+                             "rank's slice alone; use attention='ring' or 'ulysses'")
     for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                     ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % tp:

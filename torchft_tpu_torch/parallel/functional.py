@@ -19,8 +19,16 @@ from sharding annotations in the JAX package.
   as the mixture of experts' load-balance means over the group's batch.
 - :func:`ring_hop`: ``lax.ppermute`` over a ring, each rank's tensor to the
   rank ``shift`` on; the gradient takes the inverse hop.  The pipeline's
-  stage-to-stage link (``parallel/pipeline.py``); :func:`ring_shift` is the
-  same hop without a gradient.
+  stage-to-stage link (``parallel/pipeline.py``) and ring attention's K/V
+  rotation (``ops/ring_attention.py``); :func:`ring_shift` is the same hop
+  without a gradient.
+- :func:`all_to_all`: ``lax.all_to_all(tiled=True)``: each rank's tensor
+  split along one dim, chunk ``i`` to rank ``i``, the chunks received
+  concatenated along another in rank order; the gradient takes the inverse
+  exchange.  Ulysses' head/sequence swap (``ops/ulysses.py``).
+- :func:`mean_value`: the group's mean as the value, this rank's own
+  gradient: a loss each rank computes over its own tokens, reported as the
+  group's (the parameters' gradients are then averaged over the group).
 
 Every collective is a blocking ``torch.distributed`` call on plain tensors,
 on whatever backend the group has (NCCL on separate cards, gloo where ranks
@@ -28,6 +36,8 @@ share one).  Gradient sums and averages run in the gradient's dtype.  The
 ring hop's point-to-point calls take CUDA tensors over NCCL; over gloo a
 CUDA tensor is staged through host memory by hand (gloo's point-to-point
 calls read host memory), never by a fallback that hides which path ran.
+The exchange runs gloo's all-to-all on CUDA tensors directly (it takes
+device memory, as its all-gather and all-reduce do).
 """
 
 from __future__ import annotations
@@ -35,8 +45,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_cat", "all_sum", "average_grad", "copy_to", "gather_from",
-           "gather_shards", "reduce_from", "ring_hop", "ring_shift"]
+__all__ = ["all_gather_cat", "all_sum", "all_to_all", "average_grad", "copy_to", "exchange",
+           "gather_from", "gather_shards", "mean_value", "reduce_from", "ring_hop", "ring_shift"]
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -154,6 +164,33 @@ def ring_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     return recv.to(x.device) if staged else recv
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return exchange(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return exchange(grad, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def exchange(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """``x`` split into the group's size of chunks along ``split_dim``,
+    chunk ``i`` sent to rank ``i``, and the chunks received concatenated
+    along ``concat_dim`` in rank order (every rank calls it; no gradient).
+    ``split_dim`` must divide evenly."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of shape {tuple(x.shape)} does not split over "
+                         f"{n} ranks")
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group's ranks, accumulated in f32 (a bf16 partial
     product is summed as the unsharded matmul accumulates it)."""
@@ -188,3 +225,15 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def ring_hop(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     return _RingHop.apply(x, group, shift)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+def mean_value(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s mean over the group as the value, with ``x``'s own gradient."""
+    mean = x.detach().clone()
+    dist.all_reduce(mean, group=group)
+    mean.div_(dist.get_world_size(group))
+    return x + (mean - x.detach())

@@ -4,7 +4,7 @@ The counterpart of ``torchft_tpu/parallel/mesh.py``.  In the JAX package
 one process drives a group's whole mesh; here a group is one process a
 device (``WORLD_SIZE`` local ranks, each with its own Manager), so:
 
-  - the *in-group* axes ("data", "fsdp", "tensor") form a
+  - the *in-group* axes (``INTRA_GROUP_AXES``) form a
     ``torch.distributed.device_mesh.DeviceMesh`` over the group's ranks
     (``torch.distributed`` initialized over the group, for example by
     :func:`torchft_tpu_torch.multihost.initialize_slice`); parameters
@@ -15,16 +15,16 @@ device (``WORLD_SIZE`` local ranks, each with its own Manager), so:
     averages its own local shards through its own ring (the Manager keys
     its ring by local rank).
 
-This port supports "data", "fsdp", "tensor", "expert" and "pipeline".  The
-"sequence" axis is accepted at size 1 only: ring attention and Ulysses,
-which would use it, are ROADMAP Q1.4 (b).
-
 How the model computes over the mesh (``models/transformer.py``
 ``parallelize``): "data" and "fsdp" split the group's batch, each rank
 taking its own slice (:meth:`FTMesh.batch_shard`); a parameter sharded
 over either is all-gathered for its use and its gradient reduce-scattered
 and averaged (:func:`~.functional.gather_shards`), and one replicated over
-either has its gradient averaged.  "tensor" keeps each rank's slice of the
+either has its gradient averaged.  "sequence" splits each sequence of the
+rank's batch (``data.shard_sequence``): attention crosses the shards by
+ring attention or Ulysses (``ops/``), each rank's loss is the mean over
+its own tokens, and every parameter, replicated over it, has its gradient
+averaged over it.  "tensor" keeps each rank's slice of the
 heads, the MLP and the vocabulary (Megatron-style, with the sums placed by
 :mod:`.functional`).  "expert" keeps each rank's slice of the stacked
 experts (``models/moe.py``): the batch is replicated over it and the
@@ -51,9 +51,10 @@ __all__ = ["FTMesh", "INTRA_GROUP_AXES", "REPLICA_AXIS", "ft_init_mesh"]
 # Axis names understood by the default sharding rules.
 INTRA_GROUP_AXES = ("data", "fsdp", "tensor", "sequence", "expert", "pipeline")
 REPLICA_AXIS = "replica"
-# The axes this port computes over; "sequence" is ROADMAP Q1.4 (b)'s.
-SUPPORTED_AXES = ("data", "fsdp", "tensor", "expert", "pipeline")
 BATCH_AXES = ("data", "fsdp")
+# The axes over which each rank computes on its own slice of the group's
+# tokens: a parameter's gradient is averaged (or reduce-scattered) over them.
+TOKEN_AXES = BATCH_AXES + ("sequence",)
 
 
 @dataclasses.dataclass
@@ -108,7 +109,8 @@ class FTMesh:
     def batch_shard(self) -> Tuple[int, int]:
         """(rank, count) of this rank's slice of the group's batch: the
         batch axes ("data" major, then "fsdp") split it; "tensor" ranks
-        share theirs."""
+        share theirs, and "sequence" ranks too, each taking its own slice of
+        every sequence (``data.shard_sequence``)."""
         rank, count = 0, 1
         for axis in BATCH_AXES:
             rank = rank * self.size(axis) + self.coordinate(axis)
@@ -171,17 +173,17 @@ class FTMesh:
         """The plain tensor a rank computes with from parameter ``p``: a
         DTensor's local shard, all-gathered over the batch axes it is
         sharded on (its gradient reduce-scattered and averaged there), its
-        gradient averaged over the batch axes it is replicated on, and kept
-        as this rank's slice over "tensor" and "expert".  Over "pipeline"
-        it is replicated (a stage's layers are its own modules).  A plain
-        tensor is returned as it is."""
+        gradient averaged over the batch axes and "sequence" it is
+        replicated on, and kept as this rank's slice over "tensor" and
+        "expert".  Over "pipeline" it is replicated (a stage's layers are
+        its own modules).  A plain tensor is returned as it is."""
         from torch.distributed.tensor import DTensor
 
         if not isinstance(p, DTensor):
             return p
         x = p.to_local()
         for i, (name, pl) in enumerate(zip(self.mesh_axis_names, p.placements)):
-            if name not in BATCH_AXES or int(self.mesh.size(i)) == 1:
+            if name not in TOKEN_AXES or int(self.mesh.size(i)) == 1:
                 continue
             group = self.group(name)
             x = F.gather_shards(x, pl.dim, group) if pl.is_shard() else F.average_grad(x, group)
@@ -216,20 +218,14 @@ def ft_init_mesh(
 
     The "replica" axis, if present, is ignored for placement: it is the
     cross-group dimension the Manager handles.  An unknown axis raises
-    ``ValueError``; "sequence" above size 1 raises ``NotImplementedError``
-    (ROADMAP Q1.4 (b)).  A one-rank mesh outside
-    ``torch.distributed`` has no DeviceMesh (``FTMesh.mesh`` None)."""
+    ``ValueError``.  A one-rank mesh outside ``torch.distributed`` has no
+    DeviceMesh (``FTMesh.mesh`` None)."""
     import torch.distributed as dist
 
     sizes = {k: int(v) for k, v in axis_sizes.items() if k != REPLICA_AXIS}
     for name in sizes:
         if name not in INTRA_GROUP_AXES:
             raise ValueError(f"unknown mesh axis {name!r}; use {INTRA_GROUP_AXES}")
-    for name, n in sizes.items():
-        if name not in SUPPORTED_AXES and n > 1:
-            raise NotImplementedError(
-                f"mesh axis {name!r} of size {n}: its consumers (ring attention, Ulysses) "
-                "are not ported yet (ROADMAP Q1.4 (b))")
     n = math.prod(sizes.values()) if sizes else 1
     rules = rules or ShardingRules()
     if not (dist.is_available() and dist.is_initialized()):

@@ -37,7 +37,8 @@ The embedding, final-norm and lm-head gradients are summed over the stages
 averaged over it (``pmean``), once a step.
 
 Dense configs only, as in the JAX package: a mixture-of-experts config
-raises.  The layers must divide over the stages.
+raises, and so does a mesh axis other than "data" above 1.  The layers
+must divide over the stages.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch.distributed as dist
 from torch import nn
 
 from torchft_tpu_torch.parallel.functional import ring_hop, ring_shift
+from torchft_tpu_torch.parallel.mesh import INTRA_GROUP_AXES
 
 __all__ = [
     "pipeline_1f1b_value_and_grad",
@@ -90,9 +92,14 @@ def pipeline_stage(model: nn.Module, ftmesh: Any, pipe_axis: str = "pipeline") -
     """Keeps this rank's stage of ``model`` (a ``Transformer`` every stage
     built from one seed): its layer modules, numbered from 0, beside the
     replicated embedding and head.  ``model.stage`` records (stage, stages,
-    the global layer range).  In place; returns ``model``."""
+    the global layer range).  In place; returns ``model``.  The pipeline
+    composes with "data" only: another axis above 1 raises."""
     stages, stage = ftmesh.size(pipe_axis), ftmesh.coordinate(pipe_axis)
     _check(model.cfg, stages)
+    for axis in INTRA_GROUP_AXES:
+        if axis not in (pipe_axis, "data") and ftmesh.size(axis) > 1:
+            raise ValueError(f"the pipeline composes with 'data' only; mesh axis {axis!r} has "
+                             f"size {ftmesh.size(axis)}")
     owned = stage_layers(model.cfg.n_layers, stage, stages)
     model.layers = nn.ModuleList(model.layers[i] for i in owned)
     model.stage = (stage, stages, owned)
