@@ -335,9 +335,9 @@ result):
    ``ft_step``s with K1-K5 12 / 12 / 12 / 1 / 1 a step.
 17. The mixture of experts and the pipeline on the flagship's widths.
    (a) and (b): two local ranks on the card (``chip_smoke.py --p17-rank``,
-   each with a Manager, over gloo), run from a thread beside phase 11
-   (three-layer groups, bound by process starts and the heal) and read
-   here.  (a) the
+   each with a Manager, over gloo), started beside phase 6 (train_ddp's
+   tiny model leaves the card's memory to them; bound by process starts and
+   the heal), where they also run phase 19's legs, and read here.  (a) the
    flagship's widths with MOE_EXPERTS experts a block (top 2, capacity
    1.25, batch MOE_BATCH) over {expert 2} against the same model unsharded
    in rank 0: in f32 (the plain path, batch MOE_F32_BATCH) the loss within
@@ -379,7 +379,25 @@ result):
    from group 0's same rank, and both groups end with one
    ``params_sha256``.  (b) then (a) run from a thread beside phases 12-14,
    whose lines say so.
-19. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
+19. The mixture of experts over "tensor" and over "sequence": phase 17's
+   MoE model (MOE_BATCH, the flagship's depth and sequence) in phase 17's
+   two rank processes after its (a) and (b), (a) over {tensor 2} (each
+   rank F / 2 of every expert), (b) over {sequence 2} under Ulysses and
+   (c) under the zigzag ring (tokens permuted as phase 18 permutes them),
+   each against the same model unsharded in rank 0, which replays the
+   sharded run's routing (in zigzag order for (c)): in f32 (the plain
+   path, batch MOE_F32_BATCH, capacity factor P19_F32_FACTOR, where tokens
+   drop) the loss within TOL_P17_F32_LOSS, every gathered gradient within
+   TOL_P17_F32_GRAD and no token routed otherwise, and each leg's planted
+   fault (P19_FAULTS: the F-slice's input without ``copy_to``, the slot
+   offsets without the other "sequence" ranks' counts) must fail that
+   check; in bf16 (MOE_STEPS passes) within TOL_P17_LOSS and TOL_P17_GRAD,
+   tokens routed otherwise within TOL_P17_REROUTE; then MOE_FT_STEPS
+   committed ``ft_step``s under the Managers; K1-K5 a rank a pass 12 / 12 /
+   12 / 0 / 0 over "tensor" (the vocab-parallel loss), 12 / 12 / 12 / 1 / 1
+   under Ulysses, 0 / 0 / 0 / 1 / 1 under the ring; printed, forward and
+   backward ms, the peak and the dispatch's bytes a layer a rank.
+20. The kernels line, ``{"kernels": [...]}`` (RMSNorm's ``device_ms``
    and ``host_ms`` beside ``ms``, and its four shapes under ``shapes``;
    each kernel's launches on
    the phase 5 run, on the DiLoCo run as ``launches_diloco``, on the
@@ -391,7 +409,8 @@ result):
    over phase 17's as ``launches_moe``, ``launches_pipeline`` and
    ``launches_train_pipeline``, and over phase 18's as ``launches_ring``
    (contiguous and zigzag), ``launches_ulysses`` and
-   ``launches_train_ring``),
+   ``launches_train_ring``, and over phase 19's as ``launches_moe_tensor``,
+   ``launches_moe_ulysses`` and ``launches_moe_zigzag``),
    the run's seconds, then
    the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -5654,11 +5673,11 @@ def pipe_leg(rank: int, dev) -> dict:
 
 
 def run_p17_rank(args: argparse.Namespace) -> None:
-    """One local rank of phase 17 (a) and (b): the rank's Manager (which
-    hosts the group's store on rank 0, as train_hsdp's ranks do), the
-    group's world over gloo through the slice bootstrap (ranks share the
-    card), then each leg on its own mesh; the results go to the run
-    directory."""
+    """One local rank of phase 17 (a) and (b), then of phase 19's legs: the
+    rank's Manager (which hosts the group's store on rank 0, as
+    train_hsdp's ranks do), the group's world over gloo through the slice
+    bootstrap (ranks share the card), then each leg on its own mesh; the
+    results go to the run directory."""
     import torch
     import torch.distributed as dist
 
@@ -5674,6 +5693,7 @@ def run_p17_rank(args: argparse.Namespace) -> None:
     try:
         initialize_slice(backend="gloo")
         out = {"moe": moe_leg(rank, dev, manager), "pipe": pipe_leg(rank, dev)}
+        out["p19"] = p19_legs(rank, dev, manager)
     finally:
         manager.shutdown()
     with open(os.path.join(args.run_dir, f"rank{rank}.json"), "w") as f:
@@ -5745,10 +5765,11 @@ def p17_finish(run: dict, card: str) -> dict:
     finally:
         _p17_stop(run)
     wall = run["wall"]
+    run["p19"] = [r["p19"] for r in ranks]  # phase 19 holds them
     out = {"moe": moe_checks(card, [r["moe"] for r in ranks]),
            "pipe": pipe_checks(card, [r["pipe"] for r in ranks]), "ranks_s": wall}
-    print(f"  (a) and (b): {wall:.1f} s from the ranks' start to their results ({card})",
-          flush=True)
+    print(f"  (a) and (b), then phase 19's legs: {wall:.1f} s from the ranks' start to their "
+          f"results ({card})", flush=True)
     return out
 
 
@@ -6108,15 +6129,15 @@ def _p18_errs(rec: dict, ref: dict) -> dict:
     return rec
 
 
-def p18_check(what: str, rec: dict, tol_loss: float, tol_grad: float) -> None:
+def sharded_check(what: str, rec: dict, tol_loss: float, tol_grad: float) -> None:
     """Raises unless ``rec``'s loss is finite and within ``tol_loss`` of the
     unsharded one and its worst gradient within ``tol_grad`` of its max."""
     if not math.isfinite(rec["loss"]) or rec["loss_err"] > tol_loss:
-        raise AssertionError(f"phase 18 (a) {what}: loss {rec['loss']} against the unsharded: "
+        raise AssertionError(f"{what}: loss {rec['loss']} against the unsharded: "
                              f"{rec['loss_err']:.3e} > {tol_loss}")
     if rec["grad_err"] > tol_grad:
-        raise AssertionError(f"phase 18 (a) {what}: gradient {rec['worst_grad']} differs from "
-                             f"the unsharded by {rec['grad_err']:.3e} of its max > {tol_grad}")
+        raise AssertionError(f"{what}: gradient {rec['worst_grad']} differs from the unsharded "
+                             f"by {rec['grad_err']:.3e} of its max > {tol_grad}")
 
 
 def _p18_faults() -> dict:
@@ -6329,11 +6350,13 @@ def p18_checks(card: str, ranks: list) -> dict:
               f"{[round(p / 2**30, 3) for p in o['peak_bytes']]} GiB a rank (rank 0 also held the "
               f"unsharded model's gradients); bytes a rank a step {o['bytes']}; launches a rank a "
               f"pass {_kernel_counts(bf16[-1]['launches'])} ({card})", flush=True)
-        p18_check(f"{name} f32", f32, TOL_P18_F32_LOSS, TOL_P18_F32_GRAD)
+        sharded_check(f"phase 18 (a) {name} f32", f32, TOL_P18_F32_LOSS, TOL_P18_F32_GRAD)
         for s in range(P18_PASSES):
-            p18_check(f"{name} bf16 pass {s}", bf16[s], TOL_P18_LOSS, TOL_P18_GRAD)
+            sharded_check(f"phase 18 (a) {name} bf16 pass {s}", bf16[s], TOL_P18_LOSS,
+                          TOL_P18_GRAD)
         try:
-            p18_check(f"{name} planted fault", dict(fault), TOL_P18_F32_LOSS, TOL_P18_F32_GRAD)
+            sharded_check(f"phase 18 (a) {name} planted fault", dict(fault), TOL_P18_F32_LOSS,
+                          TOL_P18_F32_GRAD)
         except AssertionError:
             pass
         else:
@@ -6388,6 +6411,338 @@ def p18_phase(card: str, legs: dict) -> dict:
     out["card"] = card
     print("LONG_CONTEXT " + json.dumps(out), flush=True)
     print(f"  long-context phase: {out['phase_s']:.1f} s here ({card})", flush=True)
+    return out
+
+
+# Phase 19: the MoE flagship (moe_config: 12 layers, d_model 768, 6 x 128
+# heads, seq 1024, 8 experts, top 2, capacity 1.25, batch MOE_BATCH) over
+# {tensor 2} (each rank F / 2 of every expert, all 8 experts' dispatch) and
+# over {sequence 2} under Ulysses and under the zigzag ring (each rank 512
+# positions of every sequence, routed in the group's order).  Run in phase
+# 17's two rank processes after their (a) and (b), against the same model
+# unsharded (flash) in rank 0, on the same weights and batches; the
+# tolerances are phase 17 (a)'s (TOL_P17_*).  The f32 passes run at
+# P19_F32_FACTOR, where tokens drop, so that slots offset wrongly show.
+P19_LEGS = (("tensor", {"tensor": 2}, "flash", "contiguous"),
+            ("ulysses", {"sequence": 2}, "ulysses", "contiguous"),
+            ("zigzag", {"sequence": 2}, "ring", "zigzag"))
+P19_F32_FACTOR = 0.5
+# Each leg's planted fault (which must fail its f32 check): over "tensor"
+# the dispatched input enters the F-slice without copy_to (its gradient
+# keeps one rank's partial sum); over "sequence" the slot offsets are taken
+# without the other "sequence" ranks' counts.
+P19_FAULTS = {"tensor": "copy_to", "ulysses": "offsets", "zigzag": "offsets"}
+
+
+def _p19_fault(kind: str):
+    """(patch, restore) of one of P19_FAULTS in ``models/moe.py``."""
+    import torch
+
+    import torchft_tpu_torch.models.moe as moe
+
+    if kind == "copy_to":
+        real, name = moe.copy_to, "copy_to"
+
+        def fault(x, group):
+            return x
+    else:
+        real, name = moe._rows_over_sequence, "_rows_over_sequence"
+
+        def fault(counts, ftmesh):
+            rows = torch.zeros((ftmesh.size("sequence"),) + tuple(counts.shape),
+                               dtype=counts.dtype, device=counts.device)
+            rows[ftmesh.coordinate("sequence")] = counts
+            return rows
+    return (lambda: setattr(moe, name, fault)), (lambda: setattr(moe, name, real))
+
+
+def _zigzag_routing(n: int):
+    """Makes the unsharded model route as a zigzag-sharded one does: its
+    ``moe_ffn`` is handed each sequence in the zigzag order over ``n``
+    ranks (the order the sharded run's tokens arrive in) and its output put
+    back.  Returns the restore function."""
+    import torch
+
+    import torchft_tpu_torch.models.transformer as tr
+    from torchft_tpu_torch.ops.ring_attention import zigzag_permutation
+
+    inner = tr.moe_ffn
+
+    def permuted(x, *args, **kw):
+        perm = torch.from_numpy(zigzag_permutation(x.shape[1], n)).to(x.device)
+        y, aux = inner(x.index_select(1, perm), *args, **kw)
+        return y.index_select(1, torch.argsort(perm)), aux
+
+    tr.moe_ffn = permuted
+    return lambda: setattr(tr, "moe_ffn", inner)
+
+
+def _group_routing(records: list, ftmesh, rows: int) -> list:
+    """Each layer's (gate_idx, kept) over the group's tokens, [B * S, k], in
+    the order they arrive: this rank's [rows * S_local, k] gathered over
+    "sequence" along each row (every rank calls it)."""
+    import torch
+
+    from torchft_tpu_torch.parallel.functional import all_gather_cat
+
+    out = []
+    for rec in records:
+        gate, kept = rec[0]["gate_idx"], rec[0]["kept"].to(torch.uint8)
+        if ftmesh.size("sequence") > 1:
+            group = ftmesh.group("sequence")
+            gate, kept = (all_gather_cat(t.reshape(rows, -1, t.shape[-1]), 1, group).flatten(0, 1)
+                          for t in (gate, kept))
+        out.append((gate, kept.bool()))
+    return out
+
+
+def _p19_passes(cfg, ftmesh, batch: int, seq: int, passes: int, seed: int, rank: int, dev,
+                fault: str = None) -> tuple:
+    """``passes`` forward and backward passes of the MoE model over the
+    leg's mesh and, in rank 0, of the same model unsharded on the whole
+    batch, replaying the sharded run's routing (the zigzag order under
+    that layout); then, with ``fault``, one more sharded pass on the first
+    batch with the fault planted, held against the same reference.
+    Returns (the sharded model, the records)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import Transformer, moe_capacity, parallelize
+
+    def build(c):
+        return Transformer(c, device=dev, generator=torch.Generator(device=dev).manual_seed(19))
+
+    model = parallelize(build(cfg), ftmesh)
+    ref = build(dataclasses.replace(cfg, attention="flash", ring_layout="contiguous")) \
+        if rank == 0 else None
+    n = ftmesh.size("sequence")
+    zigzag = cfg.attention == "ring" and cfg.ring_layout == "zigzag"
+    t_local = batch * seq // n
+    C = moe_capacity(batch * seq, cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor)
+    out = {"batch": batch, "passes": [], "tokens": batch * seq, "t_local": t_local,
+           "capacity": C, "dispatch_bytes": t_local * cfg.moe_experts * C * 4}
+
+    def recording(m):
+        records = [[] for _ in m.layers]
+        for layer, r in zip(m.layers, records):
+            layer.moe_record = r
+        return records
+
+    def sharded(b):
+        records = recording(model)
+        rec = _p18_pass(model, b, ftmesh)
+        routing = _group_routing(records, ftmesh, batch)
+        rec["dropped"] = sum(int((~kept).sum()) for _, kept in routing)
+        rec["choices"] = sum(kept.numel() for _, kept in routing)
+        return rec, routing
+
+    first_ref = None
+    for s in range(passes):
+        b = _hsdp_batch(cfg, batch, seq, seed + s, dev)
+        rec, routing = sharded(b)
+        if ref is not None:
+            ref_records = recording(ref)
+            for layer, (gate, _) in zip(ref.layers, routing):
+                layer.moe_route = gate
+            restore = _zigzag_routing(n) if zigzag else (lambda: None)
+            try:
+                ref_loss = ref.loss(b)
+                ref_loss.backward()
+            finally:
+                restore()
+            want = {"loss": ref_loss.item(),
+                    "grads": {k: p.grad for k, p in ref.named_parameters()}}
+            rec = _p18_errs(rec, want)
+            rec["ref_loss"] = want["loss"]
+            rec["rerouted"] = [int((r[0]["own_idx"] != r[0]["gate_idx"]).any(-1).sum())
+                               for r in ref_records]
+            ref.zero_grad(set_to_none=True)
+            if first_ref is None and fault is not None:
+                first_ref = want  # the fault's reference
+            del want
+        else:
+            rec.pop("grads")
+        out["passes"].append(rec)
+        del routing
+    if fault is not None:
+        patch, restore = _p19_fault(fault)
+        patch()
+        try:
+            rec, _ = sharded(_hsdp_batch(cfg, batch, seq, seed, dev))
+        finally:
+            restore()
+        out["fault"] = ({k: v for k, v in _p18_errs(rec, first_ref).items()
+                         if k in ("loss", "loss_err", "grad_err", "worst_grad", "dropped")}
+                        if ref is not None else None)
+    for m in (model, ref):
+        for layer in m.layers if m is not None else ():
+            layer.moe_record = layer.moe_route = None
+    del ref, first_ref
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return model, out
+
+
+def moe_mesh_leg(name: str, sizes: dict, attention: str, layout: str, rank: int, dev,
+                 manager) -> dict:
+    """One leg of phase 19 in this rank: the MoE model over ``sizes``
+    against it unsharded, in f32 (the plain path, batch MOE_F32_BATCH, at
+    P19_F32_FACTOR, then the leg's planted fault) and in bf16 (the kernels,
+    batch MOE_BATCH, MOE_STEPS passes); then MOE_FT_STEPS ft_steps of the
+    bf16 model under the rank's Manager, on the rank's share of each
+    batch."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import loss_fn
+    from torchft_tpu_torch.parallel import TrainStep, ft_init_mesh
+
+    t0 = time.monotonic()
+    cfg, batch, seq = moe_config()
+    cfg = dataclasses.replace(cfg, attention=attention, ring_layout=layout)
+    ftmesh = ft_init_mesh(sizes, device_type="cuda")
+    f32cfg = dataclasses.replace(cfg, dtype=torch.float32, moe_capacity_factor=P19_F32_FACTOR)
+    model, f32 = _p19_passes(f32cfg, ftmesh, MOE_F32_BATCH, seq, 1, 190, rank, dev,
+                             fault=P19_FAULTS[name])
+    del model
+    torch.cuda.empty_cache()
+    model, out = _p19_passes(cfg, ftmesh, batch, seq, MOE_STEPS, 192, rank, dev)
+    out["f32"] = f32
+    opt = torch.optim.SGD(model.parameters(), lr=P17_LR)
+    trainer = TrainStep(model, opt, loss_fn, manager, overlap_commit=False)
+    out["ft"] = []
+    for s in range(MOE_FT_STEPS):
+        b = _p18_shard(_hsdp_batch(cfg, batch, seq, 197 + s, dev), cfg, ftmesh)
+        manager.start_quorum()
+        (loss, committed), ms, counts, _ = _timed(lambda: trainer.ft_step(b))
+        out["ft"].append({"loss": loss.item(), "committed": committed, "ms": ms,
+                          "launches": counts})
+    del model, opt, trainer
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def p19_legs(rank: int, dev, manager) -> dict:
+    """Phase 19's legs in this rank, in P19_LEGS' order."""
+    return {name: moe_mesh_leg(name, sizes, attention, layout, rank, dev, manager)
+            for name, sizes, attention, layout in P19_LEGS}
+
+
+def p19_check(what: str, rec: dict, tol_loss: float, tol_grad: float, reroute: float,
+              tokens: int) -> None:
+    """:func:`sharded_check`, and no layer's tokens routed otherwise beyond
+    ``reroute`` of ``tokens``."""
+    sharded_check(f"phase 19 {what}", rec, tol_loss, tol_grad)
+    if max(rec["rerouted"]) > reroute * tokens:
+        raise AssertionError(f"phase 19 {what}: tokens routed otherwise a layer "
+                             f"{rec['rerouted']} of {tokens} > {reroute}")
+
+
+def p19_phase(card: str, ranks: list) -> dict:
+    """Phase 19: prints each leg's numbers from ``ranks`` (the phase 17
+    rank processes' records, run beside phase 6), then holds them: K1-K5
+    a rank a bf16 pass and ft_step 12 / 12 / 12 / 0 / 0 over "tensor", 12 /
+    12 / 12 / 1 / 1 under Ulysses, 0 / 0 / 0 / 1 / 1 under the ring, none in
+    f32; the ranks' losses equal; the f32 loss and gradients against the
+    unsharded (TOL_P17_F32_*, no token routed otherwise), the bf16 ones on
+    the replayed routing (TOL_P17_*, TOL_P17_REROUTE); each planted fault
+    failing the f32 check; committed ft_steps with finite losses."""
+    t0 = time.monotonic()
+    L = moe_config()[0].n_layers
+    head = ranks[0]
+    out = {"launches": {}, "card": card}
+    for name, sizes, attention, _ in P19_LEGS:
+        flash = 0 if attention == "ring" else L
+        ce = 0 if "tensor" in sizes else 1
+        want = {"flash_fwd": flash, "flash_bwd_dkdv": flash, "flash_bwd_dq": flash,
+                "ce_lse": ce, "ce_dlogits": ce}
+        launches = collections.Counter()
+        for r, rank in enumerate(ranks):
+            leg = rank[name]
+            counts = [p["launches"] for p in leg["passes"]] + [f["launches"] for f in leg["ft"]]
+            for s, c in enumerate(counts):
+                launches.update(c)
+                if _kernel_counts(c) != want:
+                    raise AssertionError(f"phase 19 {name} rank {r} step {s} launched "
+                                         f"{_kernel_counts(c)}, expected {want}")
+            if any(leg["f32"]["passes"][0]["launches"].get(k, 0) for k in want):
+                raise AssertionError(f"phase 19 {name} rank {r}: the f32 pass launched "
+                                     f"{leg['f32']['passes'][0]['launches']}, expected the plain "
+                                     f"path")
+            if [p["loss"] for p in leg["passes"]] != [p["loss"] for p in head[name]["passes"]] or \
+                    leg["f32"]["passes"][0]["loss"] != head[name]["f32"]["passes"][0]["loss"]:
+                raise AssertionError(f"phase 19 {name}: the ranks' losses differ")
+            for s, f in enumerate(leg["ft"]):
+                if not f["committed"] or not math.isfinite(f["loss"]):
+                    raise AssertionError(f"phase 19 {name} rank {r} ft_step {s}: committed "
+                                         f"{f['committed']}, loss {f['loss']}")
+        leg = head[name]
+        f32, bf16, fault = leg["f32"]["passes"][0], leg["passes"], leg["f32"]["fault"]
+        o = out[name] = {
+            "f32": {k: f32[k] for k in ("loss", "ref_loss", "loss_err", "grad_err", "worst_grad",
+                                        "rerouted", "dropped", "choices")},
+            "bf16": {k: [p[k] for p in bf16] for k in ("loss", "ref_loss", "loss_err",
+                                                         "grad_err", "worst_grad", "rerouted",
+                                                         "dropped", "choices")},
+            "fault": fault,
+            "fwd_ms": [[p["fwd_ms"] for p in rank[name]["passes"]] for rank in ranks],
+            "bwd_ms": [[p["bwd_ms"] for p in rank[name]["passes"]] for rank in ranks],
+            "peak_bytes": [max(p["peak_bytes"] for p in rank[name]["passes"]) for rank in ranks],
+            "dispatch_bytes": leg["dispatch_bytes"], "t_local": leg["t_local"],
+            "capacity": leg["capacity"], "tokens": leg["tokens"],
+            "ft_ms": [[f["ms"] for f in rank[name]["ft"]] for rank in ranks],
+            "ft_losses": [f["loss"] for f in leg["ft"]],
+            "wall_s": [rank[name]["wall_s"] for rank in ranks], "launches": dict(launches)}
+        out["launches"][name] = dict(launches)
+        print(f"  ({'abc'[[n for n, *_ in P19_LEGS].index(name)]}) MoE over "
+              f"{'x'.join(f'{a} {v}' for a, v in sizes.items())} ({name}): f32 (plain path, batch "
+              f"{leg['f32']['batch']}, capacity factor {P19_F32_FACTOR}) loss {f32['loss']:.7f} "
+              f"against unsharded {f32['ref_loss']:.7f} ({f32['loss_err']:.2e} of it, allowed "
+              f"{TOL_P17_F32_LOSS}), gradients within {f32['grad_err']:.2e} of each max (allowed "
+              f"{TOL_P17_F32_GRAD}; the worst {f32['worst_grad']}), tokens routed otherwise a "
+              f"layer {f32['rerouted']}, choices dropped {f32['dropped']} of {f32['choices']}; "
+              f"planted fault ({P19_FAULTS[name]}): loss {fault['loss_err']:.2e}, gradient "
+              f"{fault['grad_err']:.2e} ({fault['worst_grad']}), dropped {fault['dropped']}; bf16 "
+              f"(the kernels, batch {leg['batch']}) losses "
+              f"{', '.join(f'{x:.6f}' for x in o['bf16']['loss'])} against unsharded "
+              f"{', '.join(f'{x:.6f}' for x in o['bf16']['ref_loss'])} (worst "
+              f"{max(o['bf16']['loss_err']):.2e}, allowed {TOL_P17_LOSS}), gradients within "
+              f"{max(o['bf16']['grad_err']):.2e} of each max (allowed {TOL_P17_GRAD}; the worst "
+              f"{o['bf16']['worst_grad']}), the unsharded model on the sharded routing; tokens "
+              f"its own router sends elsewhere, a layer, {o['bf16']['rerouted']} of "
+              f"{leg['tokens']} (allowed {int(TOL_P17_REROUTE * leg['tokens'])}); choices dropped "
+              f"{o['bf16']['dropped']} of {o['bf16']['choices'][0]}; forward ms a rank "
+              f"{[[round(x, 2) for x in ms] for ms in o['fwd_ms']]}, backward "
+              f"{[[round(x, 2) for x in ms] for ms in o['bwd_ms']]} (CUDA events, the ranks "
+              f"sharing the card, the first a warm-up); peak "
+              f"{[round(p / 2**30, 3) for p in o['peak_bytes']]} GiB a rank (rank 0 also holds "
+              f"the unsharded model); dispatch [T {leg['t_local']}, {MOE_EXPERTS}, C "
+              f"{leg['capacity']}] f32 {leg['dispatch_bytes'] / 1e9:.3f} GB a layer a rank (and "
+              f"the combine as much); {MOE_FT_STEPS} committed ft_steps, losses "
+              f"{o['ft_losses']}, ms a rank {[[round(x, 1) for x in ms] for ms in o['ft_ms']]}; "
+              f"launches a rank a pass {_kernel_counts(bf16[-1]['launches'])}; the leg "
+              f"{[round(x, 1) for x in o['wall_s']]} s a rank ({card})", flush=True)
+        p19_check(f"{name} f32", f32, TOL_P17_F32_LOSS, TOL_P17_F32_GRAD, 0.0, leg["tokens"])
+        for s, p in enumerate(bf16):
+            p19_check(f"{name} bf16 pass {s}", p, TOL_P17_LOSS, TOL_P17_GRAD, TOL_P17_REROUTE,
+                      leg["tokens"])
+        try:
+            sharded_check(f"phase 19 {name} planted fault", fault, TOL_P17_F32_LOSS,
+                          TOL_P17_F32_GRAD)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"phase 19 {name}: the planted fault ({P19_FAULTS[name]}) passed "
+                                 f"the f32 check (loss {fault['loss_err']:.3e}, gradient "
+                                 f"{fault['grad_err']:.3e})")
+    out["phase_s"] = time.monotonic() - t0
+    print("MOE_TENSOR_SEQUENCE " + json.dumps(out), flush=True)
+    print(f"  MoE over tensor and sequence phase: {out['phase_s']:.1f} s here ({card})", flush=True)
     return out
 
 
@@ -6508,27 +6863,29 @@ def main() -> int:
 
     lap("5")
 
-    # Four legs run beside host-bound phases from a side thread, each with
-    # processes (and launch counts) of its own, joined at its phase's end
-    # and read at its own phase: 16 (c) beside 7, 17 (c) beside 9 and 10,
-    # 17 (a), (b) then 16 (a), (b), (d) beside 11, and 18 (b) then (a)
-    # beside 12, 13 and 14.
+    # Legs run beside host-bound phases, each with processes (and launch
+    # counts) of its own, joined at its phase's end and read at its own
+    # phase: 17 (a), (b) then 19's legs (17's two rank processes) beside 6,
+    # whose tiny models leave the card's memory to them, and from a side
+    # thread 16 (c) beside 7, 17 (c) beside 9 and 10, 16 (a), (b), (d)
+    # beside 11, and 18 (b) then (a) beside 12, 13 and 14.
     side_pool = ThreadPoolExecutor(max_workers=1)
     side = {}
 
-    def beside_healing() -> dict:
-        side["p17"] = p17_start()
-        p17_wait(side["p17"])
-        return hsdp_phase(card, kill=hsdp_c)
-
     try:
         # 6. Kill and heal through the launcher and the train_ddp example.
+        side["p17"] = p17_start()
+        print("phase 17 (a) and (b), then phase 19's legs, started beside phase 6 (two rank "
+              "processes over gloo)", flush=True)
         print("kill and heal: Launcher + train_ddp on the card, group 1 killed with SIGKILL",
               flush=True)
         kill_heal = kill_heal_phase(card)
         print(f"disk resume: Launcher + train_ddp --ckpt_dir, both groups stopped at step "
               f"{RESUME_STEPS} and resumed from disk", flush=True)
         resume_phase(card)
+        p17_wait(side["p17"])
+        print("  (phase 6's times were taken beside phase 17 (a), (b) and phase 19's rank "
+              "processes)", flush=True)
 
         lap("6")
 
@@ -6579,12 +6936,10 @@ def main() -> int:
         print(f"healing: lighthouse + 3 groups, flagship widths at {HEAL_LAYERS} layers, "
               "erasure-coded state k 2 m 1; "
               "a striped two-donor heal, an erasure heal, a donor killed mid-fetch", flush=True)
-        in_group = side_pool.submit(beside_healing)
-        print("phase 17 (a) and (b), then phase 16 (a), (b) and (d), started beside phase 11",
-              flush=True)
+        in_group = side_pool.submit(hsdp_phase, card, kill=hsdp_c)
+        print("phase 16 (a), (b) and (d) started beside phase 11", flush=True)
         healing_launches, heal_recovery = healing_phase(
-            card, "phase 17 (a), (b) and phase 16 (a), (b), (d)'s processes (in-group ranks "
-            "on gloo)")
+            card, "phase 16 (a), (b), (d)'s processes (in-group ranks on gloo)")
         hsdp = in_group.result()
 
         lap("11")
@@ -6674,7 +7029,17 @@ def main() -> int:
 
     lap("18")
 
-    # 19. The kernels line, then the last line.
+    # 19. The mixture of experts over "tensor" and over "sequence".
+    print(f"MoE over tensor and sequence: the flagship's widths with {MOE_EXPERTS} experts a block "
+          f"(a) over tensor 2, (b) over sequence 2 under Ulysses, (c) under the zigzag ring, each "
+          f"against it unsharded, f32 with a planted fault then bf16, then {MOE_FT_STEPS} "
+          f"ft_steps under the Managers", flush=True)
+    print("  (its legs ran in phase 17's rank processes, beside phase 6)", flush=True)
+    moe_ts = p19_phase(card, side["p17"]["p19"])
+
+    lap("19")
+
+    # 20. The kernels line, then the last line.
     kernels = []
     for name, kern in KERNELS.items():
         r = rec[name]
@@ -6701,6 +7066,9 @@ def main() -> int:
             "launches_ring": long_context["launches"]["ring"].get(name, 0),
             "launches_ulysses": long_context["launches"]["ulysses"].get(name, 0),
             "launches_train_ring": long_context["kill"]["launches"].get(name, 0),
+            "launches_moe_tensor": moe_ts["launches"]["tensor"].get(name, 0),
+            "launches_moe_ulysses": moe_ts["launches"]["ulysses"].get(name, 0),
+            "launches_moe_zigzag": moe_ts["launches"]["zigzag"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ref_rms": r["ref_rms"],
             "err_over_tol": r["err_over_tol"],

@@ -445,11 +445,10 @@ def fake_world():
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("what", ["moe", "flash", "pipeline"])
+@pytest.mark.parametrize("what", ["flash", "pipeline"])
 def test_refused_compositions_raise(fake_world, what) -> None:
-    """Over "sequence" above 1: a mixture-of-experts config raises (ROADMAP),
-    attention "flash" raises (it would attend each rank's slice alone), and
-    the pipeline refuses the axis."""
+    """Over "sequence" above 1: attention "flash" raises (it would attend
+    each rank's slice alone), and the pipeline refuses the axis."""
     from torchft_tpu_torch.parallel import ft_init_mesh, pipeline_stage
 
     fake_world(4)
@@ -461,14 +460,9 @@ def test_refused_compositions_raise(fake_world, what) -> None:
             pipeline_stage(model, mesh)
         return
     mesh = ft_init_mesh({"data": 2, "sequence": 2}, device_type="cpu")
-    kw = dict(CFG, dtype=torch.float32)
-    if what == "moe":
-        kw.update(moe_experts=4, attention="ring")
-        err, match = NotImplementedError, "ROADMAP Q1.4"
-    else:
-        err, match = ValueError, "attends each rank's slice alone"
-    with pytest.raises(err, match=match):
-        parallelize(Transformer(TransformerConfig(**kw), device="cpu"), mesh)
+    with pytest.raises(ValueError, match="attends each rank's slice alone"):
+        parallelize(Transformer(TransformerConfig(**CFG, dtype=torch.float32), device="cpu"),
+                    mesh)
 
 
 def test_config_asserts_as_jax() -> None:

@@ -10,12 +10,16 @@ kept at ``top_k`` 1; the tied router at ``top_k`` 2, where the lower index
 must win as in ``jax.lax.top_k``); the MoE transformer's loss (rtol 1e-5)
 and gradients (rtol 2e-4, atol 2e-5) against JAX's ``loss_fn`` and
 ``jax.grad``; ``param_axes``' MoE entries against the JAX
-``PartitionSpec``s; remat bitwise against none.  Spawned gloo ranks on
-``{expert 2}``, ``{data 2, expert 2}`` and ``{fsdp 2, expert 2}`` route the
-group's whole batch: their gate indices equal JAX's and their kept choices
-the drop rule's over the whole batch, at capacity 4.0 and at 0.5 (where
+``PartitionSpec``s; remat bitwise against none; the slot offsets of a
+hand-built count tensor over {data 2, sequence 2} against a brute count;
+the F-split experts against the unsplit ones.  Spawned gloo ranks on every
+mesh of ``CASES`` (over "expert", "tensor" and "sequence", alone and with
+"data", "fsdp" or each other; under flash, Ulysses, the contiguous ring and
+zigzag) route the group's whole batch: every layer's gate indices equal
+JAX's on the same mesh and its kept choices the drop rule's over the
+group's tokens in the order they arrive, at capacity 4.0 and at 0.5 (where
 tokens drop), before their loss and gathered gradients are held against
-JAX's on the same mesh."""
+``jax.value_and_grad`` of JAX's loss on the same mesh."""
 
 from __future__ import annotations
 
@@ -43,8 +47,24 @@ RTOL, ATOL = 2e-4, 2e-5
 LOSS_RTOL = 1e-5
 # Capacity to spare, and a factor where tokens drop.
 FACTORS = (4.0, 0.5)
-MESHES = {"expert2": {"expert": 2}, "data2_expert2": {"data": 2, "expert": 2},
-          "fsdp2_expert2": {"fsdp": 2, "expert": 2}}
+# Each sharded case: its mesh and the config's attention.  Over "tensor"
+# each rank holds F / 2 of every expert; over "sequence" each routes its
+# slice of every sequence in the order the tokens arrive (zigzag's permuted
+# one under that ring layout).
+ULYSSES, RING = {"attention": "ulysses"}, {"attention": "ring"}
+ZIGZAG = {"attention": "ring", "ring_layout": "zigzag"}
+CASES = {
+    "expert2": ({"expert": 2}, {}),
+    "data2_expert2": ({"data": 2, "expert": 2}, {}),
+    "fsdp2_expert2": ({"fsdp": 2, "expert": 2}, {}),
+    "tensor2": ({"tensor": 2}, {}),
+    "expert2_tensor2": ({"expert": 2, "tensor": 2}, {}),
+    "seq2_ulysses": ({"sequence": 2}, ULYSSES),
+    "seq2_ring": ({"sequence": 2}, RING),
+    "seq2_zigzag": ({"sequence": 2}, ZIGZAG),
+    "data2_seq2_zigzag": ({"data": 2, "sequence": 2}, ZIGZAG),
+    "tensor2_seq2_ulysses": ({"tensor": 2, "sequence": 2}, ULYSSES),
+}
 BATCH, SEQ = 4, 32
 JOIN_S = 240.0
 
@@ -212,44 +232,67 @@ def _batch(seed: int = 0, b: int = BATCH, s: int = SEQ):
     return {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1)}
 
 
-def _jax_loss_grads(ref_tr, factor, sizes=None):
-    """JAX's loss and gradients of the MoE transformer (weights from
-    PRNGKey(0)), on one device or on a mesh of ``sizes``."""
+def _jax_params(ref_tr, factor):
+    """The JAX MoE transformer's weights from PRNGKey(0), on the host."""
     import jax
     import jax.numpy as jnp
 
     cfg = ref_tr.TransformerConfig(**MOE, moe_capacity_factor=factor, dtype=jnp.float32)
-    params = ref_tr.init_params(jax.random.PRNGKey(0), cfg)
+    return jax.tree.map(np.asarray, ref_tr.init_params(jax.random.PRNGKey(0), cfg))
+
+
+def _jax_loss_grads(ref_tr, factor, sizes=None, cfg_kw=MOE):
+    """JAX's loss and gradients of the MoE transformer (weights from
+    PRNGKey(0)), on one device or on a mesh of ``sizes`` (the batch
+    permuted into zigzag order first under that ring layout)."""
+    import jax
+    import jax.numpy as jnp
+
+    cfg = ref_tr.TransformerConfig(**cfg_kw, moe_capacity_factor=factor, dtype=jnp.float32)
+    host = _jax_params(ref_tr, factor)
+    params = jax.tree.map(jnp.asarray, host)
     batch = {k: jnp.asarray(v) for k, v in _batch().items()}
     if sizes is None:
         loss, grads = jax.value_and_grad(lambda p: ref_tr.loss_fn(p, batch, cfg))(params)
     else:
         ref_parallel = import_reference("torchft_tpu.parallel")
         ftmesh = ref_parallel.ft_init_mesh(sizes)
+        if cfg.ring_layout == "zigzag":
+            ref_ring = import_reference("torchft_tpu.ops.ring_attention")
+            batch = {k: ref_ring.to_zigzag(v, sizes["sequence"], axis=1)
+                     for k, v in batch.items()}
         sharded = ftmesh.shard_params(params, ref_tr.param_axes(cfg))
         b = jax.device_put(batch, ftmesh.sharding("batch", "seq"))
         loss, grads = jax.jit(jax.value_and_grad(
             lambda p: ref_tr.loss_fn(p, b, cfg, ftmesh.mesh, ftmesh.rules)))(sharded)
-    host = jax.tree.map(np.asarray, params)
     return float(loss), params_from_jax(jax.tree.map(np.asarray, grads)), host
 
 
-def _jax_layer_gates(ref_tr, host, factor):
-    """Each MoE layer's gate indices in JAX's own forward: its ``moe_ffn``
-    wrapped to record the top-k of its router probabilities (an eager,
-    unrolled forward, so the values are concrete)."""
+def _jax_layer_gates(ref_tr, host, factor, cfg_kw=MOE, n_seq=1):
+    """Each MoE layer's gate indices in JAX's own forward on one device:
+    its ``moe_ffn`` wrapped to record the top-k of its router probabilities
+    (an eager, unrolled forward, so the values are concrete).  Under the
+    zigzag ring layout over ``n_seq`` ranks the wrapper hands ``moe_ffn``
+    each sequence in the zigzag order, as the sharded run's tokens arrive,
+    and puts its output back: the routing, and the tokens dropped, of the
+    group's tokens in that order."""
     import jax
     import jax.numpy as jnp
 
     ref_moe = import_reference("torchft_tpu.models.moe")
     cfg = ref_tr.TransformerConfig(**MOE, moe_capacity_factor=factor, dtype=jnp.float32,
                                    scan_unroll=MOE["n_layers"], remat=False)
+    perm = np.arange(SEQ)
+    if cfg_kw.get("ring_layout") == "zigzag" and n_seq > 1:
+        perm = import_reference("torchft_tpu.ops.ring_attention").zigzag_permutation(SEQ, n_seq)
     seen = []
     inner = ref_moe.moe_ffn
 
     def recording(x, router, *a, **k):
+        x = x[:, perm]
         seen.append(_jax_gates(np.asarray(x), np.asarray(router), k["top_k"]))
-        return inner(x, router, *a, **k)
+        y, aux = inner(x, router, *a, **k)
+        return y[:, np.argsort(perm)], aux
 
     ref_moe.moe_ffn = recording
     try:
@@ -328,15 +371,95 @@ def test_moe_remat_is_bitwise_no_remat() -> None:
         torch.use_deterministic_algorithms(False)
 
 
-def test_moe_over_tensor_is_not_ported() -> None:
+class _StubMesh:
+    """A mesh stand-in for one rank of {data D, sequence n}: its gathers
+    return what every rank of the axis would send, from the whole count
+    tensor ``counts`` [D, n, B, k, n_exp]."""
+
+    def __init__(self, counts: torch.Tensor, data: int, seq: int) -> None:
+        self.counts, self.data, self.seq = counts, data, seq
+
+    def size(self, axis: str) -> int:
+        return {"data": self.counts.shape[0], "sequence": self.counts.shape[1]}.get(axis, 1)
+
+    def coordinate(self, axis: str) -> int:
+        return {"data": self.data, "sequence": self.seq}.get(axis, 0)
+
+    def group(self, axis: str) -> str:
+        return axis
+
+    def batch_shard(self) -> tuple:
+        return self.data, self.counts.shape[0]
+
+    def gather(self, x: torch.Tensor, dim: int, group: str) -> torch.Tensor:
+        if group == "sequence":   # every "sequence" rank's [1, B, k, n_exp]
+            return self.counts[self.data]
+        return self.counts.sum((1, 2))[:, None]  # every data shard's [1, 1, k, n_exp]
+
+
+def test_counts_before_offsets_rows_over_sequence_and_data(monkeypatch) -> None:
+    """Each row's offset is the count of every (choice, expert) slot the
+    group's k-major order puts before the row: all earlier choices, then
+    the same choice's earlier data shards, the shard's earlier rows over
+    both "sequence" ranks, and the lower "sequence" rank's part of the row."""
+    from torchft_tpu_torch.models import moe as moe_mod
+
+    D, n, B, k, X = 2, 2, 3, 2, 4
+    counts = torch.from_numpy(np.random.default_rng(7).integers(0, 5, (D, n, B, k, X)))
+    order = [(d, b, r) for d in range(D) for b in range(B) for r in range(n)]
+    for d in range(D):
+        for r in range(n):
+            stub = _StubMesh(counts, d, r)
+            monkeypatch.setattr(moe_mod, "all_gather_cat", stub.gather)
+            offset, shards = moe_mod._counts_before(counts[d, r], stub)
+            assert shards == D * n and offset.shape == (B, k, X)
+            for b in range(B):
+                before = order[:order.index((d, b, r))]
+                for j in range(k):
+                    earlier = sum((counts[q, p, c, j] for q, c, p in before),
+                                  torch.zeros(X, dtype=torch.long))
+                    want = counts[..., :j, :].sum((0, 1, 2, 3)) + earlier
+                    assert torch.equal(offset[b, j], want), (d, r, b, j)
+
+
+def test_f_split_experts_sum_to_the_unsplit(monkeypatch) -> None:
+    """Over "tensor" 2 each rank runs F / 2 of every expert: the ranks'
+    partial outputs (the axis's sums stubbed out) add up to the unsplit
+    call's, at the same routing and aux, and each rank's expert gradients
+    are its slices of the unsplit ones."""
     from types import SimpleNamespace
 
-    from torchft_tpu_torch.models import parallelize
+    from torchft_tpu_torch.models import moe as moe_mod
 
-    model = Transformer(TransformerConfig(**MOE, dtype=torch.float32), device="cpu")
-    mesh = SimpleNamespace(mesh=object(), size=lambda a: 2 if a == "tensor" else 1)
-    with pytest.raises(NotImplementedError, match="tensor"):
-        parallelize(model, mesh)
+    monkeypatch.setattr(moe_mod, "copy_to", lambda x, group: x)
+    monkeypatch.setattr(moe_mod, "reduce_from", lambda x, group: x)
+    router, w_gate, w_up, w_down = map(torch.from_numpy, _weights())
+    x = torch.from_numpy(_x((2, 16, 32)))
+    g = torch.from_numpy(_x((2, 16, 32), seed=4))
+
+    def run(ws, ftmesh):
+        ws = [w.clone().requires_grad_() for w in ws]
+        record = []
+        y, aux = moe_ffn(x, router, *ws, top_k=2, capacity_factor=0.5, dtype=torch.float32,
+                         ftmesh=ftmesh, record=record)
+        (y * g).sum().backward()
+        return y.detach(), aux, record[0], [w.grad for w in ws]
+
+    y, aux, rec, grads = run([w_gate, w_up, w_down], None)
+    assert not rec["kept"].all()
+    half = w_gate.shape[-1] // 2
+    parts = []
+    for r in range(2):
+        mesh = SimpleNamespace(size=lambda a: 2 if a == "tensor" else 1, group=lambda a: a,
+                               coordinate=lambda a, r=r: r if a == "tensor" else 0)
+        cut = slice(r * half, (r + 1) * half)
+        py, paux, prec, pgrads = run([w_gate[..., cut], w_up[..., cut], w_down[:, cut]], mesh)
+        assert torch.equal(prec["gate_idx"], rec["gate_idx"])
+        assert torch.equal(prec["kept"], rec["kept"]) and float(paux) == float(aux)
+        for got, want in zip(pgrads, (grads[0][..., cut], grads[1][..., cut], grads[2][:, cut])):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+        parts.append(py)
+    np.testing.assert_allclose((parts[0] + parts[1]).numpy(), y.numpy(), rtol=RTOL, atol=ATOL)
 
 
 _WORKER = r"""
@@ -345,44 +468,62 @@ sys.path.insert(0, os.environ["TPUFT_REPO"])
 import torch
 import torch.distributed as dist
 
-rank, world, port, data_path, out_path, sizes = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                                                 sys.argv[4], sys.argv[5], json.loads(sys.argv[6]))
+rank, world, port, data_path, out_path = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                          sys.argv[4], sys.argv[5])
+data = torch.load(data_path)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                         world_size=world)
+from torchft_tpu_torch.data import shard_sequence
 from torchft_tpu_torch.models import Transformer, TransformerConfig, parallelize
+from torchft_tpu_torch.ops.ring_attention import to_zigzag
 from torchft_tpu_torch.parallel import ft_init_mesh
 from torchft_tpu_torch.weights import load_params
 
-data = torch.load(data_path)
-mesh = ft_init_mesh(sizes, device_type="cpu")
+mesh = ft_init_mesh(data["sizes"], device_type="cpu")
 shard, shards = mesh.batch_shard()
+seq_rank, n = mesh.coordinate("sequence"), mesh.size("sequence")
 out = {}
-for factor in data["factors"]:
-    cfg = TransformerConfig(**data["cfg"], moe_capacity_factor=factor, dtype=torch.float32,
-                            remat=False)
-    model = parallelize(Transformer(cfg, device="cpu"), mesh)
-    load_params(model, data["params"][factor])
-    records = [[] for _ in model.layers]
-    for layer, rec in zip(model.layers, records):
-        layer.moe_record = rec
-    mine = {k: v.chunk(shards)[shard] for k, v in data["batch"].items()}
-    loss = model.loss(mine)
-    loss.backward()
-    total = loss.detach().clone()
-    dist.all_reduce(total)
-    routes = [(shard, mesh.coordinate("expert"),
-               [(r[0]["gate_idx"], r[0]["kept"], r[0]["capacity"]) for r in records])]
-    every = [None] * world
-    dist.all_gather_object(every, routes)
-    layers = []
-    for i in range(cfg.n_layers):
-        parts = sorted((s, r[i]) for rs in every for s, e, r in rs if e == 0)
-        layers.append({"gate_idx": torch.cat([p[1][0] for p in parts]),
-                       "kept": torch.cat([p[1][1] for p in parts]),
-                       "capacity": parts[0][1][2]})
-    out[factor] = {"loss": total / world, "layers": layers,
-                   "grads": {n: mesh.full_tensor(p.grad) for n, p in model.named_parameters()},
-                   "types": sorted({type(p).__name__ for p in model.parameters()})}
+for case, cfg_kw in data["cases"]:
+    for factor in data["factors"]:
+        cfg = TransformerConfig(**cfg_kw, moe_capacity_factor=factor, dtype=torch.float32,
+                                remat=False)
+        model = parallelize(Transformer(cfg, device="cpu"), mesh)
+        load_params(model, data["params"][factor])
+        records = [[] for _ in model.layers]
+        for layer, rec in zip(model.layers, records):
+            layer.moe_record = rec
+        batch = data["batch"]
+        if cfg.attention == "ring" and cfg.ring_layout == "zigzag":
+            batch = {k: to_zigzag(v, n, dim=1) for k, v in batch.items()}
+        # This rank's contiguous rows (the JAX batch sharding), then its
+        # slice of each sequence.
+        mine = {k: shard_sequence(v.chunk(shards)[shard], seq_rank, n) for k, v in batch.items()}
+        rows = mine["tokens"].shape[0]
+        loss = model.loss(mine)
+        loss.backward()
+        total = loss.detach().clone()
+        dist.all_reduce(total)
+        first = mesh.coordinate("expert") == 0 and mesh.coordinate("tensor") == 0
+        routes = [(shard, seq_rank, first,
+                   [(r[0]["gate_idx"].reshape(rows, -1, r[0]["gate_idx"].shape[-1]),
+                     r[0]["kept"].reshape(rows, -1, r[0]["kept"].shape[-1]), r[0]["capacity"])
+                    for r in records])]
+        every = [None] * world
+        dist.all_gather_object(every, routes)
+        layers = []
+        for i in range(cfg.n_layers):
+            # The group's [B * S, k] routing in the order the tokens arrive:
+            # batch shards, then rows, then the "sequence" ranks' parts.
+            parts = sorted((s, q, r[i]) for rs in every for s, q, keep, r in rs if keep)
+            def whole(j):
+                by_shard = [torch.cat([p[2][j] for p in parts if p[0] == s], dim=1)
+                            for s in range(shards)]
+                return torch.cat(by_shard).flatten(0, 1)
+            layers.append({"gate_idx": whole(0), "kept": whole(1), "capacity": parts[0][2][2]})
+        out.setdefault(case, {})[factor] = {
+            "loss": total / world, "layers": layers,
+            "grads": {k: mesh.full_tensor(p.grad) for k, p in model.named_parameters()},
+            "types": sorted({type(p).__name__ for p in model.parameters()})}
 if rank == 0:
     torch.save(out, out_path)
 dist.destroy_process_group()
@@ -395,32 +536,46 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _by_mesh() -> dict:
+    """CASES grouped by mesh, so that one set of ranks runs a mesh's cases."""
+    meshes: dict = {}
+    for case, (sizes, extra) in CASES.items():
+        key = json.dumps(sizes)
+        meshes.setdefault(key, (sizes, []))[1].append((case, dict(MOE, **extra)))
+    return meshes
+
+
 @pytest.fixture(scope="module")
 def sharded_runs(ref, tmp_path_factory):
-    """For every mesh: JAX's loss and gradients on it at each factor, and
-    the port's ranks on the same weights and batch."""
+    """For every case: JAX's loss, gradients and routing on its mesh at each
+    factor, and the port's ranks on the same weights and batch.  Each
+    mesh's ranks start first and run while the JAX side computes."""
     ref_tr = ref[1]
     work = tmp_path_factory.mktemp("moe")
+    params = {f: params_from_jax(_jax_params(ref_tr, f)) for f in FACTORS}
     runs = {}
-    for mesh_name, sizes in MESHES.items():
-        jax_side, params = {}, {}
-        for factor in FACTORS:
-            loss, grads, host = _jax_loss_grads(ref_tr, factor, sizes)
-            jax_side[factor] = {"loss": loss, "grads": grads,
-                                "gates": _jax_layer_gates(ref_tr, host, factor)}
-            params[factor] = params_from_jax(host)
-        data_path, out_path = str(work / f"{mesh_name}.pt"), str(work / f"{mesh_name}_out.pt")
-        torch.save({"cfg": MOE, "params": params, "factors": FACTORS,
+    for m, (sizes, cases) in enumerate(_by_mesh().values()):
+        data_path, out_path = str(work / f"mesh{m}.pt"), str(work / f"mesh{m}_out.pt")
+        torch.save({"sizes": sizes, "cases": cases, "params": params, "factors": FACTORS,
                     "batch": _tb(_batch())}, data_path)
         world = int(np.prod(list(sizes.values())))
         port = _free_port()
         env = dict(os.environ, TPUFT_REPO=REPO, OMP_NUM_THREADS="1")
         procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), str(world), str(port),
-                                   data_path, out_path, json.dumps(sizes)], env=env,
+                                   data_path, out_path], env=env,
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for r in range(world)]
         outs = []
         try:
+            jax_side = {}
+            for case, cfg_kw in cases:
+                jax_side[case] = {}
+                for factor in FACTORS:
+                    loss, grads, host = _jax_loss_grads(ref_tr, factor, sizes, cfg_kw)
+                    jax_side[case][factor] = {
+                        "loss": loss, "grads": grads,
+                        "gates": _jax_layer_gates(ref_tr, host, factor, cfg_kw,
+                                                  sizes.get("sequence", 1))}
             for proc in procs:
                 outs.append(proc.communicate(timeout=JOIN_S)[0])
         finally:
@@ -430,13 +585,18 @@ def sharded_runs(ref, tmp_path_factory):
                     proc.wait()
         for proc, out in zip(procs, outs):
             assert proc.returncode == 0, out[-4000:]
-        runs[mesh_name] = {"jax": jax_side, "port": torch.load(out_path)}
+        port_side = torch.load(out_path)
+        for case, _ in cases:
+            runs[case] = {"jax": jax_side[case], "port": port_side[case]}
     return runs
 
 
 @pytest.mark.parametrize("factor", FACTORS)
-@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("mesh_name", list(CASES))
 def test_sharded_moe_routes_the_whole_batch(sharded_runs, mesh_name, factor) -> None:
+    """Every layer's gate indices gathered over the ranks equal JAX's on the
+    same mesh, and its kept choices the drop rule's over the group's tokens
+    in the order they arrive."""
     run = sharded_runs[mesh_name]
     layers = run["port"][factor]["layers"]
     for layer, want in zip(layers, run["jax"][factor]["gates"]):
@@ -451,7 +611,7 @@ def test_sharded_moe_routes_the_whole_batch(sharded_runs, mesh_name, factor) -> 
 
 
 @pytest.mark.parametrize("factor", FACTORS)
-@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("mesh_name", list(CASES))
 def test_sharded_moe_loss_and_grads_match_jax(sharded_runs, mesh_name, factor) -> None:
     run = sharded_runs[mesh_name]
     port, jax_side = run["port"][factor], run["jax"][factor]

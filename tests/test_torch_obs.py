@@ -22,6 +22,9 @@
 - Profile: ``tools/profile_step`` parses a Chrome trace in
   ``torch.profiler``'s layout, refuses one without device events, and
   reports a live CPU capture's device part as absent.
+- Lint: ``tools/metrics_lint`` exits 0 (every family the port's
+  lighthouse and worker endpoint export is documented), and its family set
+  equals the JAX lint's (``tools/metrics_lint.py``), computed here.
 """
 
 from __future__ import annotations
@@ -670,3 +673,26 @@ def test_profile_capture_asks_for_the_card_by_default() -> None:
         pytest.skip("a card is present: the default capture would run on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_step.capture(os.devnull, steps=1)
+
+
+def test_metrics_lint_clean(capsys) -> None:
+    from torchft_tpu_torch.tools import metrics_lint
+
+    assert metrics_lint.main([]) == 0
+    assert "all documented" in capsys.readouterr().out
+
+
+def test_metrics_lint_families_equal_jax() -> None:
+    """The port's lighthouse and worker families are the JAX lint's scrape,
+    family for family."""
+    from torchft_tpu_torch.tools import metrics_lint
+
+    import_reference("torchft_tpu._native")
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import metrics_lint as jax_lint
+    finally:
+        sys.path.pop(0)
+    want = jax_lint.lighthouse_families() | jax_lint.worker_families()
+    got = metrics_lint.lighthouse_families() | metrics_lint.worker_families()
+    assert want and got == want, sorted(got ^ want)

@@ -1,6 +1,7 @@
 """Replica-group launcher and restart supervisor.
 
-The counterpart of ``torchft_tpu/launch.py``, without the JobSet spec.
+The counterpart of ``torchft_tpu/launch.py``; ``--dump-spec`` prints the
+job as a GPU JobSet manifest (``spec.py``) instead of launching it.
 ``Launcher`` starts one process per replica group with the environment
 contract every group reads (``REPLICA_GROUP_ID``, ``NUM_REPLICA_GROUPS``,
 ``TPUFT_LIGHTHOUSE``, ``MASTER_ADDR``, ``TPUFT_DRAIN_DIR``), optionally
@@ -744,12 +745,37 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--watcher-act", action="store_true",
                         help="let the watcher execute its one actionable policy (a "
                         "cooperative drain); the rest stays dry-run (also TPUFT_WATCHER_ACT=1)")
+    spec = parser.add_argument_group(
+        "scheduler spec generation",
+        "--dump-spec renders the same env contract as a GKE JobSet manifest (one GPU Job per "
+        "replica group + a lighthouse) instead of launching locally")
+    spec.add_argument("--dump-spec", action="store_true",
+                      help="print a JobSet YAML manifest for this job and exit")
+    spec.add_argument("--name", default="tpuft", help="JobSet name")
+    spec.add_argument("--hosts-per-group", type=int, default=1,
+                      help="hosts per replica group (TPUFT_NUM_HOSTS)")
+    spec.add_argument("--image", default="REPLACE_ME_IMAGE")
+    spec.add_argument("--gpu-accelerator", default="nvidia-h100-80gb",
+                      help="the GPU node label (cloud.google.com/gke-accelerator)")
+    spec.add_argument("--gpus-per-host", type=int, default=8,
+                      help="nvidia.com/gpu each worker pod asks for")
     parser.add_argument("cmd", nargs=argparse.REMAINDER,
                         help="-- <command of one replica group>")
     args = parser.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd and args.cmd[0] == "--" else args.cmd
     if not cmd:
         parser.error("missing replica-group command (after --)")
+
+    if args.dump_spec:
+        from torchft_tpu_torch.spec import dump_yaml, jobset_spec
+
+        print(dump_yaml(jobset_spec(
+            cmd, name=args.name, num_groups=args.groups, hosts_per_group=args.hosts_per_group,
+            image=args.image, gpu_accelerator=args.gpu_accelerator,
+            gpus_per_host=args.gpus_per_host,
+            max_restarts=args.max_restarts if args.max_restarts is not None else 10,
+            min_replicas=args.min_replicas)), end="")
+        return 0
 
     launcher = Launcher(
         cmd, args.groups, lighthouse=args.lighthouse, max_restarts=args.max_restarts,

@@ -34,10 +34,10 @@ averaged over the axis (K4/K5 on each rank's rows).  Without such an axis
 ``remat`` (on by default, as in the JAX package) recomputes each block in
 the backward through ``torch.utils.checkpoint``.  ``moe_experts`` > 0
 makes each block's MLP a mixture of experts (``models/moe.py``, the JAX
-``moe_ffn``), its stacked experts placed over the "expert" axis, and the
-loss adds ``moe_aux_coef`` times the load-balance term summed over the
-layers.  The JAX config's ``scan_unroll`` has no eager counterpart: the
-blocks run as a Python loop.
+``moe_ffn``), its stacked experts placed over the "expert" axis and their
+MLP dim over "tensor", and the loss adds ``moe_aux_coef`` times the
+load-balance term summed over the layers.  The JAX config's
+``scan_unroll`` has no eager counterpart: the blocks run as a Python loop.
 """
 
 from __future__ import annotations
@@ -215,13 +215,16 @@ class Block(nn.Module):
         attn = _attend(cfg, self.ftmesh, q, k, v)
         x = x + out(proj(self.wo, attn.transpose(1, 2).reshape(B, S, -1)))
 
-        h = into(rms_norm(x, w(self.mlp_norm)))
+        h = rms_norm(x, w(self.mlp_norm))
         if cfg.moe_experts > 0:
+            # Routed before the tensor axis's copy_to: every "tensor" rank
+            # routes alike, and moe_ffn places the F-slice's own pair.
             y, aux = moe_ffn(h, w(self.router), w(self.w_gate), w(self.w_up), w(self.w_down),
                              top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
                              dtype=dt, ftmesh=self.ftmesh, record=self.moe_record,
                              route=self.moe_route)
             return x + y, aux
+        h = into(h)
         return x + out(proj(self.w_down, F.silu(proj(self.w_gate, h)) * proj(self.w_up, h))), None
 
 
@@ -474,35 +477,24 @@ def parallelize(model: Transformer, ftmesh: Any) -> Transformer:
     rank's share (module docstring).  Feed each rank its slice of the
     group's batch (``ftmesh.batch_shard``), and over "sequence" its slice
     of each sequence (``data.shard_sequence``).  In place; returns
-    ``model``.  A mixture-of-experts model composes with "data", "fsdp" and
-    "expert"; over "tensor" or "sequence" above 1 it raises
-    ``NotImplementedError``.  Over "sequence" above 1 attention must be
-    "ring" or "ulysses": "flash" would attend each rank's slice alone, and
-    raises ``ValueError``."""
+    ``model``.  A mixture-of-experts model composes with every axis but
+    "pipeline" (``pipeline_stage`` refuses it).  Over "sequence" above 1
+    attention must be "ring" or "ulysses": "flash" would attend each rank's
+    slice alone, and raises ``ValueError``."""
     if ftmesh.mesh is None:
         return model
     cfg = model.cfg
     tp = ftmesh.size("tensor")
-    if ftmesh.size("sequence") > 1:
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "the mixture of experts over a 'sequence' axis above 1 is not ported yet "
-                "(ROADMAP Q1.4 (d)): moe_ffn routes over the group's batch, and its counts "
-                "would need the sequence axis too")
-        if cfg.attention == "flash":
-            raise ValueError("attention 'flash' over a 'sequence' axis above 1 attends each "
-                             "rank's slice alone; use attention='ring' or 'ulysses'")
+    if ftmesh.size("sequence") > 1 and cfg.attention == "flash":
+        raise ValueError("attention 'flash' over a 'sequence' axis above 1 attends each "
+                         "rank's slice alone; use attention='ring' or 'ulysses'")
     for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                     ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"{what} {n} does not divide over tensor {tp}")
-    if cfg.moe_experts > 0:
-        if tp > 1:
-            raise NotImplementedError("the mixture of experts over a 'tensor' axis above 1 is "
-                                      "not ported yet (ROADMAP Q1.4 (a))")
-        if cfg.moe_experts % ftmesh.size("expert"):
-            raise ValueError(f"moe_experts {cfg.moe_experts} does not divide over expert "
-                             f"{ftmesh.size('expert')}")
+    if cfg.moe_experts > 0 and cfg.moe_experts % ftmesh.size("expert"):
+        raise ValueError(f"moe_experts {cfg.moe_experts} does not divide over expert "
+                         f"{ftmesh.size('expert')}")
     ftmesh.shard_params(model, param_axes(cfg))
     model.ftmesh = ftmesh
     for layer in model.layers:
